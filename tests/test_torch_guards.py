@@ -1,0 +1,132 @@
+"""Guards of the PyTorch port: no JAX, no nvcc or GPU needed to import,
+plain versions only for CPU tensors, and a chip smoke test that refuses
+to run without a card."""
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import vulcan_tpu_torch as P
+from vulcan_tpu_torch.ops import cuda_kernels, preprocess, splat
+
+from ._torch_port import CAM_T, CFG_T, H, W, orbit, scene, se3_t
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "vulcan_tpu_torch"
+
+
+def _run(code: str, env=None, cwd=ROOT):
+    return subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=cwd, env=env, timeout=300,
+    )
+
+
+def test_import_pulls_in_no_jax():
+    mods = ", ".join(
+        "vulcan_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
+        for p in sorted(PKG.rglob("*.py")) if p.name != "__init__.py"
+    )
+    proc = _run(
+        "import importlib, sys\n"
+        f"for m in '{mods}'.split(', '): importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'vulcan_tpu' or m.startswith('vulcan_tpu.')]\n"
+        "print('BAD', bad)\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout, proc.stdout
+
+
+def test_sources_name_no_jax():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|vulcan_tpu)(\s|\.|$)", re.M)
+    for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
+        assert not pat.search(path.read_text()), path
+
+
+def test_kernel_module_imports_without_nvcc_or_gpu(tmp_path):
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path / "none"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = _run(
+        "from vulcan_tpu_torch.ops import cuda_kernels as k\n"
+        "import torch\n"
+        "assert k._lib is None and not torch.cuda.is_available()\n"
+        "print(k.library_path().name)\n",
+        env=env,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "libvulcan_tpu_torch.so" in proc.stdout
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """No nvcc: building raises a clear error, nothing falls back."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "none"))
+    monkeypatch.setattr(cuda_kernels, "DEFAULT_NVCC", tmp_path / "nvcc")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_kernels._nvcc()
+
+
+@pytest.mark.parametrize("launch", ["bilateral", "fill_smooth"])
+def test_kernel_entry_refuses_cpu_tensors(launch):
+    """A CUDA entry point given a CPU tensor raises before anything is
+    built or loaded (the wrappers never send it one)."""
+    fn = {
+        "bilateral": lambda x: cuda_kernels.bilateral(x, [1.0] * 25, 2, 200.0),
+        "fill_smooth": lambda x: cuda_kernels.fill_smooth(x, 2, 0.08, 0.02),
+    }[launch]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fn(torch.ones((8, 8)))
+    assert cuda_kernels._lib is None
+
+
+def test_cpu_step_launches_no_kernel():
+    """A whole CPU step goes through the plain versions: both launch
+    counters stay at 0."""
+    poses = orbit(2)
+    pipe = P.Pipeline(CFG_T, CAM_T, H, W, init_pose=se3_t(poses[0]))
+    b0, f0 = preprocess.bilateral_filter.launches, splat._fill_and_smooth.launches
+    for pose in poses:
+        d, c = scene(pose)
+        pipe.process(d, c)
+    assert preprocess.bilateral_filter.launches == b0 == 0
+    assert splat._fill_and_smooth.launches == f0 == 0
+    assert pipe.diagnostics()["frame"] == 2
+
+
+def test_uint16_uint8_input_equals_float_input():
+    """Raw sensor dtypes convert on the device to the same metric frame."""
+    pose = orbit(1)[0]
+    d, c = scene(pose)
+    d16 = np.clip(d * 5000.0, 0, 65535).astype(np.uint16)
+    c8 = np.clip(c * 255.0, 0, 255).astype(np.uint8)
+    as_f32 = (
+        d16.astype(np.float32) * np.float32(1.0 / 5000.0),
+        c8.astype(np.float32) * np.float32(1.0 / 255.0),
+    )
+    depths = []
+    for depth, color in ((d16, c8), as_f32):
+        pipe = P.Pipeline(CFG_T, CAM_T, H, W, init_pose=se3_t(pose))
+        pipe.process(depth, color)
+        depths.append(pipe.state.model.depth.numpy())
+    assert (depths[0] > 0).mean() > 0.3
+    np.testing.assert_array_equal(depths[0], depths[1])
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    for cwd in (ROOT, tmp_path):
+        script = ROOT / "chip_smoke.py"
+        if cwd == tmp_path:
+            script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+        proc = subprocess.run(
+            [sys.executable, str(script)], capture_output=True, text=True,
+            cwd=cwd, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), timeout=300,
+        )
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout

@@ -1,0 +1,116 @@
+"""The splat renderer (kernel K2's module) held against the JAX package."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import vulcan_tpu_torch as P
+from vulcan_tpu.config import TINY as J_TINY
+from vulcan_tpu.core.frame import make_frame
+from vulcan_tpu.ops import allocate as jal
+from vulcan_tpu.ops import blocks as jB
+from vulcan_tpu.ops import sparse as jsp
+from vulcan_tpu.ops import splat as jsplat
+from vulcan_tpu_torch.ops import allocate as tal
+from vulcan_tpu_torch.ops import blocks as tB
+from vulcan_tpu_torch.ops import splat as tsplat
+
+from ._torch_port import CAM_J, CAM_T, CFG_J, CFG_T, H, W, jflat, orbit, scene, se3_t, t
+
+
+@pytest.fixture(scope="module")
+def holed_zbuf():
+    """tests/test_sparse.py's kernel input: 25% +inf holes."""
+    rng = np.random.default_rng(5)
+    d = rng.uniform(0.5, 3.0, (48, 128)).astype(np.float32)
+    d[rng.random((48, 128)) < 0.25] = np.inf
+    return d
+
+
+def test_fill_smooth_matches_reference_math(holed_zbuf):
+    ref = np.asarray(jsplat._fill_smooth_math(jnp.asarray(holed_zbuf), J_TINY))
+    out = tsplat._fill_and_smooth(t(holed_zbuf), P.TINY).numpy()
+    # Min/max are exact and the smoothing sum runs in the reference's
+    # order: filled pixels are identical, smoothed ones within an ulp.
+    np.testing.assert_array_equal(np.isfinite(out), np.isfinite(ref))
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+
+
+def test_fill_smooth_matches_reference_pallas_interpret(holed_zbuf):
+    ref = np.asarray(
+        jsplat._fill_smooth_pallas(jnp.asarray(holed_zbuf), J_TINY, interpret=True)
+    )
+    out = tsplat._fill_and_smooth(t(holed_zbuf), P.TINY).numpy()
+    np.testing.assert_array_equal(np.isfinite(out), np.isfinite(ref))
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+
+
+def test_cpu_tensor_takes_plain_fill_smooth_and_counts_no_launch(holed_zbuf):
+    before = tsplat._fill_and_smooth.launches
+    tsplat._fill_and_smooth(t(holed_zbuf), P.TINY)
+    assert tsplat._fill_and_smooth.launches == before == 0
+
+
+@pytest.fixture(scope="module")
+def fused_volume():
+    """The reference's volume after fusing two orbit frames at their true
+    poses, with the visible list of the second."""
+    poses = orbit(3)
+    jv = jB.create_volume(CFG_J)
+    for pose in poses[1:]:
+        d, c = scene(pose)
+        frame = make_frame(jnp.asarray(d), jnp.asarray(c), CAM_J, pose)
+        jv, band, n_band = jal.allocate_for_frame(jv, frame.depth, CAM_J, pose, CFG_J)
+        jv = jal.update_visibility(jv, CAM_J, pose, H, W, CFG_J)
+        jv = jsp.integrate_sparse(jv, frame, CFG_J, ids=band, count=n_band)
+    return jv, poses[2]
+
+
+def test_surfel_block_list_exact(fused_volume):
+    jv, _ = fused_volume
+    tv = tB.VolumeState(**{k: t(v) for k, v in jflat(jv).items()})
+    ids_j, n_j = jsplat._surfel_block_list(jv, CFG_J)
+    ids_t, n_t = tsplat._surfel_block_list(tv, CFG_T)
+    np.testing.assert_array_equal(ids_t.numpy(), np.asarray(ids_j))
+    assert int(n_t) == int(n_j) > 0
+
+
+def test_render_splat_matches_reference(fused_volume):
+    """Depth-mode render (``with_color=False``) of one volume state at a
+    novel pose, slightly off the fused trajectory."""
+    jv, pose_j = fused_volume
+    tv = tB.VolumeState(**{k: t(v) for k, v in jflat(jv).items()})
+    pose_t = se3_t(pose_j)
+    # Re-run visibility on both sides from the carried state (exact).
+    jv = jal.update_visibility(jv, CAM_J, pose_j, H, W, CFG_J)
+    tv = tal.update_visibility(tv, CAM_T, pose_t, H, W, CFG_T)
+    rj = jsplat.render_splat(jv, CAM_J, pose_j, H, W, CFG_J, with_color=False)
+    rt = tsplat.render_splat(tv, CAM_T, pose_t, H, W, CFG_T)
+
+    zj = np.asarray(jsplat._splat_zbuf_surfels(jv, CAM_J, pose_j, H, W, CFG_J))
+    zt = tsplat._splat_zbuf_surfels(tv, CAM_T, pose_t, H, W, CFG_T).numpy()
+    # The z-buffer is a scatter-min of rounded surfel projections: a
+    # projection within an ulp of a pixel boundary (the reference fuses
+    # the rotation's a*b+c into FMAs, PyTorch's CPU ops do not) lands one
+    # pixel over.  At most 0.1% of pixels may differ, by < 2 voxels.
+    assert np.mean(np.isfinite(zt) != np.isfinite(zj)) < 1e-3
+    both = np.isfinite(zt) & np.isfinite(zj)
+    assert np.mean(np.abs(zt[both] - zj[both]) > 1e-5) < 1e-3
+    assert np.abs(zt[both] - zj[both]).max() < 2 * CFG_T.voxel_size
+
+    valid_j, valid_t = np.asarray(rj.valid), rt.valid.numpy()
+    assert valid_j.sum() > 0.3 * H * W
+    assert np.mean(valid_j != valid_t) < 1e-3
+    both = valid_j & valid_t
+    for name, tol, frac in (("depth", 1e-5, 2e-3), ("vx", 1e-5, 2e-3),
+                            ("vy", 1e-5, 2e-3), ("vz", 1e-5, 2e-3),
+                            ("nx", 1e-3, 5e-3), ("ny", 1e-3, 5e-3),
+                            ("nz", 1e-3, 5e-3)):
+        a = getattr(rt, name).numpy()[both]
+        b = np.asarray(getattr(rj, name))[both]
+        # The hole fill and smoothing compare depths against 2 mu and
+        # mu/2: an ulp on either side flips a pixel's choice (a filled or
+        # averaged depth up to ~1 cm away; normals follow through the 3x3
+        # windows).  Hold the bulk to float32 rounding, the rest to 0.2%
+        # of pixels (0.5% for the normals' wider footprint).
+        assert np.mean(np.abs(a - b) > tol) < frac, name
+    np.testing.assert_array_equal(rt.color.numpy(), np.zeros((H, W, 3), np.float32))

@@ -1,0 +1,249 @@
+"""Surfel-splatting model renderer, depth-mode branches.
+
+Counterpart of the depth-mode path of ``vulcan_tpu/ops/splat.py``
+(``render_splat`` with ``with_color=False``, ``normals="cross"``,
+``splat_source="surfels"``, no polish):
+
+  1. ``_surfel_block_list``: visible blocks with a nonempty persistent
+     surfel list (maintained by integration);
+  2. ``_splat_zbuf_surfels``: project every surfel (z_surf = z_voxel +
+     tsdf * mu on the voxel's own ray) and scatter-min its depth into a
+     float32 z-buffer, in two tiers over the surfel slots;
+  3. ``_fill_and_smooth`` (kernel K2 on the card): hole fill and
+     edge-aware smoothing of the z-buffer;
+  4. cross-product normals from the vertex map, 3x3 normal smoothing.
+
+The colour/luma and cached/direct variants are still to be ported
+(ROADMAP.md).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..config import Config
+from ..core.camera import PinholeCamera
+from ..core.se3 import SE3
+from ..utils.sync import read_ints
+from . import blocks as B
+from . import cuda_kernels
+from .allocate import compact_mask
+from .dense import round_to_int
+from .preprocess import _shift2d
+from .raycast import Render, _cross_normals_axes
+
+
+def _surfel_block_list(volume: B.VolumeState, config: Config):
+    """Visible blocks with a nonempty persistent surfel list, compacted."""
+    ids = volume.visible_ids
+    V = ids.shape[0]
+    rowv = (torch.arange(V, device=ids.device) < volume.num_visible) & (ids > 0)
+    has_surf = rowv & (volume.surf_count[ids.to(torch.int64)] > 0)
+    n_surf = torch.sum(has_surf).to(torch.int32)
+    return compact_mask(has_surf, ids, V, 0), n_surf
+
+
+def _splat_zbuf_surfels(
+    volume: B.VolumeState,
+    camera: PinholeCamera,
+    pose: SE3,
+    height: int,
+    width: int,
+    config: Config,
+) -> torch.Tensor:
+    """Float32 z-buffer (H*W,), +inf = empty, from the persistent surfel
+    lists.  Tier 1 scatters slots [0, S/2) of every surface block, tier 2
+    slots [S/2, S) of the blocks that use them.  The tiers' lengths are
+    read on the host (one counted read) to size the chunk loops."""
+    vs = config.voxel_size
+    mu = config.trunc_dist
+    S = config.surfel_slots
+    w2c = pose.inverse()
+    R = w2c.rotation
+    tr = w2c.translation
+    cw = pose.translation                       # camera centre, world
+    dev = volume.tsdf.device
+    npix = height * width
+
+    render_ids, n_surf = _surfel_block_list(volume, config)
+    V = render_ids.shape[0]
+    s1 = S // 2
+    full = volume.surf_count[render_ids.to(torch.int64)] > s1
+    rowv = (torch.arange(V, device=dev) < n_surf) & full
+    ids2 = compact_mask(rowv, render_ids, V, 0)
+    n2 = torch.sum(rowv).to(torch.int32)
+    n_surf_h, n2_h = read_ints(n_surf, n2)
+
+    # Index npix is a trash slot for masked lanes (sliced off at the end).
+    zbuf = torch.full((npix + 1,), float("inf"), dtype=torch.float32, device=dev)
+
+    def scatter_tier(ids_list, n_list, s_lo, s_hi, chunk):
+        C = min(chunk, ids_list.shape[0])
+        for i in range((n_list + C - 1) // C):
+            start = i * C
+            ids = ids_list[start:start + C].to(torch.int64)
+            rv = (start + torch.arange(C, device=dev) < n_list) & (ids > 0)
+            rows = volume.surfpack[ids][:, s_lo:s_hi]
+            lidx, t, valid, (gx, gy, gz) = B.unpack_surfels(rows)
+            valid = valid & rv[:, None]
+            coords = volume.block_coords[ids].to(torch.float32)  # (C, 3)
+
+            lx = (lidx // 64).to(torch.float32)
+            ly = ((lidx // 8) % 8).to(torch.float32)
+            lz = (lidx % 8).to(torch.float32)
+            wx = (coords[:, 0:1] * 8 + lx) * vs
+            wy = (coords[:, 1:2] * 8 + ly) * vs
+            wz = (coords[:, 2:3] * 8 + lz) * vs
+            cx = R[0, 0] * wx + R[0, 1] * wy + R[0, 2] * wz + tr[0]
+            cy = R[1, 0] * wx + R[1, 1] * wy + R[1, 2] * wz + tr[1]
+            cz = R[2, 0] * wx + R[2, 1] * wy + R[2, 2] * wz + tr[2]
+
+            z_surf = cz + t * mu
+            # Back-face cull: the stored orientation points outward; a
+            # surfel facing away from the camera must not write depth.
+            if config.splat_backface_cull:
+                back = (
+                    gx * (wx - cw[0]) + gy * (wy - cw[1]) + gz * (wz - cw[2])
+                ) > 0.0
+            else:
+                back = torch.zeros_like(valid)
+            zok = (
+                valid
+                & ~back
+                & (z_surf > config.ray_near)
+                & (z_surf < config.ray_far)
+                & (cz > 1e-6)
+            )
+            zc = torch.clamp(cz, min=1e-6)
+            u = round_to_int(camera.fx * cx / zc + camera.cx)
+            v = round_to_int(camera.fy * cy / zc + camera.cy)
+            inb = (u >= 0) & (u < width) & (v >= 0) & (v < height) & zok
+            pix = torch.where(inb, v * width + u, npix)
+            zbuf.scatter_reduce_(
+                0,
+                pix.reshape(-1),
+                torch.where(inb, z_surf, float("inf")).reshape(-1),
+                "amin",
+            )
+
+    scatter_tier(render_ids, n_surf_h, 0, s1, 2048)
+    scatter_tier(ids2, n2_h, s1, S, 512)
+    return zbuf[:npix]
+
+
+def _fill_smooth_math(d: torch.Tensor, config: Config) -> torch.Tensor:
+    """Plain PyTorch version of kernel K2 (``d``: depth, +inf = invalid).
+
+    Fill only where the 3x3 neighbourhood agrees on one surface (filling
+    across a silhouette would bleed depth); then average valid neighbours
+    within half a truncation band."""
+    mu = config.trunc_dist
+    inf = float("inf")
+    for _ in range(config.splat_fill_rounds):
+        best = d
+        worst = torch.where(torch.isfinite(d), d, -inf)
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                if dx == 0 and dy == 0:
+                    continue
+                n_d = _shift2d(d, dy, dx, fill=inf)
+                best = torch.minimum(best, n_d)
+                worst = torch.maximum(
+                    worst, torch.where(torch.isfinite(n_d), n_d, -inf)
+                )
+        consistent = (worst - best) < 2.0 * mu
+        d = torch.where(torch.isfinite(d) | ~consistent, d, best)
+    fin = torch.isfinite(d)
+    acc = torch.where(fin, d, 0.0)
+    cnt = fin.to(torch.float32)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dx == 0 and dy == 0:
+                continue
+            n_d = _shift2d(d, dy, dx, fill=inf)
+            ok = torch.isfinite(n_d) & (torch.abs(n_d - d) < 0.5 * mu)
+            acc = acc + torch.where(ok, n_d, 0.0)
+            cnt = cnt + ok
+    return torch.where(fin, acc / torch.clamp(cnt, min=1.0), d)
+
+
+def _fill_and_smooth(d: torch.Tensor, config: Config) -> torch.Tensor:
+    """Post-splat hole fill + smoothing.  A CPU tensor takes the plain
+    version; a CUDA tensor launches kernel K2 (``csrc/fill_smooth.cu``) and
+    counts the launch in ``_fill_and_smooth.launches``.  Anything the
+    kernel does not take raises."""
+    if d.device.type == "cpu":
+        return _fill_smooth_math(d, config)
+    mu = config.trunc_dist
+    out = cuda_kernels.fill_smooth(d, config.splat_fill_rounds, 2.0 * mu, 0.5 * mu)
+    _fill_and_smooth.launches += 1
+    return out
+
+
+_fill_and_smooth.launches = 0
+
+
+def render_splat(
+    volume: B.VolumeState,
+    camera: PinholeCamera,
+    pose: SE3,
+    height: int,
+    width: int,
+    config: Config,
+) -> Render:
+    """Render depth-mode model maps by surfel splatting (the reference's
+    ``render_splat`` with ``normals="cross"`` and ``with_color=False``)."""
+    zbuf = _splat_zbuf_surfels(volume, camera, pose, height, width, config)
+    inf = float("inf")
+    depth = zbuf.reshape(height, width)
+    has = torch.isfinite(depth)
+    d = _fill_and_smooth(torch.where(has, depth, inf), config)
+    depth = torch.where(torch.isfinite(d), d, 0.0)
+    hit = depth > 0.0
+
+    rays_world = pose.rotate(camera.rays(height, width, depth.device))
+    dx_, dy_, dz_ = rays_world[..., 0], rays_world[..., 1], rays_world[..., 2]
+    origin = pose.translation
+    t_surf = depth
+    px = origin[0] + t_surf * dx_
+    py = origin[1] + t_surf * dy_
+    pz = origin[2] + t_surf * dz_
+
+    nx, ny, nz, n_ok = _cross_normals_axes(px, py, pz, hit)
+    flip = nx * dx_ + ny * dy_ + nz * dz_ > 0.0
+    sign = torch.where(flip, -1.0, 1.0)
+    nx, ny, nz = nx * sign, ny * sign, nz * sign
+
+    # Normal smoothing (vector mean over the valid 3x3, renormalized).
+    ax = torch.where(n_ok, nx, 0.0)
+    ay = torch.where(n_ok, ny, 0.0)
+    az = torch.where(n_ok, nz, 0.0)
+    sx_, sy_, sz_ = ax, ay, az
+    for ddy in (-1, 0, 1):
+        for ddx in (-1, 0, 1):
+            if ddx == 0 and ddy == 0:
+                continue
+            sx_ = sx_ + _shift2d(ax, ddy, ddx)
+            sy_ = sy_ + _shift2d(ay, ddy, ddx)
+            sz_ = sz_ + _shift2d(az, ddy, ddx)
+    nrm = torch.sqrt(sx_ * sx_ + sy_ * sy_ + sz_ * sz_)
+    good = (nrm > 1e-6) & n_ok
+    inv = 1.0 / torch.clamp(nrm, min=1e-6)
+    nx = torch.where(good, sx_ * inv, nx)
+    ny = torch.where(good, sy_ * inv, ny)
+    nz = torch.where(good, sz_ * inv, nz)
+
+    valid = hit & n_ok
+    zero = torch.zeros((), device=depth.device)
+    return Render(
+        depth=torch.where(valid, t_surf, zero),
+        vx=torch.where(valid, px, zero),
+        vy=torch.where(valid, py, zero),
+        vz=torch.where(valid, pz, zero),
+        nx=torch.where(valid, nx, zero),
+        ny=torch.where(valid, ny, zero),
+        nz=torch.where(valid, nz, zero),
+        color=torch.zeros((height, width, 3), device=depth.device),
+        valid=valid,
+        camera=camera,
+        pose=pose,
+    )
