@@ -8,9 +8,15 @@ Run from the root of a checkout.  Phases, each printed as it runs:
   0. device: nvidia-smi name/power limit, compute capability;
      no CUDA device -> exit 1, no result printed;
   1. build: nvcc builds the CUDA kernels from csrc/ (build/ is the cache);
-  2. kernels: each hand-written kernel against its plain PyTorch version
-     on the card at the main path's shape (640x480), max abs error against
-     the stated tolerance, and both timed with CUDA events;
+  2. kernels: each main-path kernel (K1, K2) against its plain PyTorch
+     version on the card at the main path's shape (640x480), max abs error
+     against the stated tolerance; its "kernel ms" (device time: 50
+     back-to-back calls queued behind a spin kernel, between two CUDA
+     events, ``vulcan_tpu_torch.tools.timing.device_ms``), its "call ms"
+     (``timing.call_ms``: one wrapper call between two CUDA events, host
+     work included; the kernels line's ``ms``, as in the first slice), the
+     plain version's ms and the least time the card could take (bound ms,
+     from bytes and operations);
   3. main path: Pipeline(Config(), tum_default(), 480, 640) in depth mode
      over the 35-frame synthetic orbit (uint16 depth / uint8 colour in),
      5 warm-up + 30 timed frames; the kernels must have launched once per
@@ -22,6 +28,13 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      and the top kernels from torch.profiler (the step's ``vulcan.<stage>``
      ranges), and the device's idle share; printed and written to
      chiprun_out/profile_stages.json.
+  6. probes: the kernels of the probe entry points (T1 fused fill+smooth,
+     T2-T4 chained gather, T5 stride-2 subsample) against their plain
+     versions at the tools' own shapes (T2-T5 exact, T1 within 1e-6 m of
+     the plain version and of K2), timed like phase 2 (T5 also against its
+     one-call library form); then the three probe entry points
+     (``vulcan_tpu_torch.tools.bench_*.run``) with every probe count set to
+     0, each kernel of them launched at least once.
 
 Every failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -73,20 +86,140 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else out.stderr.strip()
 
 
-def time_cuda(fn, torch, reps: int = 25, warm: int = 5) -> float:
-    """Median ms of ``fn()`` over ``reps`` runs, each between CUDA events."""
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """Least ms the card could take: bytes over the memory rate or
+    operations over the f32 rate, whichever is larger, and which it was."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_kernel(spec: dict, torch) -> dict:
+    """Hold one kernel against its plain version (and any other reference
+    in ``spec["also"]``) on the card, time it and compute its bound; fail
+    on a disagreement.  Returns the kernel's entry of the kernels line:
+    ``ms`` is the call ms, as in the first slice's line, beside
+    ``kernel_ms`` (device time) and ``call_ms``."""
+    from vulcan_tpu_torch.tools.timing import call_ms, device_ms, max_abs_err
+
+    name, tol = spec["name"], spec["tol"]
+    want = spec["plain"]()
+    torch.cuda.synchronize()
+    errs = {"plain": max_abs_err(spec["call"](), want)}
+    for ref_name, ref in spec.get("also", ()):
+        errs[ref_name] = max_abs_err(spec["call"](), ref())
+    torch.cuda.synchronize()
+    kernel_ms = device_ms(spec["call"])
+    call = call_ms(spec["call"])
+    plain_ms = call_ms(spec["plain"])
+    library_ms = call_ms(spec["library"]) if spec.get("library") else None
+    bound_ms, bound_by = bound(spec["bytes"], spec["ops"])
+    err = errs["plain"]
+    print(f"{name}: max_abs_err {', '.join(f'{k} {v:.3e}' for k, v in errs.items())} "
+          f"(tol {tol:g}); kernel {kernel_ms:.4f} ms (device) call {call:.4f} ms "
+          f"(host included) plain {plain_ms:.4f} ms library "
+          f"{'none' if library_ms is None else f'{library_ms:.4f} ms'} bound "
+          f"{bound_ms:.5f} ms ({bound_by})", flush=True)
+    for k, v in errs.items():
+        if not v <= tol:
+            fail(f"{name}: max abs error against {k} {v} above {tol}")
+    entry = dict(name=name, route="cuda", source=spec["source"],
+                 replaces=spec["replaces"], launches=0, max_abs_err=err,
+                 ms=call, kernel_ms=kernel_ms, call_ms=call,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=library_ms)
+    entry.update(spec.get("extra", {}))
+    return entry
+
+
+def fill_smooth_ops(rounds: int) -> int:
+    """f32 operations per pixel of K2/T1: a fill round takes min, isfinite,
+    select and max of 8 taps, then a subtract and a compare; the smoothing
+    pass takes isfinite, subtract, abs, compare and two adds of 8 taps, then
+    a max and a divide."""
+    return rounds * (8 * 4 + 2) + 8 * 6 + 2
+
+
+def probes(P, torch, dev) -> list[dict]:
+    """Phase 6: the probe kernels at the tools' own shapes against their
+    plain versions, then the three probe entry points with every probe
+    count set to 0; each probe kernel must launch there."""
+    from vulcan_tpu_torch.tools import bench_gather, bench_stencil, bench_subsample
+    from vulcan_tpu_torch.tools.timing import device_ms
+
+    scfg = bench_stencil.probe_config(P.Config().trunc_dist)
+    d = bench_stencil.make_input(480, 640, dev)
+    k2_ms = device_ms(lambda: bench_stencil.fill_smooth_k2(d, scfg))
+    specs = [dict(
+        name="fill_smooth_fused", tol=K2_TOL,
+        source="vulcan_tpu_torch/csrc/fill_smooth_fused.cu",
+        replaces="tools/bench_pallas_stencil.py:77",
+        call=lambda: bench_stencil.fill_smooth_fused(d, scfg),
+        plain=lambda: bench_stencil.fill_smooth_plain(d, scfg),
+        also=[("K2", lambda: bench_stencil.fill_smooth_k2(d, scfg))],
+        bytes=2 * d.numel() * 4, ops=d.numel() * fill_smooth_ops(scfg.splat_fill_rounds),
+        extra=dict(k2_kernel_ms_same_input=k2_ms),
+    )]
+    names = {"T2": "gather_smem_f32", "T3": "gather_smem_i32", "T4": "gather_l2_f32"}
+    lines = {"T2": 85, "T3": 115, "T4": 146}
+    for case in bench_gather.make_cases(dev):
+        specs.append(dict(
+            name=names[case.name], tol=0.0, source="vulcan_tpu_torch/csrc/gather.cu",
+            replaces=f"tools/bench_pallas_gather.py:{lines[case.name]}",
+            call=lambda c=case: bench_gather.chained_gather(c.table, c.idx, c.rounds),
+            plain=lambda c=case: bench_gather.chained_gather_plain(c.table, c.idx, c.rounds),
+            bytes=(case.table.numel() + 2 * case.idx.numel()) * 4,
+            # per lookup: convert, two adds, abs, remainder, sum
+            ops=case.lookups * 6,
+            extra=dict(path=bench_gather.launch_key(case.table),
+                       lookups=case.lookups,
+                       gather_x_rounds_ms=device_ms(
+                           lambda c=case: bench_gather.gather_rounds(c))),
+        ))
+    x = bench_subsample.make_input(dev)
+    specs.append(dict(
+        name="subsample2", tol=0.0, source="vulcan_tpu_torch/csrc/subsample.cu",
+        replaces="tools/bench_subsample.py:63",
+        call=lambda: bench_subsample.subsample2(x),
+        plain=lambda: bench_subsample.subsample2_plain(x),
+        library=lambda: x[::2, ::2].contiguous(),
+        # the even rows in (odd columns ride in the same sectors), the output out
+        bytes=((x.shape[0] + 1) // 2 * x.shape[1]
+               + (x.shape[0] + 1) // 2 * ((x.shape[1] + 1) // 2)) * 4,
+        ops=0,
+    ))
+    entries = [check_kernel(spec, torch) for spec in specs]
+    fused = entries[0]
+    print(f"T1 fused {fused['kernel_ms']:.4f} ms vs K2 three launches "
+          f"{k2_ms:.4f} ms, device time, same input", flush=True)
+    for e in entries[1:4]:
+        e["m_lookups_per_s"] = e["lookups"] / e["kernel_ms"] * 1e3 / 1e6
+        print(f"{e['name']}: {e['m_lookups_per_s']:.0f} M lookups/s (device time)",
+              flush=True)
+
+    bench_stencil.fill_smooth_fused.launches = 0
+    bench_subsample.subsample2.launches = 0
+    for k in bench_gather.chained_gather.launches:
+        bench_gather.chained_gather.launches[k] = 0
+    bench_stencil.run(dev)
+    bench_gather.run(dev)
+    bench_subsample.run(dev)
+    counts = {
+        "fill_smooth_fused": bench_stencil.fill_smooth_fused.launches,
+        "subsample2": bench_subsample.subsample2.launches,
+    }
+    for e in entries[1:4]:
+        counts[e["name"]] = bench_gather.chained_gather.launches[e["path"]]
+    print(f"probe entry points' kernel launches {counts}", flush=True)
+    for e in entries:
+        e["launches"] = counts[e["name"]]
+        if e["launches"] < 1:
+            fail(f"{e['name']}: not launched by its probe entry point")
+    return entries
 
 
 def make_frames(P, camera, poses, h, w, device):
@@ -275,30 +408,25 @@ def main() -> None:
     d2[rng.random((480, 640)) < 0.25] = np.inf
     x1 = torch.from_numpy(d1).to(dev)
     x2 = torch.from_numpy(d2).to(dev)
-    kernels = []
-    for kname, src, replaces, wrapper, plain, x, tol in (
-        ("bilateral", "vulcan_tpu_torch/csrc/bilateral.cu",
-         "vulcan_tpu/ops/preprocess.py:116", preprocess.bilateral_filter,
-         preprocess._bilateral_math, x1, K1_TOL),
-        ("fill_smooth", "vulcan_tpu_torch/csrc/fill_smooth.cu",
-         "vulcan_tpu/ops/splat.py:606", splat._fill_and_smooth,
-         splat._fill_smooth_math, x2, K2_TOL),
-    ):
-        got = wrapper(x, cfg)
-        want = plain(x, cfg)
-        torch.cuda.synchronize()
-        if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
-            fail(f"{kname}: finite masks differ from the plain version")
-        fin = torch.isfinite(want)
-        err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
-        ms =time_cuda(lambda: wrapper(x, cfg), torch)
-        plain_ms = time_cuda(lambda: plain(x, cfg), torch)
-        print(f"{kname}: max_abs_err {err:.3e} (tol {tol:g}) kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms", flush=True)
-        if not err <= tol:
-            fail(f"{kname}: max abs error {err} above {tol}")
-        kernels.append(dict(name=kname, route="cuda", source=src, replaces=replaces,
-                            launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms))
+    image_bytes = 2 * x1.numel() * 4          # one image in, one out
+    taps = (2 * cfg.bilateral_radius + 1) ** 2
+    kernels = [
+        check_kernel(dict(
+            name="bilateral", tol=K1_TOL, source="vulcan_tpu_torch/csrc/bilateral.cu",
+            replaces="vulcan_tpu/ops/preprocess.py:116",
+            call=lambda: preprocess.bilateral_filter(x1, cfg),
+            plain=lambda: preprocess._bilateral_math(x1, cfg),
+            # per tap: sub, mul, mul, exp, mul, select, mul, 2 adds, compare
+            bytes=image_bytes, ops=x1.numel() * (taps * 10 + 3),
+        ), torch),
+        check_kernel(dict(
+            name="fill_smooth", tol=K2_TOL, source="vulcan_tpu_torch/csrc/fill_smooth.cu",
+            replaces="vulcan_tpu/ops/splat.py:606",
+            call=lambda: splat._fill_and_smooth(x2, cfg),
+            plain=lambda: splat._fill_smooth_math(x2, cfg),
+            bytes=image_bytes, ops=x2.numel() * fill_smooth_ops(cfg.splat_fill_rounds),
+        ), torch),
+    ]
 
     phase("3 main path: Pipeline.process, default Config, depth mode, 480x640")
     n = N_WARM + N_TIMED
@@ -366,6 +494,9 @@ def main() -> None:
         phase("5 profile (10 steady frames, torch.profiler)")
         profile_stages(P, torch, cfg, cam, poses, frames, dev,
                        os.path.join(ROOT, "chiprun_out"), float(np.median(timed)))
+
+    phase("6 probes: T1-T5 against plain versions, then the probe entry points")
+    kernels += probes(P, torch, dev)
 
     if any(m == "jax" or m.startswith(("jax.", "vulcan_tpu.")) or m == "vulcan_tpu"
            for m in sys.modules):

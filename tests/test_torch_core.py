@@ -143,7 +143,8 @@ def test_synthetic_scene_and_ate_match_reference():
     ct = P.PinholeCamera.create(160.0, 160.0, 99.5, 74.5)
     spheres = (((0.0, 0.0, 0.0), 0.5), ((0.6, 0.3, 0.2), 0.25))
     dj, colj = jsyn.render_scene_depth(cj, jp[2], 150, 200, spheres, -0.6)
-    dt, colt = tsyn.render_scene_depth(ct, tp[2], 150, 200, spheres, -0.6)
+    dt, colt = tsyn.render_scene_depth(ct, tp[2], 150, 200, spheres, -0.6,
+                                       device="cpu")
     np.testing.assert_array_equal(dt.numpy() > 0, np.asarray(dj) > 0)
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=1e-5)
     np.testing.assert_allclose(colt.numpy(), np.asarray(colj), atol=1e-5)

@@ -90,7 +90,7 @@ def test_cpu_step_launches_no_kernel():
     """A whole CPU step goes through the plain versions: both launch
     counters stay at 0."""
     poses = orbit(2)
-    pipe = P.Pipeline(CFG_T, CAM_T, H, W, init_pose=se3_t(poses[0]))
+    pipe = P.Pipeline(CFG_T, CAM_T, H, W, init_pose=se3_t(poses[0]), device="cpu")
     b0, f0 = preprocess.bilateral_filter.launches, splat._fill_and_smooth.launches
     for pose in poses:
         d, c = scene(pose)
@@ -112,7 +112,7 @@ def test_uint16_uint8_input_equals_float_input():
     )
     depths = []
     for depth, color in ((d16, c8), as_f32):
-        pipe = P.Pipeline(CFG_T, CAM_T, H, W, init_pose=se3_t(pose))
+        pipe = P.Pipeline(CFG_T, CAM_T, H, W, init_pose=se3_t(pose), device="cpu")
         pipe.process(depth, color)
         depths.append(pipe.state.model.depth.numpy())
     assert (depths[0] > 0).mean() > 0.3
@@ -130,3 +130,17 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
         )
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+@pytest.mark.parametrize("entry", ["pipeline", "render_scene_depth"])
+def test_entry_point_without_device_needs_a_card(entry, monkeypatch):
+    """With no ``device`` the port's entry points target the card; with no
+    card they raise and name ``device="cpu"``, never falling back."""
+    from vulcan_tpu_torch.io.synthetic import render_scene_depth
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        if entry == "pipeline":
+            P.Pipeline(CFG_T, CAM_T, H, W)
+        else:
+            render_scene_depth(CAM_T, se3_t(orbit(1)[0]), H, W)

@@ -93,7 +93,7 @@ def test_per_frame_handoff_matches_reference(reference_run):
 def test_independent_runs_agree(reference_run):
     """(b) Each side runs alone from the same frames; trajectories agree."""
     poses, frames, states = reference_run
-    pipe = P.Pipeline(CFG_T, CAM_T, H, W, init_pose=se3_t(poses[0]))
+    pipe = P.Pipeline(CFG_T, CAM_T, H, W, init_pose=se3_t(poses[0]), device="cpu")
     est = []
     for d, c in frames:
         pipe.process(d, c)
@@ -156,7 +156,7 @@ def test_to_metric_matches_reference():
 def test_unported_settings_raise(override, mode):
     cfg = dataclasses.replace(CFG_T, **override)
     with pytest.raises(NotImplementedError):
-        P.Pipeline(cfg, CAM_T, H, W, mode=mode)
+        P.Pipeline(cfg, CAM_T, H, W, mode=mode, device="cpu")
 
 
 def test_auto_photo_arming_stops_loudly(reference_run):
@@ -164,7 +164,7 @@ def test_auto_photo_arming_stops_loudly(reference_run):
     touches the volume (the combined slice is not ported)."""
     poses, frames, _ = reference_run
     cfg = dataclasses.replace(CFG_T, auto_photo_enter=0.99)
-    pipe = P.Pipeline(cfg, CAM_T, H, W, init_pose=se3_t(poses[0]))
+    pipe = P.Pipeline(cfg, CAM_T, H, W, init_pose=se3_t(poses[0]), device="cpu")
     pipe.process(*frames[0])
     free = int(pipe.state.volume.free_count)
     with pytest.raises(NotImplementedError, match="combined-mode"):

@@ -11,6 +11,7 @@ import torch
 
 from ..core.camera import PinholeCamera
 from ..core.se3 import SE3
+from ..utils.device import resolve_device
 
 
 def look_at(eye, target, up=(0.0, 0.0, 1.0)) -> SE3:
@@ -63,7 +64,9 @@ def render_scene_depth(
     device=None,
 ):
     """Depth (z-depth, 0 = miss) and colour of a union of spheres plus an
-    optional z=floor_z plane, exact.  Returns (depth (H, W), color (H, W, 3))."""
+    optional z=floor_z plane, exact.  Returns (depth (H, W), color (H, W, 3))
+    on ``device`` (the CUDA card when None)."""
+    device = resolve_device(device)
     pose = pose.to(device)
     d_world = pose.rotate(camera.rays(height, width, device))
     o = pose.translation

@@ -29,10 +29,9 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "vulcan_tpu_torch_kernels"
 # No --use_fast_math: expf and IEEE division keep the kernels within ulps
 # of the plain versions.  -Xptxas -v reports registers/shared memory/spills.
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
@@ -71,29 +70,42 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources if the hashed library is missing; return its
-    path.  The library is written to a temporary name and renamed into
-    place, so a concurrent or interrupted build never leaves a torn file."""
+    path.  Each ``.cu`` file compiles to an object in its own ``nvcc``
+    process, all started together, and one more ``nvcc`` links them.  The
+    library is written to a temporary name and renamed into place, so a
+    concurrent or interrupted build never leaves a torn file."""
     global build_log
     out = library_path()
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    try:
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        jobs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                failed.append(" ".join(cmd))
+        build_log = "".join(logs)
+        if failed:
+            cmds = "\n".join(failed)
+            raise RuntimeError(f"nvcc failed:\n{cmds}\n{build_log}")
+        lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *(obj for _, obj, _ in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
+        build_log += proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                 f"{build_log}"
             )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(lib, out)
     return out
 
 
@@ -104,23 +116,33 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.vulcan_bilateral.argtypes = [p, p, i, i, i, p, f, p]
-            lib.vulcan_bilateral.restype = i
-            lib.vulcan_fill_smooth.argtypes = [p, p, p, p, i, i, i, f, f, p]
-            lib.vulcan_fill_smooth.restype = i
+            for name, args in (
+                ("vulcan_bilateral", [p, p, i, i, i, p, f, p]),
+                ("vulcan_fill_smooth", [p, p, p, p, i, i, i, f, f, p]),
+                ("vulcan_fill_smooth_fused", [p, p, i, i, i, f, f, p]),
+                ("vulcan_chained_gather", [p, p, p, i, i, i, i, i, i, p]),
+                ("vulcan_subsample2", [p, p, i, i, p]),
+            ):
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = i
             _lib = lib
     return _lib
 
 
-def _check_image(x: torch.Tensor, what: str) -> None:
-    if not x.is_cuda:
-        raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{what}: expected float32, got {x.dtype}")
-    if x.ndim != 2:
-        raise ValueError(f"{what}: expected an (H, W) image, got {tuple(x.shape)}")
+def _check(x: torch.Tensor, what: str, dtypes=(torch.float32,), ndim: int = 2) -> None:
+    """Raise on what a kernel does not take: dtype, rank, layout, then a
+    tensor that is not on the card (the wrappers send CPU tensors to the
+    plain versions, never here)."""
+    if x.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{what}: expected {names}, got {x.dtype}")
+    if x.ndim != ndim:
+        raise ValueError(f"{what}: expected {ndim} dims, got shape {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
+    if not x.is_cuda:
+        raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -135,7 +157,7 @@ def _stream(x: torch.Tensor) -> ctypes.c_void_p:
 def bilateral(depth: torch.Tensor, space_w: list[float], radius: int,
               inv_2sd: float) -> torch.Tensor:
     """Launch K1 (``csrc/bilateral.cu``) on an (H, W) float32 CUDA image."""
-    _check_image(depth, "bilateral")
+    _check(depth, "bilateral")
     if len(space_w) != (2 * radius + 1) ** 2:
         raise ValueError("bilateral: need (2r+1)^2 spatial weights")
     lib = load()
@@ -155,7 +177,7 @@ def fill_smooth(d: torch.Tensor, rounds: int, two_mu: float,
                 half_mu: float) -> torch.Tensor:
     """Launch K2 (``csrc/fill_smooth.cu``) on an (H, W) float32 CUDA
     z-buffer (+inf = empty)."""
-    _check_image(d, "fill_smooth")
+    _check(d, "fill_smooth")
     lib = load()
     a = torch.empty_like(d)
     b = torch.empty_like(d)
@@ -166,4 +188,89 @@ def fill_smooth(d: torch.Tensor, rounds: int, two_mu: float,
             d.shape[0], d.shape[1], rounds, two_mu, half_mu, _stream(d),
         )
     _raise_on(err, "fill_smooth")
+    return out
+
+
+# The fused kernel's round count is a template parameter (0..4); the
+# renderer's default is 2.
+FUSED_MAX_ROUNDS = 4
+
+
+def fill_smooth_fused(d: torch.Tensor, rounds: int, two_mu: float,
+                      half_mu: float) -> torch.Tensor:
+    """Launch T1 (``csrc/fill_smooth_fused.cu``): K2's fill rounds and
+    smoothing pass in ONE launch, on an (H, W) float32 CUDA z-buffer."""
+    _check(d, "fill_smooth_fused")
+    if not 0 <= rounds <= FUSED_MAX_ROUNDS:
+        raise ValueError(f"fill_smooth_fused: rounds must be in [0, {FUSED_MAX_ROUNDS}]")
+    lib = load()
+    out = torch.empty_like(d)
+    with torch.cuda.device(d.device):
+        err = lib.vulcan_fill_smooth_fused(
+            d.data_ptr(), out.data_ptr(), d.shape[0], d.shape[1], rounds,
+            two_mu, half_mu, _stream(d),
+        )
+    _raise_on(err, "fill_smooth_fused")
+    return out
+
+
+# Chained gather (T2-T4): a table of at most GATHER_SMEM_ROWS rows is staged
+# in shared memory, GATHER_COLS columns a block (2048 x 16 x 4 B = 128 KB); a
+# taller table is read through L2 (csrc/gather.cu says why).
+GATHER_SMEM_ROWS = 2048
+GATHER_COLS = 16
+
+
+def gather_path(rows: int) -> str:
+    """"smem" or "l2": where the chained gather reads a table of ``rows``."""
+    return "smem" if rows <= GATHER_SMEM_ROWS else "l2"
+
+
+def chained_gather(table: torch.Tensor, idx: torch.Tensor, rounds: int) -> torch.Tensor:
+    """Launch T2-T4 (``csrc/gather.cu``): ``rounds`` chained lookups
+    ``v = table[idx[i, j], j]``, ``idx = |idx + int(v) + k| % T``, summing
+    ``v``.  ``table`` (T, L) float32 or int32, T a power of two, L a
+    multiple of 16, 16-byte aligned; ``idx`` (N, L) int32 with entries in
+    [0, T)."""
+    if table.ndim == 2:
+        t_rows, cols = table.shape
+        if t_rows < 1 or t_rows & (t_rows - 1) or cols % GATHER_COLS:
+            raise ValueError(
+                "chained_gather: the table's height must be a power of two and "
+                f"its width a multiple of {GATHER_COLS}, got {tuple(table.shape)}"
+            )
+    _check(table, "chained_gather table", (torch.float32, torch.int32))
+    _check(idx, "chained_gather idx", (torch.int32,))
+    if table.data_ptr() % 16:
+        raise ValueError("chained_gather: the table must be 16-byte aligned")
+    if idx.shape[1] != table.shape[1]:
+        raise ValueError("chained_gather: table and idx need the same number of columns")
+    if table.device != idx.device:
+        raise ValueError("chained_gather: table and idx on different devices")
+    if rounds < 0:
+        raise ValueError("chained_gather: rounds must be >= 0")
+    lib = load()
+    t_rows, cols = table.shape
+    out = torch.empty(idx.shape, dtype=table.dtype, device=table.device)
+    use_smem = int(gather_path(t_rows) == "smem")
+    with torch.cuda.device(table.device):
+        err = lib.vulcan_chained_gather(
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
+            t_rows, cols, rounds, int(table.dtype == torch.int32), use_smem,
+            _stream(table),
+        )
+    _raise_on(err, "chained_gather")
+    return out
+
+
+def subsample2(x: torch.Tensor) -> torch.Tensor:
+    """Launch T5 (``csrc/subsample.cu``): ``x[::2, ::2]`` of an (H, W)
+    int32 or float32 CUDA image, as a new contiguous tensor."""
+    _check(x, "subsample2", (torch.int32, torch.float32))
+    lib = load()
+    h, w = x.shape
+    out = torch.empty(((h + 1) // 2, (w + 1) // 2), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.vulcan_subsample2(x.data_ptr(), out.data_ptr(), h, w, _stream(x))
+    _raise_on(err, "subsample2")
     return out

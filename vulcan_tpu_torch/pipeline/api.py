@@ -11,6 +11,7 @@ import torch
 from ..config import Config
 from ..core.camera import PinholeCamera
 from ..core.se3 import SE3
+from ..utils.device import resolve_device
 from . import fusion
 
 
@@ -24,7 +25,8 @@ def _as_tensor(x, device) -> torch.Tensor:
 
 
 class Pipeline:
-    """Full online loop: track + fuse + render per frame on ``device``."""
+    """Full online loop: track + fuse + render per frame on ``device``
+    (the CUDA card when None; ``device="cpu"`` runs the plain versions)."""
 
     def __init__(
         self,
@@ -41,7 +43,7 @@ class Pipeline:
         self.height = height
         self.width = width
         self.mode = mode
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve_device(device)
         self.state = fusion.init_state(
             config, camera, height, width, init_pose, self.device
         )
