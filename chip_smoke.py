@@ -12,15 +12,21 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      version on the card at the main path's shape (640x480), max abs error
      against the stated tolerance; its "kernel ms" (device time: 50
      back-to-back calls queued behind a spin kernel, between two CUDA
-     events, ``vulcan_tpu_torch.tools.timing.device_ms``), its "call ms"
-     (``timing.call_ms``: one wrapper call between two CUDA events, host
-     work included; the kernels line's ``ms``, as in the first slice), the
-     plain version's ms and the least time the card could take (bound ms,
-     from bytes and operations);
+     events) and "host us" (the host clock around the same queued calls:
+     the host's part of one call), both from
+     ``vulcan_tpu_torch.tools.timing.device_and_host``; its kernel launches
+     per call; its "call ms" (``timing.call_ms``: one wrapper call between
+     two CUDA events, host work included; the kernels line's ``ms``, as in
+     the first slice), the plain version's ms and the least time the card
+     could take (bound ms, from bytes and operations).  Then K2 at fill
+     rounds 0, 1, 2 and 5 (5 is two launches) at 480x640 and 121x161
+     against its plain version, with its launches per call, and the
+     device time a launch of an empty kernel takes (the launch floor);
   3. main path: Pipeline(Config(), tum_default(), 480, 640) in depth mode
      over the 35-frame synthetic orbit (uint16 depth / uint8 colour in),
      5 warm-up + 30 timed frames; the kernels must have launched once per
-     frame, with zero overflows, zero track failures and ATE < 0.01 m;
+     frame (K2: one kernel launch per frame), with zero overflows, zero
+     track failures and ATE < 0.01 m;
   4. agreement: the same port on the card and on the CPU (plain kernel
      versions) over a small orbit must track the same trajectory;
   5. (only with --profile) where a steady frame's time goes: stage wall
@@ -28,13 +34,18 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      and the top kernels from torch.profiler (the step's ``vulcan.<stage>``
      ranges), and the device's idle share; printed and written to
      chiprun_out/profile_stages.json.
-  6. probes: the kernels of the probe entry points (T1 fused fill+smooth,
-     T2-T4 chained gather, T5 stride-2 subsample) against their plain
-     versions at the tools' own shapes (T2-T5 exact, T1 within 1e-6 m of
-     the plain version and of K2), timed like phase 2 (T5 also against its
-     one-call library form); then the three probe entry points
-     (``vulcan_tpu_torch.tools.bench_*.run``) with every probe count set to
-     0, each kernel of them launched at least once.
+  6. probes: T5 at (479, 641), (2, 6) and (1, 1) in int32 and float32,
+     bit for bit against its plain version; T5's host us per call step by
+     step (``bench_subsample.host_breakdown``: the launch path's earlier
+     and trimmed forms beside ``x[::2, ::2].contiguous()``); the kernels
+     of the probe entry points (T1 fused fill+smooth, T2-T4 chained
+     gather, T5 stride-2 subsample) against their plain versions at the
+     tools' own shapes (T2-T5 exact, T1 within 1e-6 m of the plain version
+     and of K2), timed like phase 2 (T5 also against its one-call library
+     form: call ms, kernel ms and host us; K2 also one launch per round
+     count, ``bench_stencil.launch_costs``); then the three probe entry
+     points (``vulcan_tpu_torch.tools.bench_*.run``) with every probe count
+     set to 0, each kernel of them launched at least once.
 
 Every failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -42,6 +53,7 @@ Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -103,35 +115,47 @@ def check_kernel(spec: dict, torch) -> dict:
     in ``spec["also"]``) on the card, time it and compute its bound; fail
     on a disagreement.  Returns the kernel's entry of the kernels line:
     ``ms`` is the call ms, as in the first slice's line, beside
-    ``kernel_ms`` (device time) and ``call_ms``."""
-    from vulcan_tpu_torch.tools.timing import call_ms, device_ms, max_abs_err
+    ``kernel_ms`` (device time), ``call_ms``, ``host_us`` (the host's part
+    of one call) and ``launches_per_call`` (``spec["count"]``, the wrapper's
+    kernel-launch count, across one call)."""
+    from vulcan_tpu_torch.tools.timing import call_ms, device_and_host, max_abs_err
 
     name, tol = spec["name"], spec["tol"]
     want = spec["plain"]()
     torch.cuda.synchronize()
+    n0 = spec["count"]()
     errs = {"plain": max_abs_err(spec["call"](), want)}
+    launches_per_call = spec["count"]() - n0
     for ref_name, ref in spec.get("also", ()):
         errs[ref_name] = max_abs_err(spec["call"](), ref())
     torch.cuda.synchronize()
-    kernel_ms = device_ms(spec["call"])
+    kernel_ms, host_us = device_and_host(spec["call"])
     call = call_ms(spec["call"])
     plain_ms = call_ms(spec["plain"])
-    library_ms = call_ms(spec["library"]) if spec.get("library") else None
+    library_ms = library_kernel_ms = library_host_us = None
+    if spec.get("library"):
+        library_ms = call_ms(spec["library"])
+        library_kernel_ms, library_host_us = device_and_host(spec["library"])
     bound_ms, bound_by = bound(spec["bytes"], spec["ops"])
     err = errs["plain"]
+    library = ("none" if library_ms is None else
+               f"{library_ms:.4f} ms (kernel {library_kernel_ms:.4f} ms, host "
+               f"{library_host_us:.2f} us)")
     print(f"{name}: max_abs_err {', '.join(f'{k} {v:.3e}' for k, v in errs.items())} "
-          f"(tol {tol:g}); kernel {kernel_ms:.4f} ms (device) call {call:.4f} ms "
-          f"(host included) plain {plain_ms:.4f} ms library "
-          f"{'none' if library_ms is None else f'{library_ms:.4f} ms'} bound "
-          f"{bound_ms:.5f} ms ({bound_by})", flush=True)
+          f"(tol {tol:g}); kernel {kernel_ms:.4f} ms (device, {launches_per_call} "
+          f"launch/call) host {host_us:.2f} us call {call:.4f} ms (host included) "
+          f"plain {plain_ms:.4f} ms library {library} bound {bound_ms:.5f} ms "
+          f"({bound_by})", flush=True)
     for k, v in errs.items():
         if not v <= tol:
             fail(f"{name}: max abs error against {k} {v} above {tol}")
     entry = dict(name=name, route="cuda", source=spec["source"],
                  replaces=spec["replaces"], launches=0, max_abs_err=err,
-                 ms=call, kernel_ms=kernel_ms, call_ms=call,
+                 ms=call, kernel_ms=kernel_ms, call_ms=call, host_us=host_us,
+                 launches_per_call=launches_per_call,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 library_ms=library_ms)
+                 library_ms=library_ms, library_kernel_ms=library_kernel_ms,
+                 library_host_us=library_host_us)
     entry.update(spec.get("extra", {}))
     return entry
 
@@ -142,6 +166,43 @@ def fill_smooth_ops(rounds: int) -> int:
     pass takes isfinite, subtract, abs, compare and two adds of 8 taps, then
     a max and a divide."""
     return rounds * (8 * 4 + 2) + 8 * 6 + 2
+
+
+def k2_rounds_and_shapes(P, splat, torch, dev) -> None:
+    """Phase 2, K2 at rounds 0, 1, 2 and 5 (5 runs as two launches) at
+    480x640 and at an odd shape, each against the plain version within
+    K2_TOL, with its kernel launches per call.  The input is a sloped
+    surface with a step (a silhouette the fill must not cross), small
+    noise, 20% single-pixel holes and hole patches up to 12 pixels wide
+    that take several rounds to close."""
+    from vulcan_tpu_torch.ops import cuda_kernels
+    from vulcan_tpu_torch.tools.timing import max_abs_err
+
+    rng = np.random.default_rng(11)
+    for h, w in ((480, 640), (121, 161)):
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        d = 1.5 + 0.3 * np.sin(xx / 40.0) + 0.2 * yy / h + 0.5 * (xx > w / 2)
+        d = (d + rng.normal(0.0, 0.003, (h, w))).astype(np.float32)
+        d[rng.random((h, w)) < 0.2] = np.inf
+        for _ in range(max(4, h * w // 4000)):
+            y0, x0 = rng.integers(0, h), rng.integers(0, w)
+            sy, sx = rng.integers(2, 13, size=2)
+            d[y0:y0 + sy, x0:x0 + sx] = np.inf
+        x = torch.from_numpy(d).to(dev)
+        for rounds in (0, 1, 2, 5):
+            cfg = dataclasses.replace(P.Config(), splat_fill_rounds=rounds)
+            k0 = splat._fill_and_smooth.kernel_launches
+            got = splat._fill_and_smooth(x, cfg)
+            per_call = splat._fill_and_smooth.kernel_launches - k0
+            err = max_abs_err(got, splat._fill_smooth_math(x, cfg))
+            filled = float((torch.isfinite(got) & ~torch.isfinite(x)).float().mean())
+            print(f"K2 {h}x{w} rounds {rounds}: max_abs_err {err:.3e} (tol {K2_TOL:g}), "
+                  f"{per_call} kernel launch(es)/call, {filled:.4f} of pixels filled",
+                  flush=True)
+            if not err <= K2_TOL:
+                fail(f"K2 at {h}x{w}, rounds {rounds}: max abs error {err} above {K2_TOL}")
+            if per_call != len(cuda_kernels.fill_smooth_plan(rounds)):
+                fail(f"K2 at rounds {rounds}: {per_call} kernel launches per call")
 
 
 def probes(P, torch, dev) -> list[dict]:
@@ -159,6 +220,7 @@ def probes(P, torch, dev) -> list[dict]:
         source="vulcan_tpu_torch/csrc/fill_smooth_fused.cu",
         replaces="tools/bench_pallas_stencil.py:77",
         call=lambda: bench_stencil.fill_smooth_fused(d, scfg),
+        count=lambda: bench_stencil.fill_smooth_fused.launches,
         plain=lambda: bench_stencil.fill_smooth_plain(d, scfg),
         also=[("K2", lambda: bench_stencil.fill_smooth_k2(d, scfg))],
         bytes=2 * d.numel() * 4, ops=d.numel() * fill_smooth_ops(scfg.splat_fill_rounds),
@@ -171,6 +233,8 @@ def probes(P, torch, dev) -> list[dict]:
             name=names[case.name], tol=0.0, source="vulcan_tpu_torch/csrc/gather.cu",
             replaces=f"tools/bench_pallas_gather.py:{lines[case.name]}",
             call=lambda c=case: bench_gather.chained_gather(c.table, c.idx, c.rounds),
+            count=lambda c=case: bench_gather.chained_gather.launches[
+                bench_gather.launch_key(c.table)],
             plain=lambda c=case: bench_gather.chained_gather_plain(c.table, c.idx, c.rounds),
             bytes=(case.table.numel() + 2 * case.idx.numel()) * 4,
             # per lookup: convert, two adds, abs, remainder, sum
@@ -180,22 +244,33 @@ def probes(P, torch, dev) -> list[dict]:
                        gather_x_rounds_ms=device_ms(
                            lambda c=case: bench_gather.gather_rounds(c))),
         ))
+    t5_exact(bench_subsample, torch, dev)
     x = bench_subsample.make_input(dev)
+    breakdown = bench_subsample.host_breakdown(x)
+    print("T5 host us per call, step by step (queued behind a spin kernel):",
+          flush=True)
+    for step, us in breakdown.items():
+        print(f"  {us:8.3f} us  {step}", flush=True)
     specs.append(dict(
         name="subsample2", tol=0.0, source="vulcan_tpu_torch/csrc/subsample.cu",
         replaces="tools/bench_subsample.py:63",
         call=lambda: bench_subsample.subsample2(x),
+        count=lambda: bench_subsample.subsample2.launches,
         plain=lambda: bench_subsample.subsample2_plain(x),
         library=lambda: x[::2, ::2].contiguous(),
         # the even rows in (odd columns ride in the same sectors), the output out
         bytes=((x.shape[0] + 1) // 2 * x.shape[1]
                + (x.shape[0] + 1) // 2 * ((x.shape[1] + 1) // 2)) * 4,
         ops=0,
+        extra=dict(host_breakdown_us=breakdown),
     ))
     entries = [check_kernel(spec, torch) for spec in specs]
     fused = entries[0]
-    print(f"T1 fused {fused['kernel_ms']:.4f} ms vs K2 three launches "
-          f"{k2_ms:.4f} ms, device time, same input", flush=True)
+    print(f"T1 {fused['kernel_ms']:.4f} ms vs K2 {k2_ms:.4f} ms, device time, "
+          "same input", flush=True)
+    print("K2, one launch on the same input, device ms:", flush=True)
+    for step, ms in bench_stencil.launch_costs(d, scfg.trunc_dist).items():
+        print(f"  {ms:.6f} ms  {step}", flush=True)
     for e in entries[1:4]:
         e["m_lookups_per_s"] = e["lookups"] / e["kernel_ms"] * 1e3 / 1e6
         print(f"{e['name']}: {e['m_lookups_per_s']:.0f} M lookups/s (device time)",
@@ -220,6 +295,25 @@ def probes(P, torch, dev) -> list[dict]:
         if e["launches"] < 1:
             fail(f"{e['name']}: not launched by its probe entry point")
     return entries
+
+
+def t5_exact(bench_subsample, torch, dev) -> None:
+    """T5 at odd and tiny shapes, in int32 and float32, bit for bit against
+    its plain version (the kernel's word-by-word remainder)."""
+    rng = np.random.default_rng(7)
+    for h, w in ((479, 641), (2, 6), (1, 1)):
+        for dtype in (np.int32, np.float32):
+            a = (rng.integers(-(1 << 31), 1 << 31, (h, w), dtype=np.int64).astype(np.int32)
+                 if dtype == np.int32 else rng.standard_normal((h, w)).astype(np.float32))
+            x = torch.from_numpy(a).to(dev)
+            got = bench_subsample.subsample2(x)
+            want = bench_subsample.subsample2_plain(x)
+            ok = got.dtype == want.dtype and torch.equal(
+                got.view(torch.int32), want.view(torch.int32))
+            print(f"T5 {h}x{w} {dtype.__name__}: {'exact' if ok else 'DIFFERS'}",
+                  flush=True)
+            if not ok:
+                fail(f"T5 differs from x[::2, ::2] at {h}x{w} {dtype.__name__}")
 
 
 def make_frames(P, camera, poses, h, w, device):
@@ -377,6 +471,7 @@ def main() -> None:
     if not os.path.abspath(P.__file__).startswith(os.path.join(ROOT, "")):
         fail(f"vulcan_tpu_torch comes from {P.__file__}, not from this checkout")
     from vulcan_tpu_torch.ops import cuda_kernels, preprocess, splat
+    from vulcan_tpu_torch.tools.timing import device_ms
     from vulcan_tpu_torch.utils.evaluate import ate_rmse
     from vulcan_tpu_torch.utils.sync import read_int
     from vulcan_tpu_torch.io.synthetic import orbit_poses
@@ -415,6 +510,7 @@ def main() -> None:
             name="bilateral", tol=K1_TOL, source="vulcan_tpu_torch/csrc/bilateral.cu",
             replaces="vulcan_tpu/ops/preprocess.py:116",
             call=lambda: preprocess.bilateral_filter(x1, cfg),
+            count=lambda: preprocess.bilateral_filter.launches,
             plain=lambda: preprocess._bilateral_math(x1, cfg),
             # per tap: sub, mul, mul, exp, mul, select, mul, 2 adds, compare
             bytes=image_bytes, ops=x1.numel() * (taps * 10 + 3),
@@ -423,10 +519,15 @@ def main() -> None:
             name="fill_smooth", tol=K2_TOL, source="vulcan_tpu_torch/csrc/fill_smooth.cu",
             replaces="vulcan_tpu/ops/splat.py:606",
             call=lambda: splat._fill_and_smooth(x2, cfg),
+            count=lambda: splat._fill_and_smooth.kernel_launches,
             plain=lambda: splat._fill_smooth_math(x2, cfg),
             bytes=image_bytes, ops=x2.numel() * fill_smooth_ops(cfg.splat_fill_rounds),
         ), torch),
     ]
+
+    print(f"launch floor: {device_ms(lambda: torch.cuda._sleep(1)):.6f} ms device time "
+          "per launch of a kernel that does nothing", flush=True)
+    k2_rounds_and_shapes(P, splat, torch, dev)
 
     phase("3 main path: Pipeline.process, default Config, depth mode, 480x640")
     n = N_WARM + N_TIMED
@@ -437,6 +538,7 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     preprocess.bilateral_filter.launches = 0
     splat._fill_and_smooth.launches = 0
+    splat._fill_and_smooth.kernel_launches = 0
     read_int.count = 0
     pipe, est, ms = run_pipeline(
         P, cfg, cam, poses, frames, 480, 640, dev, torch.cuda.synchronize
@@ -445,6 +547,7 @@ def main() -> None:
         "bilateral": preprocess.bilateral_filter.launches,
         "fill_smooth": splat._fill_and_smooth.launches,
     }
+    k2_kernel_launches = splat._fill_and_smooth.kernel_launches
     reads = read_int.count
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -456,13 +559,17 @@ def main() -> None:
     print(f"ms/frame median {np.median(timed):.3f} p90 {np.percentile(timed, 90):.3f} "
           f"(first frame {ms[0]:.1f} ms, warm-up {N_WARM}, timed {N_TIMED}, "
           "synchronized per frame)", flush=True)
-    print(f"host reads/frame {reads / n:.2f}; kernel launches {launches}", flush=True)
+    print(f"host reads/frame {reads / n:.2f}; kernel launches {launches}; "
+          f"K2 kernel launches {k2_kernel_launches} over {n} frames", flush=True)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
           flush=True)
     print("diagnostics", json.dumps(diag), flush=True)
     print(f"ATE {ate:.6f} m over {n} frames", flush=True)
     if launches["bilateral"] != n or launches["fill_smooth"] != n:
         fail(f"kernel launch counts {launches}, expected {n} each")
+    if k2_kernel_launches != n:
+        fail(f"K2 launched its kernel {k2_kernel_launches} times over {n} frames, "
+             "expected once a frame")
     if diag["alloc_overflow"] or diag["visible_overflow"]:
         fail("allocation or visibility overflow")
     if diag["track_failures"]:

@@ -73,13 +73,17 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         cuda_kernels._nvcc()
 
 
-@pytest.mark.parametrize("launch", ["bilateral", "fill_smooth"])
+@pytest.mark.parametrize(
+    "launch", ["bilateral", "fill_smooth", "fill_smooth_fused", "subsample2"])
 def test_kernel_entry_refuses_cpu_tensors(launch):
     """A CUDA entry point given a CPU tensor raises before anything is
     built or loaded (the wrappers never send it one)."""
     fn = {
         "bilateral": lambda x: cuda_kernels.bilateral(x, [1.0] * 25, 2, 200.0),
-        "fill_smooth": lambda x: cuda_kernels.fill_smooth(x, 2, 0.08, 0.02),
+        "fill_smooth": lambda x: cuda_kernels.fill_smooth(
+            x, cuda_kernels.fill_smooth_plan(2), 0.08, 0.02),
+        "fill_smooth_fused": lambda x: cuda_kernels.fill_smooth_fused(x, 2, 0.08, 0.02),
+        "subsample2": lambda x: cuda_kernels.subsample2(x.to(torch.int32)),
     }[launch]
     with pytest.raises(ValueError, match="CUDA tensor"):
         fn(torch.ones((8, 8)))
@@ -92,11 +96,13 @@ def test_cpu_step_launches_no_kernel():
     poses = orbit(2)
     pipe = P.Pipeline(CFG_T, CAM_T, H, W, init_pose=se3_t(poses[0]), device="cpu")
     b0, f0 = preprocess.bilateral_filter.launches, splat._fill_and_smooth.launches
+    k0 = splat._fill_and_smooth.kernel_launches
     for pose in poses:
         d, c = scene(pose)
         pipe.process(d, c)
     assert preprocess.bilateral_filter.launches == b0 == 0
     assert splat._fill_and_smooth.launches == f0 == 0
+    assert splat._fill_and_smooth.kernel_launches == k0 == 0
     assert pipe.diagnostics()["frame"] == 2
 
 

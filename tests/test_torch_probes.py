@@ -109,6 +109,21 @@ def test_subsample_chain_matches_pallas(interpret_pallas, monkeypatch):
     np.testing.assert_array_equal(s.numpy(), captured["x0"][::2, ::2])
 
 
+@pytest.mark.parametrize("dtype", [np.int32, np.float32], ids=["int32", "float32"])
+@pytest.mark.parametrize("shape", [(479, 641), (2, 6), (1, 1), (5, 3)])
+def test_subsample_on_cpu_equals_numpy_stride2(shape, dtype):
+    """The T5 wrapper on a CPU tensor (its plain version) is numpy's
+    ``x[::2, ::2]`` bit for bit, at odd and tiny shapes."""
+    rng = np.random.default_rng(sum(shape))
+    x = (rng.integers(-(1 << 31), 1 << 31, shape, dtype=np.int64).astype(np.int32)
+         if dtype == np.int32 else rng.standard_normal(shape).astype(np.float32))
+    before = bench_subsample.subsample2.launches
+    got = bench_subsample.subsample2(torch.from_numpy(x))
+    assert bench_subsample.subsample2.launches == before
+    assert got.is_contiguous() and got.numpy().dtype == dtype
+    np.testing.assert_array_equal(got.numpy().view(np.int32), x[::2, ::2].view(np.int32))
+
+
 def test_fused_fill_smooth_matches_pallas(interpret_pallas):
     """T1: ``make_pallas(48, 64, mu)`` interpreted against the port's plain
     fused version: finite masks equal, max abs error <= 1e-6 m."""

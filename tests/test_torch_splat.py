@@ -1,4 +1,8 @@
 """The splat renderer (kernel K2's module) held against the JAX package."""
+import dataclasses
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +16,7 @@ from vulcan_tpu.ops import sparse as jsp
 from vulcan_tpu.ops import splat as jsplat
 from vulcan_tpu_torch.ops import allocate as tal
 from vulcan_tpu_torch.ops import blocks as tB
+from vulcan_tpu_torch.ops import cuda_kernels
 from vulcan_tpu_torch.ops import splat as tsplat
 
 from ._torch_port import CAM_J, CAM_T, CFG_J, CFG_T, H, W, jflat, orbit, scene, se3_t, t
@@ -48,6 +53,45 @@ def test_cpu_tensor_takes_plain_fill_smooth_and_counts_no_launch(holed_zbuf):
     before = tsplat._fill_and_smooth.launches
     tsplat._fill_and_smooth(t(holed_zbuf), P.TINY)
     assert tsplat._fill_and_smooth.launches == before == 0
+
+
+@pytest.mark.parametrize("rounds", range(10))
+def test_fill_smooth_plan_covers_every_round_once(rounds):
+    """K2's launch plan: the launches' rounds add up to ``rounds``, only the
+    last launch smooths, every fill-only launch takes the kernel's largest
+    round count, and up to that count it is one launch."""
+    top = cuda_kernels.FILL_SMOOTH_MAX_ROUNDS
+    plan = cuda_kernels.fill_smooth_plan(rounds)
+    assert sum(r for r, _ in plan) == rounds
+    assert [smooth for _, smooth in plan] == [False] * (len(plan) - 1) + [True]
+    assert all(r == top for r, _ in plan[:-1])
+    assert 0 <= plan[-1][0] <= top
+    assert len(plan) == (1 if rounds <= top else -(-rounds // top))
+
+
+def test_fill_smooth_plan_matches_the_kernel_and_refuses_negative_rounds():
+    src = (Path(tsplat.__file__).parents[1] / "csrc" / "fill_smooth.cu").read_text()
+    assert int(re.search(r"kMaxRounds = (\d+);", src).group(1)) == (
+        cuda_kernels.FILL_SMOOTH_MAX_ROUNDS)
+    with pytest.raises(ValueError, match="rounds"):
+        cuda_kernels.fill_smooth_plan(-1)
+
+
+@pytest.mark.parametrize("rounds", [0, 1, 2, 5])
+def test_fill_smooth_launch_by_launch_matches_reference(holed_zbuf, rounds):
+    """The plain version of one K2 launch, applied launch by launch as the
+    plan splits ``rounds``, equals the port's and the JAX package's whole
+    ``_fill_smooth_math``."""
+    cfg_t = dataclasses.replace(P.TINY, splat_fill_rounds=rounds)
+    cfg_j = dataclasses.replace(J_TINY, splat_fill_rounds=rounds)
+    d = t(holed_zbuf)
+    for r, smooth in cuda_kernels.fill_smooth_plan(rounds):
+        d = tsplat._fill_smooth_steps(d, cfg_t.trunc_dist, r, smooth)
+    got = d.numpy()
+    np.testing.assert_array_equal(got, tsplat._fill_smooth_math(t(holed_zbuf), cfg_t).numpy())
+    ref = np.asarray(jsplat._fill_smooth_math(jnp.asarray(holed_zbuf), cfg_j))
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
 
 
 @pytest.fixture(scope="module")

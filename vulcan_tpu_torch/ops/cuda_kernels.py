@@ -110,15 +110,19 @@ def build() -> Path:
 
 
 def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library once per process."""
+    """Build (if needed) and load the kernel library once per process.  Once
+    it is loaded, a call reads one global and takes no lock."""
     global _lib
+    lib = _lib
+    if lib is not None:
+        return lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             for name, args in (
                 ("vulcan_bilateral", [p, p, i, i, i, p, f, p]),
-                ("vulcan_fill_smooth", [p, p, p, p, i, i, i, f, f, p]),
+                ("vulcan_fill_smooth", [p, p, i, i, i, i, f, f, p]),
                 ("vulcan_fill_smooth_fused", [p, p, i, i, i, f, f, p]),
                 ("vulcan_chained_gather", [p, p, p, i, i, i, i, i, i, p]),
                 ("vulcan_subsample2", [p, p, i, i, p]),
@@ -150,8 +154,18 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 
 
-def _stream(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+def _launch(fn, x: torch.Tensor, *args) -> int:
+    """Call the C entry point ``fn(*args, stream)`` on ``x``'s device and
+    PyTorch's current stream there; return its error code.  The stream
+    travels as its raw handle (an int, no ``Stream`` object), and the
+    current device is switched only when ``x`` lies on another one.
+    (``torch._C`` is the binding ``torch.cuda`` itself calls.)"""
+    dev = x.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    if dev == torch._C._cuda_getDevice():
+        return fn(*args, stream)
+    with torch.cuda.device(dev):
+        return fn(*args, stream)
 
 
 def bilateral(depth: torch.Tensor, space_w: list[float], radius: int,
@@ -163,32 +177,50 @@ def bilateral(depth: torch.Tensor, space_w: list[float], radius: int,
     lib = load()
     out = torch.empty_like(depth)
     w_host = (ctypes.c_float * len(space_w))(*space_w)
-    with torch.cuda.device(depth.device):
-        err = lib.vulcan_bilateral(
-            depth.data_ptr(), out.data_ptr(), depth.shape[0], depth.shape[1],
-            radius, ctypes.cast(w_host, ctypes.c_void_p), inv_2sd,
-            _stream(depth),
-        )
+    err = _launch(
+        lib.vulcan_bilateral, depth, depth.data_ptr(), out.data_ptr(),
+        depth.shape[0], depth.shape[1], radius,
+        ctypes.cast(w_host, ctypes.c_void_p), inv_2sd,
+    )
     _raise_on(err, "bilateral")
     return out
 
 
-def fill_smooth(d: torch.Tensor, rounds: int, two_mu: float,
-                half_mu: float) -> torch.Tensor:
-    """Launch K2 (``csrc/fill_smooth.cu``) on an (H, W) float32 CUDA
-    z-buffer (+inf = empty)."""
+# K2's fill-round count is a template parameter: one launch takes up to
+# FILL_SMOOTH_MAX_ROUNDS rounds and the smoothing pass (csrc/fill_smooth.cu
+# kMaxRounds; the kernel refuses anything else).
+FILL_SMOOTH_MAX_ROUNDS = 4
+
+
+def fill_smooth_plan(rounds: int) -> tuple[tuple[int, bool], ...]:
+    """K2's launches for ``rounds`` fill rounds and the smoothing pass, as
+    ``(rounds_in_launch, smooth)`` pairs: fill-only launches of
+    ``FILL_SMOOTH_MAX_ROUNDS`` rounds, then one launch that takes the rest
+    and smooths.  ``rounds <= FILL_SMOOTH_MAX_ROUNDS`` is one launch."""
+    if rounds < 0:
+        raise ValueError(f"fill_smooth: rounds must be >= 0, got {rounds}")
+    full, rest = divmod(rounds, FILL_SMOOTH_MAX_ROUNDS)
+    if rest == 0 and full > 0:
+        full, rest = full - 1, FILL_SMOOTH_MAX_ROUNDS
+    return ((FILL_SMOOTH_MAX_ROUNDS, False),) * full + ((rest, True),)
+
+
+def fill_smooth(d: torch.Tensor, plan: tuple[tuple[int, bool], ...],
+                two_mu: float, half_mu: float) -> torch.Tensor:
+    """Launch K2 (``csrc/fill_smooth.cu``) once per entry of ``plan``
+    (``fill_smooth_plan``) on an (H, W) float32 CUDA z-buffer (+inf =
+    empty); each launch reads the previous one's output."""
     _check(d, "fill_smooth")
     lib = load()
-    a = torch.empty_like(d)
-    b = torch.empty_like(d)
-    out = torch.empty_like(d)
-    with torch.cuda.device(d.device):
-        err = lib.vulcan_fill_smooth(
-            d.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            d.shape[0], d.shape[1], rounds, two_mu, half_mu, _stream(d),
-        )
-    _raise_on(err, "fill_smooth")
-    return out
+    h, w = d.shape
+    src = d
+    for rounds, smooth in plan:
+        out = d.new_empty((h, w))
+        err = _launch(lib.vulcan_fill_smooth, d, src.data_ptr(), out.data_ptr(),
+                      h, w, rounds, int(smooth), two_mu, half_mu)
+        _raise_on(err, "fill_smooth")
+        src = out
+    return src
 
 
 # The fused kernel's round count is a template parameter (0..4); the
@@ -204,12 +236,9 @@ def fill_smooth_fused(d: torch.Tensor, rounds: int, two_mu: float,
     if not 0 <= rounds <= FUSED_MAX_ROUNDS:
         raise ValueError(f"fill_smooth_fused: rounds must be in [0, {FUSED_MAX_ROUNDS}]")
     lib = load()
-    out = torch.empty_like(d)
-    with torch.cuda.device(d.device):
-        err = lib.vulcan_fill_smooth_fused(
-            d.data_ptr(), out.data_ptr(), d.shape[0], d.shape[1], rounds,
-            two_mu, half_mu, _stream(d),
-        )
+    out = d.new_empty(d.shape)
+    err = _launch(lib.vulcan_fill_smooth_fused, d, d.data_ptr(), out.data_ptr(),
+                  d.shape[0], d.shape[1], rounds, two_mu, half_mu)
     _raise_on(err, "fill_smooth_fused")
     return out
 
@@ -251,14 +280,13 @@ def chained_gather(table: torch.Tensor, idx: torch.Tensor, rounds: int) -> torch
         raise ValueError("chained_gather: rounds must be >= 0")
     lib = load()
     t_rows, cols = table.shape
-    out = torch.empty(idx.shape, dtype=table.dtype, device=table.device)
+    out = table.new_empty(idx.shape)
     use_smem = int(gather_path(t_rows) == "smem")
-    with torch.cuda.device(table.device):
-        err = lib.vulcan_chained_gather(
-            table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
-            t_rows, cols, rounds, int(table.dtype == torch.int32), use_smem,
-            _stream(table),
-        )
+    err = _launch(
+        lib.vulcan_chained_gather, table, table.data_ptr(), idx.data_ptr(),
+        out.data_ptr(), idx.shape[0], t_rows, cols, rounds,
+        int(table.dtype == torch.int32), use_smem,
+    )
     _raise_on(err, "chained_gather")
     return out
 
@@ -269,8 +297,7 @@ def subsample2(x: torch.Tensor) -> torch.Tensor:
     _check(x, "subsample2", (torch.int32, torch.float32))
     lib = load()
     h, w = x.shape
-    out = torch.empty(((h + 1) // 2, (w + 1) // 2), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.vulcan_subsample2(x.data_ptr(), out.data_ptr(), h, w, _stream(x))
+    out = x.new_empty(((h + 1) // 2, (w + 1) // 2))
+    err = _launch(lib.vulcan_subsample2, x, x.data_ptr(), out.data_ptr(), h, w)
     _raise_on(err, "subsample2")
     return out

@@ -65,7 +65,7 @@ def bilateral_filter(depth: torch.Tensor, config: Config) -> torch.Tensor:
     in ``bilateral_filter.launches``.  Anything the kernel does not take
     (dtype, ndim, contiguity) raises.
     """
-    if depth.device.type == "cpu":
+    if depth.is_cpu:
         return _bilateral_math(depth, config)
     r = config.bilateral_radius
     inv_2ss = 1.0 / (2.0 * config.bilateral_sigma_space**2)

@@ -130,15 +130,17 @@ def _splat_zbuf_surfels(
     return zbuf[:npix]
 
 
-def _fill_smooth_math(d: torch.Tensor, config: Config) -> torch.Tensor:
-    """Plain PyTorch version of kernel K2 (``d``: depth, +inf = invalid).
+def _fill_smooth_steps(d: torch.Tensor, mu: float, rounds: int,
+                       smooth: bool) -> torch.Tensor:
+    """``rounds`` hole-fill rounds of ``d`` (depth, +inf = invalid), then
+    the smoothing pass if ``smooth``: what one launch of kernel K2 computes
+    (``cuda_kernels.fill_smooth_plan`` entries).
 
     Fill only where the 3x3 neighbourhood agrees on one surface (filling
     across a silhouette would bleed depth); then average valid neighbours
     within half a truncation band."""
-    mu = config.trunc_dist
     inf = float("inf")
-    for _ in range(config.splat_fill_rounds):
+    for _ in range(rounds):
         best = d
         worst = torch.where(torch.isfinite(d), d, -inf)
         for dy in (-1, 0, 1):
@@ -152,6 +154,8 @@ def _fill_smooth_math(d: torch.Tensor, config: Config) -> torch.Tensor:
                 )
         consistent = (worst - best) < 2.0 * mu
         d = torch.where(torch.isfinite(d) | ~consistent, d, best)
+    if not smooth:
+        return d
     fin = torch.isfinite(d)
     acc = torch.where(fin, d, 0.0)
     cnt = fin.to(torch.float32)
@@ -166,20 +170,32 @@ def _fill_smooth_math(d: torch.Tensor, config: Config) -> torch.Tensor:
     return torch.where(fin, acc / torch.clamp(cnt, min=1.0), d)
 
 
+def _fill_smooth_math(d: torch.Tensor, config: Config) -> torch.Tensor:
+    """Plain PyTorch version of kernel K2: ``config.splat_fill_rounds``
+    fill rounds, then the smoothing pass."""
+    return _fill_smooth_steps(d, config.trunc_dist, config.splat_fill_rounds, True)
+
+
 def _fill_and_smooth(d: torch.Tensor, config: Config) -> torch.Tensor:
     """Post-splat hole fill + smoothing.  A CPU tensor takes the plain
-    version; a CUDA tensor launches kernel K2 (``csrc/fill_smooth.cu``) and
-    counts the launch in ``_fill_and_smooth.launches``.  Anything the
-    kernel does not take raises."""
-    if d.device.type == "cpu":
+    version; a CUDA tensor launches kernel K2 (``csrc/fill_smooth.cu``):
+    one launch at up to ``cuda_kernels.FILL_SMOOTH_MAX_ROUNDS`` rounds, more
+    as ``cuda_kernels.fill_smooth_plan`` splits them.  Calls are counted in
+    ``_fill_and_smooth.launches``, kernel launches in
+    ``_fill_and_smooth.kernel_launches``.  Anything the kernel does not
+    take raises."""
+    if d.is_cpu:
         return _fill_smooth_math(d, config)
     mu = config.trunc_dist
-    out = cuda_kernels.fill_smooth(d, config.splat_fill_rounds, 2.0 * mu, 0.5 * mu)
+    plan = cuda_kernels.fill_smooth_plan(config.splat_fill_rounds)
+    out = cuda_kernels.fill_smooth(d, plan, 2.0 * mu, 0.5 * mu)
     _fill_and_smooth.launches += 1
+    _fill_and_smooth.kernel_launches += len(plan)
     return out
 
 
 _fill_and_smooth.launches = 0
+_fill_and_smooth.kernel_launches = 0
 
 
 def render_splat(

@@ -53,7 +53,7 @@ def chained_gather(table: torch.Tensor, idx: torch.Tensor,
     """``rounds`` chained lookups.  A CPU tensor takes the plain version; a
     CUDA tensor launches ``csrc/gather.cu`` and counts it in
     ``chained_gather.launches["<dtype>/<smem|l2>"]``."""
-    if table.device.type == "cpu":
+    if table.is_cpu:
         return chained_gather_plain(table, idx, rounds)
     out = cuda_kernels.chained_gather(table, idx, rounds)
     chained_gather.launches[launch_key(table)] += 1

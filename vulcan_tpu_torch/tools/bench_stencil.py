@@ -2,11 +2,13 @@
 ``tools/bench_pallas_stencil.py``.
 
 The splat renderer's post-pass (2 gated hole-fill rounds, then an
-edge-aware 3x3 smoothing pass) runs on the main path as kernel K2, three
-launches (``csrc/fill_smooth.cu``).  T1 is the same math in ONE launch
-(``csrc/fill_smooth_fused.cu``).  This probe checks both against the plain
-version (finite masks equal, max abs error <= 1e-6 m) and times the three
-with the output fed back in, 30 times, so no call can be skipped:
+edge-aware 3x3 smoothing pass) runs on the main path as kernel K2
+(``csrc/fill_smooth.cu``): one launch with a rounds + 1 halo, each thread
+sliding a 3-row window down a column strip.  T1 (``csrc/fill_smooth_fused.cu``)
+is the JAX tool's one-launch kernel as first ported, kept as K2's yardstick.
+This probe checks both against the plain version (finite masks equal, max
+abs error <= 1e-6 m) and times the three with the output fed back in, 30
+times, so no call can be skipped:
 
     python -m vulcan_tpu_torch.tools.bench_stencil [HxW] [--device cpu]
 
@@ -22,7 +24,7 @@ import torch
 from ..config import Config
 from ..ops import cuda_kernels, splat
 from ..utils.device import resolve_device
-from .timing import clock_name, device_parser, max_abs_err, time_ms
+from .timing import clock_name, device_ms, device_parser, max_abs_err, time_ms
 
 FILL_ROUNDS = 2
 TOL = 1e-6  # m: fill is min/max (exact); smoothing sums in the same order
@@ -34,8 +36,8 @@ def probe_config(mu: float, rounds: int = FILL_ROUNDS) -> Config:
 
 
 # The plain version is the port's own K2 math, and K2 is the main path's
-# wrapper (three launches on the card); both read mu and the round count
-# from ``config.trunc_dist`` and ``config.splat_fill_rounds``.
+# wrapper (one launch on the card at up to 4 rounds); both read mu and the
+# round count from ``config.trunc_dist`` and ``config.splat_fill_rounds``.
 fill_smooth_plain = splat._fill_smooth_math
 fill_smooth_k2 = splat._fill_and_smooth
 
@@ -44,7 +46,7 @@ def fill_smooth_fused(d: torch.Tensor, config: Config) -> torch.Tensor:
     """K2's function in one launch.  A CPU tensor takes the plain version;
     a CUDA tensor launches T1 (``csrc/fill_smooth_fused.cu``) and counts it
     in ``fill_smooth_fused.launches``."""
-    if d.device.type == "cpu":
+    if d.is_cpu:
         return fill_smooth_plain(d, config)
     mu = config.trunc_dist
     out = cuda_kernels.fill_smooth_fused(d, config.splat_fill_rounds, 2.0 * mu, 0.5 * mu)
@@ -61,6 +63,21 @@ def make_input(h: int, w: int, device) -> torch.Tensor:
     d = rng.uniform(0.5, 3.0, (h, w)).astype(np.float32)
     d[rng.uniform(size=d.shape) < 0.3] = np.inf
     return torch.from_numpy(d).to(device)
+
+
+def launch_costs(d: torch.Tensor, mu: float) -> dict[str, float]:
+    """Device ms of one K2 launch on the CUDA image ``d`` for every round
+    count the kernel compiles, with the smoothing pass, and for its
+    fill-only launch: neighbouring counts differ by one fill round, and 0
+    rounds is the staging, the smoothing and the store alone."""
+    top = cuda_kernels.FILL_SMOOTH_MAX_ROUNDS
+    steps = [(r, True) for r in range(top + 1)] + [(top, False)]
+    return {
+        f"{r} rounds{' + smooth' if smooth else ', fill only'}": device_ms(
+            lambda r=r, smooth=smooth: cuda_kernels.fill_smooth(
+                d, ((r, smooth),), 2.0 * mu, 0.5 * mu))
+        for r, smooth in steps
+    }
 
 
 def chain_ms(fn, x: torch.Tensor, device, n: int = 30) -> float:
@@ -94,10 +111,10 @@ def run(device, h: int = 480, w: int = 640) -> dict:
     }
     clock = clock_name(device)
     print(f"plain PyTorch   fill+smooth {h}x{w}: {ms['plain']:8.4f} ms ({clock})")
-    print(f"K2, 3 launches  fill+smooth {h}x{w}: {ms['k2']:8.4f} ms")
-    print(f"T1, fused       fill+smooth {h}x{w}: {ms['fused']:8.4f} ms")
-    print(f"speedup fused over K2: {ms['k2'] / ms['fused']:.2f}x; "
-          f"over plain: {ms['plain'] / ms['fused']:.2f}x", flush=True)
+    print(f"K2, 1 launch    fill+smooth {h}x{w}: {ms['k2']:8.4f} ms")
+    print(f"T1, probe       fill+smooth {h}x{w}: {ms['fused']:8.4f} ms")
+    print(f"speedup K2 over T1: {ms['fused'] / ms['k2']:.2f}x; "
+          f"K2 over plain: {ms['plain'] / ms['k2']:.2f}x", flush=True)
     return dict(ms=ms, max_abs_err=errs)
 
 

@@ -24,18 +24,19 @@ def clock_name(device: torch.device) -> str:
     return "device time" if device.type == "cuda" else "host clock, CPU"
 
 
-def device_ms(fn, reps: int = 50, warm: int = 3) -> float:
-    """Device time per call of the work ``fn()`` queues: back-to-back calls
+def device_and_host(fn, reps: int = 50, warm: int = 3) -> tuple[float, float]:
+    """Device ms and host us per call of ``fn()``: back-to-back calls
     between two CUDA events, queued behind a spin kernel
     (``torch.cuda._sleep``), so the host's part of every call (checks,
     allocation, launches) is done before the device reaches the first
     event and the window holds only the device's work and the gaps between
-    kernels.  If the spin ended before the host had queued every call, the
-    window would hold host time; that happens when the calls take longer
-    to queue than the spin lasts, or launch more kernels than the device's
-    queue of pending launches holds (the host then blocks until the spin
-    ends).  The window is then taken again with half the calls and twice
-    the spin, down to one call."""
+    kernels.  The host clock (``time.perf_counter``) around the same loop
+    reads the host's part alone, since the device is still spinning.  If
+    the spin ended before the host had queued every call, both would mix;
+    that happens when the calls take longer to queue than the spin lasts,
+    or launch more kernels than the device's queue of pending launches
+    holds (the host then blocks until the spin ends).  The window is then
+    taken again with half the calls and twice the spin, down to one call."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -45,17 +46,24 @@ def device_ms(fn, reps: int = 50, warm: int = 3) -> float:
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(cycles)
         start.record()
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
+        host_s = time.perf_counter() - t0
         end.record()
         queued_ahead = not start.query()
         end.synchronize()
         if queued_ahead:
-            return start.elapsed_time(end) / reps
+            return start.elapsed_time(end) / reps, host_s * 1e6 / reps
         if reps == 1:
-            raise RuntimeError("device_ms: could not queue one call ahead of the device")
+            raise RuntimeError("device_and_host: could not queue one call ahead of the device")
         reps = max(1, reps // 2)
         cycles *= 2
+
+
+def device_ms(fn, reps: int = 50, warm: int = 3) -> float:
+    """Device ms per call of the work ``fn()`` queues (``device_and_host``)."""
+    return device_and_host(fn, reps, warm)[0]
 
 
 def time_ms(fn, device: torch.device, reps: int = 10, warm: int = 2) -> float:
