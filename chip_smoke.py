@@ -18,10 +18,13 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      per call; its "call ms" (``timing.call_ms``: one wrapper call between
      two CUDA events, host work included; the kernels line's ``ms``, as in
      the first slice), the plain version's ms and the least time the card
-     could take (bound ms, from bytes and operations).  Then K2 at fill
-     rounds 0, 1, 2 and 5 (5 is two launches) at 480x640 and 121x161
-     against its plain version, with its launches per call, and the
-     device time a launch of an empty kernel takes (the launch floor);
+     could take (bound ms, from bytes and operations).  Then K1 on the
+     orbit's first frame (uint16 depth converted as the step converts it),
+     at 121x161 (its word-by-word staging) and at radius 0, 1 and 3, each
+     against its plain version; K2 at fill rounds 0, 1, 2 and 5 (5 is two
+     launches) at 480x640 and 121x161 against its plain version, with its
+     launches per call, and the device time a launch of an empty kernel
+     takes (the launch floor);
   3. main path: Pipeline(Config(), tum_default(), 480, 640) in depth mode
      over the 35-frame synthetic orbit (uint16 depth / uint8 colour in),
      5 warm-up + 30 timed frames; the kernels must have launched once per
@@ -43,7 +46,11 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      tools' own shapes (T2-T5 exact, T1 within 1e-6 m of the plain version
      and of K2), timed like phase 2 (T5 also against its one-call library
      form: call ms, kernel ms and host us; K2 also one launch per round
-     count, ``bench_stencil.launch_costs``); then the three probe entry
+     count, ``bench_stencil.launch_costs``); T4 twice, on its own path (two
+     whole columns of the table in a block's shared memory) and forced
+     through L2, then at ragged heights and a 16-column width and under
+     every variant of the columns path (``bench_gather.variant_times``:
+     blocks alone and thread-block clusters); then the three probe entry
      points (``vulcan_tpu_torch.tools.bench_*.run``) with every probe count
      set to 0, each kernel of them launched at least once.
 
@@ -73,7 +80,7 @@ SPHERES = (
 )
 FLOOR = -0.6
 N_WARM, N_TIMED = 5, 30
-K1_TOL = 1e-5    # m: expf and the reduction's rounding differ by ulps
+K1_TOL = 1e-5    # m: ex2.approx, the folded exponent, the reduction's order
 K2_TOL = 1e-6    # m: fill is min/max (exact); smoothing sums in one order
 AGREE_TOL = 1e-3  # m: card vs CPU per-frame translation (float reassociation)
 
@@ -168,6 +175,42 @@ def fill_smooth_ops(rounds: int) -> int:
     return rounds * (8 * 4 + 2) + 8 * 6 + 2
 
 
+def k1_inputs_and_radii(P, preprocess, torch, dev, frame0) -> None:
+    """Phase 2, K1 beyond the random image: the orbit's first frame (a real
+    surface: the folded weights matter where neighbours lie within a few
+    sigma_depth), an odd shape (word-by-word staging, ragged tiles) and
+    radius 0, 1 and 3, each against the plain version within K1_TOL."""
+    from vulcan_tpu_torch.tools.timing import max_abs_err
+
+    cfg = P.Config()
+    rng = np.random.default_rng(13)
+    real = torch.from_numpy(frame0.astype(np.float32)).to(dev) * (1.0 / cfg.depth_raw_scale)
+    odd = rng.uniform(0.5, 3.0, (121, 161)).astype(np.float32)
+    odd[rng.random(odd.shape) < 0.10] = 0.0
+    yy, xx = np.mgrid[0:121, 0:161].astype(np.float32)
+    slope = (1.2 + 0.004 * xx + 0.5 * (xx > 80) + rng.normal(0.0, 0.002, xx.shape))
+    slope = slope.astype(np.float32)
+    slope[rng.random(slope.shape) < 0.05] = 0.0
+    cases = [("orbit frame 0, 480x640", real, cfg.bilateral_radius),
+             ("random, 121x161", torch.from_numpy(odd).to(dev), cfg.bilateral_radius),
+             ("stepped slope, 121x161", torch.from_numpy(slope).to(dev), cfg.bilateral_radius)]
+    cases += [(f"orbit frame 0, radius {r}", real, r) for r in (0, 1, 3)]
+    cases += [(f"stepped slope, 121x161, radius {r}", cases[2][1], r) for r in (1, 3)]
+    for tag, x, radius in cases:
+        c = dataclasses.replace(cfg, bilateral_radius=radius)
+        got = preprocess.bilateral_filter(x, c)
+        want = preprocess._bilateral_math(x, c)
+        err = max_abs_err(got, want)
+        same_zeros = bool(torch.equal(got == 0.0, ~(x > 0.0)))
+        folded = max_abs_err(got, preprocess._bilateral_math_folded(x, c))
+        print(f"K1 {tag}: max_abs_err {err:.3e} (tol {K1_TOL:g}), against its own "
+              f"arithmetic in PyTorch {folded:.3e}, valid fraction "
+              f"{float((x > 0).float().mean()):.3f}", flush=True)
+        if not err <= K1_TOL or not same_zeros:
+            fail(f"K1 on {tag}: max abs error {err} above {K1_TOL}, or an invalid "
+                 "pixel came out valid")
+
+
 def k2_rounds_and_shapes(P, splat, torch, dev) -> None:
     """Phase 2, K2 at rounds 0, 1, 2 and 5 (5 runs as two launches) at
     480x640 and at an odd shape, each against the plain version within
@@ -226,24 +269,37 @@ def probes(P, torch, dev) -> list[dict]:
         bytes=2 * d.numel() * 4, ops=d.numel() * fill_smooth_ops(scfg.splat_fill_rounds),
         extra=dict(k2_kernel_ms_same_input=k2_ms),
     )]
-    names = {"T2": "gather_smem_f32", "T3": "gather_smem_i32", "T4": "gather_l2_f32"}
-    lines = {"T2": 85, "T3": 115, "T4": 146}
-    for case in bench_gather.make_cases(dev):
+    names = {"T2": "gather_smem_f32", "T3": "gather_smem_i32", "T4": "gather_columns_f32",
+             "T4/l2": "gather_l2_f32"}
+    lines = {"T2": 85, "T3": 115, "T4": 146, "T4/l2": 146}
+    cases = [(c.name, c, None) for c in bench_gather.make_cases(dev)]
+    cases.append(("T4/l2", cases[-1][1], "l2"))
+    for tag, case, path in cases:
         specs.append(dict(
-            name=names[case.name], tol=0.0, source="vulcan_tpu_torch/csrc/gather.cu",
-            replaces=f"tools/bench_pallas_gather.py:{lines[case.name]}",
-            call=lambda c=case: bench_gather.chained_gather(c.table, c.idx, c.rounds),
-            count=lambda c=case: bench_gather.chained_gather.launches[
-                bench_gather.launch_key(c.table)],
+            name=names[tag], tol=0.0, source="vulcan_tpu_torch/csrc/gather.cu",
+            replaces=f"tools/bench_pallas_gather.py:{lines[tag]}",
+            call=lambda c=case, p=path: bench_gather.chained_gather(
+                c.table, c.idx, c.rounds, path=p),
+            count=lambda c=case, p=path: bench_gather.chained_gather.launches[
+                bench_gather.launch_key(c.table, p)],
             plain=lambda c=case: bench_gather.chained_gather_plain(c.table, c.idx, c.rounds),
             bytes=(case.table.numel() + 2 * case.idx.numel()) * 4,
             # per lookup: convert, two adds, abs, remainder, sum
             ops=case.lookups * 6,
-            extra=dict(path=bench_gather.launch_key(case.table),
+            extra=dict(path=bench_gather.launch_key(case.table, path),
                        lookups=case.lookups,
                        gather_x_rounds_ms=device_ms(
                            lambda c=case: bench_gather.gather_rounds(c))),
         ))
+    t4 = cases[2][1]
+    gather_ragged(bench_gather, t4, torch)
+    print("T4 under the columns path's variants, device ms (each exact):", flush=True)
+    for row in bench_gather.variant_times(t4):
+        waves = (f"  {row['clusters']} clusters, {row['clusters_at_once']} at once"
+                 if "clusters" in row else "")
+        print(f"  {row['ms']:.6f} ms  {row['m_lookups_per_s']:8.0f} M lookups/s  "
+              f"{row['name']}" + (f"  {tuple(row['plan'])}" if row["plan"] else "") + waves,
+              flush=True)
     t5_exact(bench_subsample, torch, dev)
     x = bench_subsample.make_input(dev)
     breakdown = bench_subsample.host_breakdown(x)
@@ -271,7 +327,7 @@ def probes(P, torch, dev) -> list[dict]:
     print("K2, one launch on the same input, device ms:", flush=True)
     for step, ms in bench_stencil.launch_costs(d, scfg.trunc_dist).items():
         print(f"  {ms:.6f} ms  {step}", flush=True)
-    for e in entries[1:4]:
+    for e in entries[1:5]:
         e["m_lookups_per_s"] = e["lookups"] / e["kernel_ms"] * 1e3 / 1e6
         print(f"{e['name']}: {e['m_lookups_per_s']:.0f} M lookups/s (device time)",
               flush=True)
@@ -287,7 +343,7 @@ def probes(P, torch, dev) -> list[dict]:
         "fill_smooth_fused": bench_stencil.fill_smooth_fused.launches,
         "subsample2": bench_subsample.subsample2.launches,
     }
-    for e in entries[1:4]:
+    for e in entries[1:5]:
         counts[e["name"]] = bench_gather.chained_gather.launches[e["path"]]
     print(f"probe entry points' kernel launches {counts}", flush=True)
     for e in entries:
@@ -295,6 +351,32 @@ def probes(P, torch, dev) -> list[dict]:
         if e["launches"] < 1:
             fail(f"{e['name']}: not launched by its probe entry point")
     return entries
+
+
+def gather_ragged(bench_gather, case, torch) -> None:
+    """The columns path where its partition is ragged: heights that do not
+    fill the blocks' row shares, a 16-column width, an int32 table and a
+    table of 4096 rows, bit for bit against the plain version."""
+    from vulcan_tpu_torch.ops import cuda_kernels
+
+    t_rows = case.table.shape[0]
+    picks = [(case.table, 1000, 128), (case.table, 7, 128), (case.table, 12345, 16),
+             (case.table.to(torch.int32), 3001, 32), (case.table[:4096], 5000, 48)]
+    for table, n, cols in picks:
+        table = table[:, :cols].contiguous()
+        idx = (case.idx[:n, :cols] % table.shape[0]).contiguous()
+        if n > idx.shape[0]:
+            fail("gather_ragged: the case has too few rows")
+        want = bench_gather.chained_gather_plain(table, idx, case.rounds)
+        got = bench_gather.chained_gather(table, idx, case.rounds, path="columns")
+        ok = got.dtype == want.dtype and torch.equal(got, want)
+        plan = cuda_kernels.gather_plan(table.shape[0], cols, n,
+                                        cuda_kernels._sm_count(table.get_device()))
+        print(f"T4 columns path, table {tuple(table.shape)} {table.dtype}, idx ({n}, {cols}): "
+              f"{'exact' if ok else 'DIFFERS'}  {tuple(plan)}", flush=True)
+        if not ok:
+            fail(f"columns gather differs from the plain version at N={n}, L={cols}, "
+                 f"T={table.shape[0]} (full height {t_rows})")
 
 
 def t5_exact(bench_subsample, torch, dev) -> None:
@@ -496,6 +578,10 @@ def main() -> None:
 
     phase("2 kernels against plain versions (480x640)")
     cfg = P.Config()
+    n = N_WARM + N_TIMED
+    cam = P.PinholeCamera.tum_default()
+    poses = orbit_poses(n, radius=1.6, height=0.35, span=min(6.28, n * 0.05))
+    frames = make_frames(P, cam, poses, 480, 640, dev)
     rng = np.random.default_rng(0)
     d1 = rng.uniform(0.5, 3.0, (480, 640)).astype(np.float32)
     d1[rng.random((480, 640)) < 0.10] = 0.0
@@ -505,6 +591,13 @@ def main() -> None:
     x2 = torch.from_numpy(d2).to(dev)
     image_bytes = 2 * x1.numel() * 4          # one image in, one out
     taps = (2 * cfg.bilateral_radius + 1) ** 2
+    # A process's first few hundred launches read slow on the host clock
+    # (the first kernel measured paid 18.5 us a call where it paid 12.7 once
+    # warm): run the launch path warm before anything is timed.
+    for _ in range(300):
+        preprocess.bilateral_filter(x1, cfg)
+        splat._fill_and_smooth(x2, cfg)
+    torch.cuda.synchronize()
     kernels = [
         check_kernel(dict(
             name="bilateral", tol=K1_TOL, source="vulcan_tpu_torch/csrc/bilateral.cu",
@@ -512,8 +605,11 @@ def main() -> None:
             call=lambda: preprocess.bilateral_filter(x1, cfg),
             count=lambda: preprocess.bilateral_filter.launches,
             plain=lambda: preprocess._bilateral_math(x1, cfg),
-            # per tap: sub, mul, mul, exp, mul, select, mul, 2 adds, compare
+            # per tap of the function: sub, mul, mul, exp, mul, select, mul, 2 adds,
+            # compare (the kernel folds some of them; the bound counts the function's)
             bytes=image_bytes, ops=x1.numel() * (taps * 10 + 3),
+            also=[("own arithmetic in PyTorch",
+                   lambda: preprocess._bilateral_math_folded(x1, cfg))],
         ), torch),
         check_kernel(dict(
             name="fill_smooth", tol=K2_TOL, source="vulcan_tpu_torch/csrc/fill_smooth.cu",
@@ -527,13 +623,10 @@ def main() -> None:
 
     print(f"launch floor: {device_ms(lambda: torch.cuda._sleep(1)):.6f} ms device time "
           "per launch of a kernel that does nothing", flush=True)
+    k1_inputs_and_radii(P, preprocess, torch, dev, frames[0][0])
     k2_rounds_and_shapes(P, splat, torch, dev)
 
     phase("3 main path: Pipeline.process, default Config, depth mode, 480x640")
-    n = N_WARM + N_TIMED
-    cam = P.PinholeCamera.tum_default()
-    poses = orbit_poses(n, radius=1.6, height=0.35, span=min(6.28, n * 0.05))
-    frames = make_frames(P, cam, poses, 480, 640, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     preprocess.bilateral_filter.launches = 0

@@ -79,7 +79,8 @@ def test_kernel_entry_refuses_cpu_tensors(launch):
     """A CUDA entry point given a CPU tensor raises before anything is
     built or loaded (the wrappers never send it one)."""
     fn = {
-        "bilateral": lambda x: cuda_kernels.bilateral(x, [1.0] * 25, 2, 200.0),
+        "bilateral": lambda x: cuda_kernels.bilateral(
+            x, cuda_kernels.bilateral_constants(2, 2.0, 0.05)),
         "fill_smooth": lambda x: cuda_kernels.fill_smooth(
             x, cuda_kernels.fill_smooth_plan(2), 0.08, 0.02),
         "fill_smooth_fused": lambda x: cuda_kernels.fill_smooth_fused(x, 2, 0.08, 0.02),

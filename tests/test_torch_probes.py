@@ -227,5 +227,84 @@ def test_gather_binding_refuses_shape(shape):
 
 def test_gather_path_by_table_height():
     assert cuda_kernels.gather_path(2048) == "smem"
-    assert cuda_kernels.gather_path(16384) == "l2"
+    assert cuda_kernels.gather_path(4096) == "columns"
+    assert cuda_kernels.gather_path(16384) == "columns"
+    assert cuda_kernels.gather_path(32768) == "columns"
+    assert cuda_kernels.gather_path(65536) == "l2"      # one column: 256 KB
     assert bench_gather.launch_key(torch.zeros((2048, 4), dtype=torch.int32)) == "int32/smem"
+    assert bench_gather.launch_key(torch.zeros((16384, 16))) == "float32/columns"
+    assert bench_gather.launch_key(torch.zeros((16384, 16)), "l2") == "float32/l2"
+    assert bench_gather.launch_key(torch.zeros((2048, 16)), "columns") == "float32/columns"
+    assert set(bench_gather.chained_gather.launches) == {
+        f"{dt}/{path}" for dt in ("float32", "int32") for path in ("smem", "columns", "l2")}
+
+
+@pytest.mark.parametrize("rows,path", [(4096, "smem"), (65536, "columns"), (65536, "smem"),
+                                       (2048, "vmem")])
+def test_forced_gather_path_raises_where_it_cannot_hold_the_table(rows, path):
+    """A forced path that cannot hold the table raises, for a CPU tensor
+    too, before anything is built; a path that can is taken as asked."""
+    with pytest.raises(ValueError, match="path"):
+        cuda_kernels.check_gather_path(rows, path)
+    table = torch.ones((rows, 16))
+    idx = torch.zeros((4, 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match="path"):
+        bench_gather.chained_gather(table, idx, 2, path=path)
+    got = bench_gather.chained_gather(table, idx, 2, path="l2")
+    assert torch.equal(got, torch.full((4, 16), 2.0))
+    assert cuda_kernels._lib is None
+
+
+def test_gather_plan_refuses_columns_that_do_not_fit():
+    with pytest.raises(ValueError, match="do not fit"):
+        cuda_kernels.gather_plan(65536, 128, 64, 132)
+    with pytest.raises(ValueError, match="do not fit"):
+        cuda_kernels.gather_plan(32768, 128, 64, 132, cols_per_block=2)
+    with pytest.raises(ValueError, match="do not fit"):     # 4 columns: 256 KB
+        cuda_kernels.gather_plan(16384, 128, 64, 132, cluster_blocks=4, cols_per_block=4)
+    with pytest.raises(ValueError, match="power of two"):
+        cuda_kernels.gather_plan(16384, 128, 64, 132, cols_per_block=3)
+    with pytest.raises(ValueError, match="at most"):
+        cuda_kernels.gather_plan(4096, 128, 64, 132, cluster_blocks=16, cols_per_block=2)
+    # two columns a block where they fit, one where not; two row slabs fill 128 of 132 SMs
+    assert cuda_kernels.gather_plan(16384, 128, 16384, 132) == (2, 1, 2, 8192, False)
+    assert cuda_kernels.gather_plan(32768, 128, 16384, 132) == (1, 1, 1, 16384, False)
+
+
+@pytest.mark.parametrize("t_rows,cols,n,sms,kw", [
+    (16384, 128, 16384, 132, {}),                                   # T4
+    (16384, 128, 16384, 132, dict(cols_per_block=1)),
+    (16384, 128, 16384, 132, dict(cluster_blocks=8, cols_per_block=2)),
+    (16384, 128, 16384, 132, dict(cluster_blocks=16)),
+    (16384, 128, 1000, 132, dict(cluster_blocks=8, cols_per_block=1)),
+    (16384, 128, 1000, 132, {}),                                    # ragged N
+    (16384, 128, 7, 132, {}),                                       # fewer rows than blocks
+    (4096, 16, 5000, 132, {}),                                      # L = 16
+    (4096, 16, 5000, 8, dict(cluster_blocks=4)),                    # a small card
+    (32768, 32, 100000, 132, {}),                                   # one column a block
+], ids=["T4", "T4-1col", "T4-8blocks", "T4-16blocks", "ragged-8blocks", "ragged", "7rows",
+        "L16", "L16-8sms", "T32768"])
+def test_gather_plan_owns_every_element_once(t_rows, cols, n, sms, kw):
+    """The columns path's partition as a pure function: every (row, column)
+    of idx is taken by exactly one block, every column of the table is held
+    by exactly one block of each cluster that asks for it, whole, and fits."""
+    plan = cuda_kernels.gather_plan(t_rows, cols, n, sms, **kw)
+    gx, gy = plan.grid(cols)
+    assert gx % plan.cluster_blocks == 0 and gx * gy <= max(sms, gx)
+    assert plan.smem_bytes(t_rows) <= cuda_kernels.GATHER_BLOCK_BYTES
+    assert plan.group_cols in (1, 2, 4, 8, 16)
+    assert plan.rows_per_slab * plan.row_slabs >= n
+    taken = np.zeros((n, cols), dtype=np.int32)
+    for by in range(gy):
+        held = np.zeros((t_rows, cols), dtype=np.int32)
+        for bx in range(gx):
+            r0, r1, c0, c1 = plan.block_extent(bx, by, n)
+            taken[r0:r1, c0:c1] += 1
+            tr0, tr1, tc0, tc1 = plan.staged_extent(bx, t_rows)
+            held[tr0:tr1, tc0:tc1] += 1
+            # the block's own columns lie inside the group it gathers for
+            group0 = bx // plan.cluster_blocks * plan.group_cols
+            assert group0 <= c0 <= tc0 and tc1 <= c1 <= group0 + plan.group_cols
+            assert tc1 - tc0 == plan.cols_per_block
+        assert (held == 1).all()
+    assert (taken == 1).all()

@@ -14,21 +14,25 @@ or loaded until a kernel is launched on a CUDA tensor.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "vulcan_tpu_torch_kernels"
-# No --use_fast_math: expf and IEEE division keep the kernels within ulps
-# of the plain versions.  -Xptxas -v reports registers/shared memory/spills.
+# No --use_fast_math: IEEE division and exact adds keep the kernels within
+# ulps of the plain versions (K1 asks for its one approximate instruction,
+# ex2.approx, by name).  -Xptxas -v reports registers/shared memory/spills.
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -59,32 +63,32 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+def library_path(sources: list[Path] | None = None,
+                 defines: tuple[str, ...] = ()) -> Path:
+    """Where the library for the current sources lives (built or not).  The
+    default is every source and no ``-D``; a variant (one source with
+    ``defines``, ``build_variant``) gets a directory of its own."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
+    for src in _sources() if sources is None else sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / "libvulcan_tpu_torch.so"
 
 
-def build() -> Path:
-    """Compile the sources if the hashed library is missing; return its
-    path.  Each ``.cu`` file compiles to an object in its own ``nvcc``
+def _compile(sources: list[Path], defines: tuple[str, ...], out: Path) -> str:
+    """Compile ``sources`` into the shared library ``out``; return nvcc's
+    output.  Each ``.cu`` file compiles to an object in its own ``nvcc``
     process, all started together, and one more ``nvcc`` links them.  The
     library is written to a temporary name and renamed into place, so a
     concurrent or interrupted build never leaves a torn file."""
-    global build_log
-    out = library_path()
-    if out.is_file():
-        return out
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         jobs = []
-        for src in (s for s in _sources() if s.suffix == ".cu"):
+        for src in sources:
             obj = os.path.join(tmp, src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)]
+            cmd = [nvcc, *flags, "-I", str(CSRC), "-c", "-o", obj, str(src)]
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         logs, failed = [], []
@@ -92,21 +96,63 @@ def build() -> Path:
             logs.append(proc.communicate()[0])
             if proc.returncode != 0:
                 failed.append(" ".join(cmd))
-        build_log = "".join(logs)
+        log = "".join(logs)
         if failed:
             cmds = "\n".join(failed)
-            raise RuntimeError(f"nvcc failed:\n{cmds}\n{build_log}")
+            raise RuntimeError(f"nvcc failed:\n{cmds}\n{log}")
         lib = os.path.join(tmp, out.name)
         cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *(obj for _, obj, _ in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log += proc.stdout + proc.stderr
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{build_log}"
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}"
             )
         os.replace(lib, out)
+    return log
+
+
+def build() -> Path:
+    """Compile the sources if the hashed library is missing; return its
+    path."""
+    global build_log
+    out = library_path()
+    if not out.is_file():
+        build_log = _compile([s for s in _sources() if s.suffix == ".cu"], (), out)
     return out
+
+
+def build_variant(source: str, defines: tuple[str, ...]) -> tuple[ctypes.CDLL, str]:
+    """Build ``csrc/<source>`` alone with ``-D<define>`` for each of
+    ``defines`` and load it: a kernel's compile-time alternatives, for the
+    probes that time them against the built-in choice.  Returns the library
+    (its functions' ``argtypes`` are the caller's to set) and nvcc's output
+    ("" when the library was already there)."""
+    src = [CSRC / source]
+    out = library_path(src, defines)
+    log = "" if out.is_file() else _compile(src, defines, out)
+    return ctypes.CDLL(str(out)), log
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "vulcan_bilateral": [_P, _P, _I, _I, _I, _P, _F, _P],
+    "vulcan_fill_smooth": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
+    "vulcan_fill_smooth_fused": [_P, _P, _I, _I, _I, _F, _F, _P],
+    "vulcan_chained_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "vulcan_gather_max_clusters": [_I, _I, _I, _I, _I, _I],
+    "vulcan_subsample2": [_P, _P, _I, _I, _P],
+}
+
+
+def bind(lib: ctypes.CDLL, names=tuple(_SIGNATURES)) -> ctypes.CDLL:
+    """Give the C entry points ``names`` of ``lib`` their argument types
+    (without them ctypes passes a pointer as a 32-bit int and cuts it)."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = _I
+    return lib
 
 
 def load() -> ctypes.CDLL:
@@ -118,19 +164,7 @@ def load() -> ctypes.CDLL:
         return lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            for name, args in (
-                ("vulcan_bilateral", [p, p, i, i, i, p, f, p]),
-                ("vulcan_fill_smooth", [p, p, i, i, i, i, f, f, p]),
-                ("vulcan_fill_smooth_fused", [p, p, i, i, i, f, f, p]),
-                ("vulcan_chained_gather", [p, p, p, i, i, i, i, i, i, p]),
-                ("vulcan_subsample2", [p, p, i, i, p]),
-            ):
-                fn = getattr(lib, name)
-                fn.argtypes = args
-                fn.restype = i
-            _lib = lib
+            _lib = bind(ctypes.CDLL(str(build())))
     return _lib
 
 
@@ -168,19 +202,63 @@ def _launch(fn, x: torch.Tensor, *args) -> int:
         return fn(*args, stream)
 
 
-def bilateral(depth: torch.Tensor, space_w: list[float], radius: int,
-              inv_2sd: float) -> torch.Tensor:
-    """Launch K1 (``csrc/bilateral.cu``) on an (H, W) float32 CUDA image."""
+BILATERAL_MAX_RADIUS = 4        # csrc/bilateral.cu kMaxRadius
+# K1 stages an invalid or off-image depth as this value: its squared distance
+# to any real depth (1e36) times the range factor must drive ex2 to 0.
+BILATERAL_INVALID = -1e18
+
+
+class BilateralConstants(NamedTuple):
+    """K1's per-``Config`` constants, ready for the launch.  The weight of a
+    tap, ``exp(-(dy^2+dx^2)/(2 ss^2)) * exp(-diff^2/(2 sd^2))``, is folded
+    into one power of two, ``exp2(diff^2 * neg_a + neg_s[dy, dx])``; both
+    constants are computed in double and rounded to float32."""
+    radius: int
+    neg_a: float                    # -log2(e) / (2 sigma_depth^2)
+    neg_s: tuple[float, ...]        # -(dy^2 + dx^2) log2(e) / (2 sigma_space^2), dy-outer
+    array: ctypes.Array             # neg_s as the float array the C entry reads
+    pointer: ctypes.c_void_p        # its address (``array`` keeps it alive)
+
+
+def _f32(x: float) -> float:
+    return ctypes.c_float(x).value
+
+
+@functools.lru_cache(maxsize=16)
+def bilateral_constants(radius: int, sigma_space: float,
+                        sigma_depth: float) -> BilateralConstants:
+    """The folded constants of K1 for one filter setting, built once: a
+    later call with the same setting returns the same object, so a frame
+    computes no exponential and builds no ctypes array."""
+    if not 0 <= radius <= BILATERAL_MAX_RADIUS:
+        raise ValueError(f"bilateral: radius must be in [0, {BILATERAL_MAX_RADIUS}], "
+                         f"got {radius}")
+    log2e = math.log2(math.e)
+    neg_a = _f32(-log2e / (2.0 * sigma_depth**2))
+    # ex2 of anything below -150 is 0 in float32: an invalid tap weighs nothing
+    if not neg_a * BILATERAL_INVALID**2 < -200.0:
+        raise ValueError(f"bilateral: sigma_depth {sigma_depth} is out of the kernel's range")
+    inv_2ss = log2e / (2.0 * sigma_space**2)
+    neg_s = tuple(
+        _f32(-(dy * dy + dx * dx) * inv_2ss)
+        for dy in range(-radius, radius + 1)
+        for dx in range(-radius, radius + 1)
+    )
+    array = (ctypes.c_float * len(neg_s))(*neg_s)
+    return BilateralConstants(radius, neg_a, neg_s, array,
+                              ctypes.cast(array, ctypes.c_void_p))
+
+
+def bilateral(depth: torch.Tensor, constants: BilateralConstants) -> torch.Tensor:
+    """Launch K1 (``csrc/bilateral.cu``) on an (H, W) float32 CUDA image
+    with the constants of ``bilateral_constants``."""
     _check(depth, "bilateral")
-    if len(space_w) != (2 * radius + 1) ** 2:
-        raise ValueError("bilateral: need (2r+1)^2 spatial weights")
     lib = load()
-    out = torch.empty_like(depth)
-    w_host = (ctypes.c_float * len(space_w))(*space_w)
+    out = depth.new_empty(depth.shape)
     err = _launch(
         lib.vulcan_bilateral, depth, depth.data_ptr(), out.data_ptr(),
-        depth.shape[0], depth.shape[1], radius,
-        ctypes.cast(w_host, ctypes.c_void_p), inv_2sd,
+        depth.shape[0], depth.shape[1], constants.radius, constants.pointer,
+        constants.neg_a,
     )
     _raise_on(err, "bilateral")
     return out
@@ -243,24 +321,124 @@ def fill_smooth_fused(d: torch.Tensor, rounds: int, two_mu: float,
     return out
 
 
-# Chained gather (T2-T4): a table of at most GATHER_SMEM_ROWS rows is staged
-# in shared memory, GATHER_COLS columns a block (2048 x 16 x 4 B = 128 KB); a
-# taller table is read through L2 (csrc/gather.cu says why).
+# Chained gather (T2-T4), three paths by the table's height (csrc/gather.cu
+# says why): up to GATHER_SMEM_ROWS rows a block stages GATHER_COLS whole
+# columns in its shared memory ("smem"); while one whole column still fits a
+# block's GATHER_BLOCK_BYTES, a block holds one or two whole columns
+# ("columns"); a taller table is read through L2 ("l2").
 GATHER_SMEM_ROWS = 2048
 GATHER_COLS = 16
+GATHER_BLOCK_BYTES = 232448         # 227 KB: what one block may use on sm_90
+GATHER_PATHS = ("smem", "columns", "l2")
+GATHER_COLUMNS_THREADS = 512        # csrc/gather.cu kColumnsThreads
+GATHER_COLUMNS_CHAINS = 8           # csrc/gather.cu kColumnsChains
 
 
 def gather_path(rows: int) -> str:
-    """"smem" or "l2": where the chained gather reads a table of ``rows``."""
-    return "smem" if rows <= GATHER_SMEM_ROWS else "l2"
+    """"smem", "columns" or "l2": where the chained gather keeps a table of
+    ``rows`` rows, by its size alone."""
+    if rows <= GATHER_SMEM_ROWS:
+        return "smem"
+    return "columns" if rows * 4 <= GATHER_BLOCK_BYTES else "l2"
 
 
-def chained_gather(table: torch.Tensor, idx: torch.Tensor, rounds: int) -> torch.Tensor:
+class GatherPlan(NamedTuple):
+    """How the columns path cuts an (N, L) gather from a (T, L) table into
+    blocks.  A cluster of ``cluster_blocks`` blocks (1: a block alone, a
+    plain launch) owns ``group_cols`` adjacent columns, ``cols_per_block`` of
+    them whole in each block's shared memory; ``row_slabs`` clusters share a
+    column group, each taking ``rows_per_slab`` rows of idx, which its blocks
+    split evenly across all of the group's columns."""
+    cols_per_block: int
+    cluster_blocks: int
+    row_slabs: int
+    rows_per_slab: int
+    interleaved: bool = False       # a block's columns as col[r * cpb + c], else planar
+
+    @property
+    def group_cols(self) -> int:
+        return self.cols_per_block * self.cluster_blocks
+
+    def smem_bytes(self, t_rows: int) -> int:
+        return t_rows * self.cols_per_block * 4
+
+    def grid(self, cols: int) -> tuple[int, int]:
+        return (cols // self.group_cols * self.cluster_blocks, self.row_slabs)
+
+    def block_extent(self, bx: int, by: int, n: int) -> tuple[int, int, int, int]:
+        """(row_begin, row_end, col_begin, col_end) of idx and out that block
+        (bx, by) of the grid takes, as the kernel computes it."""
+        group, rank = divmod(bx, self.cluster_blocks)
+        slab_end = min(n, (by + 1) * self.rows_per_slab)
+        share = -(-self.rows_per_slab // self.cluster_blocks)
+        r0 = min(slab_end, by * self.rows_per_slab + rank * share)
+        return (r0, min(slab_end, r0 + share),
+                group * self.group_cols, (group + 1) * self.group_cols)
+
+    def staged_extent(self, bx: int, t_rows: int) -> tuple[int, int, int, int]:
+        """(row_begin, row_end, col_begin, col_end) of the table that block
+        ``bx`` holds in its shared memory."""
+        group, rank = divmod(bx, self.cluster_blocks)
+        c0 = group * self.group_cols + rank * self.cols_per_block
+        return 0, t_rows, c0, c0 + self.cols_per_block
+
+
+def gather_plan(t_rows: int, cols: int, n: int, sms: int,
+                cluster_blocks: int = 1, cols_per_block: int | None = None,
+                row_slabs: int | None = None,
+                interleaved: bool = False) -> GatherPlan:
+    """The columns path's partition, a pure function of the shapes and the
+    card's SM count.  ``cluster_blocks`` and ``cols_per_block`` are powers
+    of two whose product divides 16 (the width is a multiple of 16, so the
+    groups tile it).  Unless given, a block holds 2 columns where they fit
+    and 1 where not, and ``row_slabs`` fills the SMs once, as far as every
+    block still gets one full pass of its threads.  Raises where the owned
+    columns do not fit a block."""
+    if cols_per_block is None:
+        cols_per_block = 2 if t_rows * 8 <= GATHER_BLOCK_BYTES and cluster_blocks <= 8 else 1
+    for what, v in (("cluster_blocks", cluster_blocks), ("cols_per_block", cols_per_block)):
+        if v < 1 or v & (v - 1):
+            raise ValueError(f"chained_gather: {what} must be a power of two, got {v}")
+    group_cols = cluster_blocks * cols_per_block
+    if GATHER_COLS % group_cols:
+        raise ValueError("chained_gather: a cluster owns at most "
+                         f"{GATHER_COLS} columns, got {group_cols}")
+    if t_rows < cluster_blocks:
+        raise ValueError("chained_gather: the table needs a row for every block of a cluster")
+    if t_rows * cols_per_block * 4 > GATHER_BLOCK_BYTES:
+        raise ValueError(
+            f"chained_gather: {cols_per_block} column(s) of {t_rows} rows do not fit "
+            f"a block's {GATHER_BLOCK_BYTES} bytes of shared memory")
+    if row_slabs is None:
+        blocks_per_slab = cols // group_cols * cluster_blocks
+        per_pass = GATHER_COLUMNS_THREADS * GATHER_COLUMNS_CHAINS
+        row_slabs = max(1, min(sms // blocks_per_slab,
+                               -(-n * cols_per_block // per_pass)))
+    return GatherPlan(cols_per_block, cluster_blocks, row_slabs,
+                      max(1, -(-n // row_slabs)), interleaved)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+# The columns path's own plan for (T, L, N, SM count), computed once a shape.
+_own_gather_plan = functools.lru_cache(maxsize=64)(gather_plan)
+
+
+def chained_gather(table: torch.Tensor, idx: torch.Tensor, rounds: int,
+                   path: str | None = None,
+                   plan: GatherPlan | None = None) -> torch.Tensor:
     """Launch T2-T4 (``csrc/gather.cu``): ``rounds`` chained lookups
     ``v = table[idx[i, j], j]``, ``idx = |idx + int(v) + k| % T``, summing
     ``v``.  ``table`` (T, L) float32 or int32, T a power of two, L a
     multiple of 16, 16-byte aligned; ``idx`` (N, L) int32 with entries in
-    [0, T)."""
+    [0, T).  ``path`` forces one of ``GATHER_PATHS`` (default:
+    ``gather_path(T)``) and raises if that path cannot hold the table;
+    ``plan`` replaces the columns path's own ``gather_plan`` (the probe's
+    variant table).  A launch the card refuses raises; no other path is
+    tried."""
     if table.ndim == 2:
         t_rows, cols = table.shape
         if t_rows < 1 or t_rows & (t_rows - 1) or cols % GATHER_COLS:
@@ -278,17 +456,53 @@ def chained_gather(table: torch.Tensor, idx: torch.Tensor, rounds: int) -> torch
         raise ValueError("chained_gather: table and idx on different devices")
     if rounds < 0:
         raise ValueError("chained_gather: rounds must be >= 0")
-    lib = load()
     t_rows, cols = table.shape
+    path = check_gather_path(t_rows, path)
+    if plan is not None and path != "columns":
+        raise ValueError(f"chained_gather: a plan goes with the columns path, not {path!r}")
+    if path == "columns":
+        if plan is None:
+            plan = _own_gather_plan(t_rows, cols, idx.shape[0],
+                                    _sm_count(table.get_device()))
+        elif plan.smem_bytes(t_rows) > GATHER_BLOCK_BYTES or GATHER_COLS % plan.group_cols:
+            raise ValueError(f"chained_gather: {plan} cannot hold a table of {t_rows} rows")
+    else:
+        plan = GatherPlan(0, 0, 0, 0)
+    lib = load()
     out = table.new_empty(idx.shape)
-    use_smem = int(gather_path(t_rows) == "smem")
     err = _launch(
         lib.vulcan_chained_gather, table, table.data_ptr(), idx.data_ptr(),
         out.data_ptr(), idx.shape[0], t_rows, cols, rounds,
-        int(table.dtype == torch.int32), use_smem,
+        int(table.dtype == torch.int32), GATHER_PATHS.index(path),
+        plan.cols_per_block, plan.cluster_blocks, plan.row_slabs,
+        plan.rows_per_slab, int(plan.interleaved),
     )
-    _raise_on(err, "chained_gather")
+    _raise_on(err, f"chained_gather ({path})")
     return out
+
+
+def gather_max_clusters(t_rows: int, cols: int, plan: GatherPlan) -> int:
+    """How many of ``plan``'s clusters the current card runs at once
+    (``cudaOccupancyMaxActiveClusters``): a plan of more runs in waves."""
+    got = load().vulcan_gather_max_clusters(
+        t_rows, cols, plan.cols_per_block, plan.cluster_blocks, plan.row_slabs,
+        plan.rows_per_slab)
+    _raise_on(-min(got, 0), "gather_max_clusters")
+    return got
+
+
+def check_gather_path(t_rows: int, path: str | None) -> str:
+    """The path a table of ``t_rows`` rows takes: ``gather_path`` unless
+    ``path`` forces one; raises if the forced path cannot hold the table."""
+    if path is None:
+        return gather_path(t_rows)
+    if path not in GATHER_PATHS:
+        raise ValueError(f"chained_gather: path must be one of {GATHER_PATHS}, got {path!r}")
+    if (path == "smem" and t_rows > GATHER_SMEM_ROWS) or (
+            path == "columns" and t_rows * 4 > GATHER_BLOCK_BYTES):
+        raise ValueError(f"chained_gather: the {path} path cannot hold a table of "
+                         f"{t_rows} rows")
+    return path
 
 
 def subsample2(x: torch.Tensor) -> torch.Tensor:

@@ -57,25 +57,50 @@ def _bilateral_math(depth: torch.Tensor, config: Config) -> torch.Tensor:
     return torch.where(valid_center, out, 0.0)
 
 
+def _bilateral_constants(config: Config) -> cuda_kernels.BilateralConstants:
+    return cuda_kernels.bilateral_constants(
+        config.bilateral_radius, config.bilateral_sigma_space,
+        config.bilateral_sigma_depth,
+    )
+
+
+def _bilateral_math_folded(depth: torch.Tensor, config: Config) -> torch.Tensor:
+    """Kernel K1's own arithmetic in plain PyTorch, for the tests of its
+    error budget (nothing on the main path calls it): the weight of a tap
+    is one power of two, ``exp2(diff^2 * neg_a + neg_s[dy, dx])``; an
+    invalid or off-image depth is a far negative value, whose weight that
+    power drives to 0; the centre weighs exactly 1."""
+    k = _bilateral_constants(config)
+    r = k.radius
+    staged = torch.where(depth > 0.0, depth, cuda_kernels.BILATERAL_INVALID)
+    acc = depth.clone()
+    wacc = torch.ones_like(depth)
+    taps = iter(k.neg_s)
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            neg_s = next(taps)
+            if dy == 0 and dx == 0:
+                continue
+            d = _shift2d(staged, dy, dx, fill=cuda_kernels.BILATERAL_INVALID)
+            diff = d - depth
+            w = torch.exp2(diff * diff * k.neg_a + neg_s)
+            acc = acc + w * d
+            wacc = wacc + w
+    return torch.where(depth > 0.0, acc / wacc, 0.0)
+
+
 def bilateral_filter(depth: torch.Tensor, config: Config) -> torch.Tensor:
     """Edge-preserving depth denoise (reference component #8).
 
     A CPU tensor takes the plain version (``_bilateral_math``); a CUDA
-    tensor launches kernel K1 (``csrc/bilateral.cu``) and counts the launch
-    in ``bilateral_filter.launches``.  Anything the kernel does not take
+    tensor launches kernel K1 (``csrc/bilateral.cu``) with the constants
+    cached for this ``Config`` and counts the launch in
+    ``bilateral_filter.launches``.  Anything the kernel does not take
     (dtype, ndim, contiguity) raises.
     """
     if depth.is_cpu:
         return _bilateral_math(depth, config)
-    r = config.bilateral_radius
-    inv_2ss = 1.0 / (2.0 * config.bilateral_sigma_space**2)
-    inv_2sd = 1.0 / (2.0 * config.bilateral_sigma_depth**2)
-    space_w = [
-        math.exp(-(dy * dy + dx * dx) * inv_2ss)
-        for dy in range(-r, r + 1)
-        for dx in range(-r, r + 1)
-    ]
-    out = cuda_kernels.bilateral(depth, space_w, r, inv_2sd)
+    out = cuda_kernels.bilateral(depth, _bilateral_constants(config))
     bilateral_filter.launches += 1
     return out
 
