@@ -45,14 +45,22 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      gather, T5 stride-2 subsample) against their plain versions at the
      tools' own shapes (T2-T5 exact, T1 within 1e-6 m of the plain version
      and of K2), timed like phase 2 (T5 also against its one-call library
-     form: call ms, kernel ms and host us; K2 also one launch per round
-     count, ``bench_stencil.launch_costs``); T4 twice, on its own path (two
-     whole columns of the table in a block's shared memory) and forced
-     through L2, then at ragged heights and a 16-column width and under
-     every variant of the columns path (``bench_gather.variant_times``:
-     blocks alone and thread-block clusters); then the three probe entry
-     points (``vulcan_tpu_torch.tools.bench_*.run``) with every probe count
-     set to 0, each kernel of them launched at least once.
+     form: call ms, kernel ms and host us).  T2/T3 (the smem path) bit for
+     bit at ragged heights, widths of 16 to 128 columns, short tables, 0, 1
+     and 32 rounds, under every variant of its plan and on a table whose
+     sums hit the most negative int; T4 twice, on its own path (two whole
+     columns of the table in a block's shared memory) and forced through
+     L2, then at ragged heights and a 16-column width; the variant tables
+     of both paths (``bench_gather.variant_times``: columns and copies a
+     block, blocks alone and thread-block clusters, each exact) and T2/T3
+     by round count (``bench_gather.round_costs``), with the instructions a
+     lookup and a shuffle from the machine code (``tools/sass.py``); T1 at
+     0-4 rounds at 480x640 and at 121x161 and 479x641 against the plain
+     version and K2; K2 and T1 one launch per round count
+     (``bench_stencil.launch_costs``) and T1 by strip height
+     (``bench_stencil.strip_times``); then the three probe entry points
+     (``vulcan_tpu_torch.tools.bench_*.run``) with every probe count set to
+     0, each kernel of them launched at least once.
 
 Every failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -61,6 +69,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -252,7 +261,8 @@ def probes(P, torch, dev) -> list[dict]:
     """Phase 6: the probe kernels at the tools' own shapes against their
     plain versions, then the three probe entry points with every probe
     count set to 0; each probe kernel must launch there."""
-    from vulcan_tpu_torch.tools import bench_gather, bench_stencil, bench_subsample
+    from vulcan_tpu_torch.ops import cuda_kernels
+    from vulcan_tpu_torch.tools import bench_gather, bench_stencil, bench_subsample, sass
     from vulcan_tpu_torch.tools.timing import device_ms
 
     scfg = bench_stencil.probe_config(P.Config().trunc_dist)
@@ -291,15 +301,25 @@ def probes(P, torch, dev) -> list[dict]:
                        gather_x_rounds_ms=device_ms(
                            lambda c=case: bench_gather.gather_rounds(c))),
         ))
-    t4 = cases[2][1]
+    t2, t3, t4 = (c for _, c, _ in cases[:3])
+    smem_ragged(bench_gather, t2, t3, torch)
     gather_ragged(bench_gather, t4, torch)
-    print("T4 under the columns path's variants, device ms (each exact):", flush=True)
-    for row in bench_gather.variant_times(t4):
-        waves = (f"  {row['clusters']} clusters, {row['clusters_at_once']} at once"
-                 if "clusters" in row else "")
-        print(f"  {row['ms']:.6f} ms  {row['m_lookups_per_s']:8.0f} M lookups/s  "
-              f"{row['name']}" + (f"  {tuple(row['plan'])}" if row["plan"] else "") + waves,
+    for case, path in ((t2, "smem"), (t3, "smem"), (t4, "columns")):
+        print(f"{case.name} under the {path} path's variants, device ms (each exact):",
               flush=True)
+        for row in bench_gather.variant_times(case):
+            waves = (f"  {row['clusters']} clusters, {row['clusters_at_once']} at once"
+                     if "clusters" in row else "")
+            print(f"  {row['ms']:.6f} ms  {row['m_lookups_per_s']:8.0f} M lookups/s  "
+                  f"{row['name']}" + (f"  {tuple(row['plan'])}" if row["plan"] else "") + waves,
+                  flush=True)
+    for case in (t2, t3):
+        print(f"{case.name}, one launch by round count, device ms:", flush=True)
+        for step, ms in bench_gather.round_costs(case).items():
+            print(f"  {ms:.6f} ms  {step}", flush=True)
+    sass.print_loops(cuda_kernels.build(), "gather_smem_kernelI[fi]Li4ELb0", "LDS", "lookup")
+    sass.print_loops(cuda_kernels.build(), "fill_smooth_fused_kernelILi2", "SHFL", "shuffle")
+    t1_rounds_and_shapes(bench_stencil, scfg.trunc_dist, torch, dev)
     t5_exact(bench_subsample, torch, dev)
     x = bench_subsample.make_input(dev)
     breakdown = bench_subsample.host_breakdown(x)
@@ -324,9 +344,13 @@ def probes(P, torch, dev) -> list[dict]:
     fused = entries[0]
     print(f"T1 {fused['kernel_ms']:.4f} ms vs K2 {k2_ms:.4f} ms, device time, "
           "same input", flush=True)
-    print("K2, one launch on the same input, device ms:", flush=True)
-    for step, ms in bench_stencil.launch_costs(d, scfg.trunc_dist).items():
-        print(f"  {ms:.6f} ms  {step}", flush=True)
+    for tag, fused_kernel in (("K2", False), ("T1", True)):
+        print(f"{tag}, one launch on the same input, device ms:", flush=True)
+        for step, ms in bench_stencil.launch_costs(d, scfg.trunc_dist, fused_kernel).items():
+            print(f"  {ms:.6f} ms  {step}", flush=True)
+    print("T1 by strip height and warps a block, device ms:", flush=True)
+    for (rows, warps), ms in bench_stencil.strip_times(d, scfg.trunc_dist).items():
+        print(f"  {ms:.6f} ms  {rows} rows a strip, {warps} warps a block", flush=True)
     for e in entries[1:5]:
         e["m_lookups_per_s"] = e["lookups"] / e["kernel_ms"] * 1e3 / 1e6
         print(f"{e['name']}: {e['m_lookups_per_s']:.0f} M lookups/s (device time)",
@@ -351,6 +375,74 @@ def probes(P, torch, dev) -> list[dict]:
         if e["launches"] < 1:
             fail(f"{e['name']}: not launched by its probe entry point")
     return entries
+
+
+def smem_ragged(bench_gather, t2, t3, torch) -> None:
+    """The smem path (T2/T3) where its partition is ragged, under every
+    variant of its plan and on its own: heights of idx that do not fill the
+    slabs, 16 to 128 columns, short tables, 0, 1 and 32 rounds, both
+    dtypes, and an int32 table whose sums hit the most negative int; each
+    bit for bit against the plain version."""
+    from vulcan_tpu_torch.ops import cuda_kernels
+
+    sms = cuda_kernels._sm_count(t2.table.get_device())
+    idx_tall = torch.cat([t2.idx, t2.idx.flip(0)])
+    checked = 0
+    for base, n, cols, t_rows in itertools.product(
+            (t2.table, t3.table), (7, 1000, 3001), (16, 48, 128), (64, 1024, 2048)):
+        table = base[:t_rows, :cols].contiguous()
+        idx = (idx_tall[:n, :cols] % t_rows).contiguous()
+        plans = [cuda_kernels.smem_plan(t_rows, cols, n, sms, cpb, blocks)
+                 for _, cpb, blocks in bench_gather.SMEM_VARIANTS] + [None]
+        for rounds in (0, 1, 32):
+            want = bench_gather.chained_gather_plain(table, idx, rounds)
+            for plan in plans:
+                got = bench_gather.chained_gather(table, idx, rounds, plan=plan)
+                checked += 1
+                if got.dtype != want.dtype or not torch.equal(got, want):
+                    fail(f"smem gather differs from the plain version at N={n}, L={cols}, "
+                         f"T={t_rows}, rounds {rounds}, {table.dtype}, {plan}")
+    # table[r] = INT_MIN - r: the first sum is the most negative int, whose
+    # absolute value is itself; later sums wrap
+    r = torch.arange(2048, dtype=torch.int64, device=t2.table.device)
+    extreme = ((r.neg() + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
+    table = extreme[:, None].repeat(1, 16).contiguous()
+    idx = t2.idx[:100, :16].contiguous()
+    for rounds in (1, 2, 5):
+        want = bench_gather.chained_gather_plain(table, idx, rounds)
+        for path in cuda_kernels.GATHER_PATHS:
+            checked += 1
+            if not torch.equal(bench_gather.chained_gather(table, idx, rounds, path=path), want):
+                fail(f"{path} gather differs on the most negative int at {rounds} rounds")
+    print(f"T2/T3 smem path: {checked} launches at ragged shapes, under every variant of "
+          "the plan and on the most negative int: all exact", flush=True)
+
+
+def t1_rounds_and_shapes(bench_stencil, mu, torch, dev) -> None:
+    """T1 at 0-4 rounds at 480x640 and at two odd shapes at 2 rounds,
+    against the plain version and against K2 (K2_TOL, finite masks equal),
+    on an image with hole patches that take several rounds to close."""
+    from vulcan_tpu_torch.tools.timing import max_abs_err
+
+    rng = np.random.default_rng(17)
+    for h, w, all_rounds in ((480, 640, range(5)), (121, 161, (2,)), (479, 641, (2,))):
+        d = bench_stencil.make_input(h, w, "cpu").numpy().copy()
+        for _ in range(max(4, h * w // 4000)):
+            y0, x0 = rng.integers(0, h), rng.integers(0, w)
+            sy, sx = rng.integers(2, 9, size=2)
+            d[y0:y0 + sy, x0:x0 + sx] = np.inf
+        x = torch.from_numpy(d).to(dev)
+        for rounds in all_rounds:
+            cfg = bench_stencil.probe_config(mu, rounds)
+            got = bench_stencil.fill_smooth_fused(x, cfg)
+            errs = {"plain": max_abs_err(got, bench_stencil.fill_smooth_plain(x, cfg)),
+                    "K2": max_abs_err(got, bench_stencil.fill_smooth_k2(x, cfg))}
+            print(f"T1 {h}x{w} rounds {rounds}: max_abs_err plain {errs['plain']:.3e}, "
+                  f"K2 {errs['K2']:.3e} (tol {K2_TOL:g})", flush=True)
+            for ref, err in errs.items():
+                if not err <= K2_TOL:
+                    fail(f"T1 at {h}x{w}, rounds {rounds}: max abs error against {ref} "
+                         f"{err} above {K2_TOL}")
 
 
 def gather_ragged(bench_gather, case, torch) -> None:

@@ -24,16 +24,36 @@
 //
 // Design, one path per table height:
 //   * smem path (T2/T3, T <= 2048 rows): the gather runs down a column, so a
-//     block stages the 16 columns it owns, whole, in shared memory (2048 x
-//     16 x 4 B = 128 KB, one block per SM) and runs its rows through every
-//     round there.  Layout col[r * 16 + c]: lane c and lane c + 16 of a warp
-//     serve column c on two rows, bank = c + 16 (r mod 2), so they collide
-//     only when their random rows share parity: 1.5 wavefronts a request on
-//     average.  The conflict-free layout (32 columns a block, one per lane)
-//     would need 256 KB.  8 column groups x 16 row slabs fill 128 SMs; each
-//     block reads its 128 KB from L2 after the first touch from HBM, in
-//     16-byte loads with eight in flight a thread, since with one 512-thread
-//     block an SM the staging is bound by the loads it keeps in flight.
+//     block stages the columns it owns, whole, in shared memory and runs its
+//     slab of rows through every round there.  A row of the block's shared
+//     memory is always 16 words (2048 x 16 x 4 B = 128 KB, one block per SM):
+//     a block owns C columns (2..16, ops/cuda_kernels.py smem_plan) and keeps
+//     16 / C copies of each, word (copy q, row r, column j) at r * 16 +
+//     q * C + j.  Lane l of a warp reads word l mod 16 of a row, so lane l
+//     and lane l + 16 collide only when their random rows share parity (bank
+//     = l mod 16 + 16 (r mod 2)): 1.5 wavefronts a request on average, for
+//     every C.  The conflict-free layout (32 words a row) would need 256 KB.
+//     What C trades is the staging: L / C column groups x SMs / (L / C) row
+//     slabs fill the card, and every slab of a group pulls the group's
+//     columns from L2 again, 128 KB a block at C = 16 (16 MB in all for the
+//     1 MB table), 64 KB at C = 8; below 8 a row's piece is under one
+//     32-byte sector and nothing more is saved.  Measured, C = 16 and C = 8
+//     tie and fewer lose: half the bytes arrive as one 32-byte piece of
+//     every 128-byte line, which L2 serves more slowly than 64-byte pieces,
+//     and idx and out then move as 32-byte pieces too.  C = 16 (one copy) is
+//     the plan's choice (PERF.md has the table).  The staging is 16-byte
+//     loads, all of a thread's in flight together, each stored to every
+//     copy; idx is loaded before it, so that trip runs under the staging.
+//     The blocks of a
+//     thread-block cluster (row slabs of one group) can share one staging
+//     pass, each loading a part and writing it to all with 16-byte
+//     st.shared::cluster stores: kept as a measured variant, not the
+//     default, because the SM-to-SM network takes those stores more slowly
+//     than L2 serves the loads they save.  A lookup is 7 instructions for
+//     float32 (address, LDS, F2I, a three-input add, IABS, mask, FADD), 6 for
+//     int32; a round takes as long on 16 rows of idx as on 2048, so what
+//     bounds the lookup phase is the latency of one warp's dependent chain,
+//     not the rate the instructions issue at or the banks.
 //   * columns path (T4, while one whole column fits a block's 227 KB;
 //     16384 x 4 B = 64 KB a column): a block holds 2 whole columns (1 where 2
 //     do not fit) in its shared memory, staged from L2 in 8-byte pieces, and
@@ -58,23 +78,26 @@
 //   * L2 path (taller tables, and the yardstick of the card's gather rate
 //     from L2, which is what integrate and ICP see with tables far larger
 //     than shared memory): every lookup is an __ldg.
-// All keep independent chains in every thread (4 on the smem path, 8 on the
-// others) so the dependent load -> index -> load sequence of one chain
+// All keep independent chains in every thread (2 on the smem path, where a
+// round is bound by the latency of one warp's chains and 32 warps of 2 hide
+// it better than 16 of 4; 8 on the others) so the dependent load -> index -> load sequence of one chain
 // overlaps the others.  T must be a power of two (the remainder is a mask),
 // L a multiple of 16 and the table 16-byte aligned; the binding checks all
 // three (ops/cuda_kernels.py).
 #include <cuda_runtime.h>
 
-#include <algorithm>
 #include <cstdint>
+#include <mutex>
+#include <set>
+#include <utility>
 
 namespace {
 
 constexpr int kThreads = 256;    // L2 path
 constexpr int kChains = 8;       // L2 path: independent elements a thread
-constexpr int kSmemThreads = 512;
-constexpr int kSmemChains = 4;
-constexpr int kSmemCols = 16;    // columns a smem-path block owns
+constexpr int kSmemThreads = 1024;
+constexpr int kSmemChains = 2;   // independent elements a thread
+constexpr int kSmemCols = 16;    // (copy, column) pairs a row of a smem-path block holds
 constexpr int kColumnsThreads = 512;
 constexpr int kColumnsChains = 8;
 constexpr int kMaxGroupCols = 16;   // columns a cluster owns at most
@@ -88,93 +111,16 @@ __device__ __forceinline__ int add(int a, int b) {
 }
 
 // |idx + vi + k| % t in wrapping int32 arithmetic, as the reference's
-// jnp.abs(...) % T, for a power-of-two t.
+// jnp.abs(...) % T, for a power-of-two t: one three-input add, one absolute
+// value (the most negative int stays itself, as in the reference, and its
+// low bits are 0) and one mask.
 __device__ __forceinline__ int next_index(int idx, int vi, int k, int t) {
-  const unsigned s = static_cast<unsigned>(idx) + static_cast<unsigned>(vi) +
-                     static_cast<unsigned>(k);
-  const unsigned a = static_cast<int>(s) < 0 ? 0u - s : s;
-  return static_cast<int>(a & static_cast<unsigned>(t - 1));
-}
-
-template <typename V>
-__global__ void __launch_bounds__(kSmemThreads)
-gather_smem_kernel(const V* __restrict__ table, const int* __restrict__ idx,
-                   V* __restrict__ out, int n, int t, int l, int rounds,
-                   int rows_per_block) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const V* col = reinterpret_cast<const V*>(smem_raw);  // col[r * kSmemCols + c]
-  const int c0 = blockIdx.x * kSmemCols;
-  // 16-byte loads, 8 in flight a thread: a row's 16 columns are 4 uint4.
-  const uint4* src = reinterpret_cast<const uint4*>(table + c0);
-  uint4* dst = reinterpret_cast<uint4*>(smem_raw);
-  const int row4 = l / 4;
-#pragma unroll 8
-  for (int e = threadIdx.x; e < t * 4; e += kSmemThreads) {
-    dst[e] = src[static_cast<size_t>(e >> 2) * row4 + (e & 3)];
-  }
-  __syncthreads();
-
-  const int c = threadIdx.x % kSmemCols;
-  constexpr int kRowStep = kSmemThreads / kSmemCols;
-  const int r_begin = blockIdx.y * rows_per_block;
-  const int r_end = min(r_begin + rows_per_block, n);
-  for (int r0 = r_begin + threadIdx.x / kSmemCols; r0 < r_end;
-       r0 += kRowStep * kSmemChains) {
-    int id[kSmemChains];
-    V acc[kSmemChains];
-#pragma unroll
-    for (int m = 0; m < kSmemChains; ++m) {
-      const int r = r0 + m * kRowStep;
-      id[m] = r < r_end ? idx[static_cast<size_t>(r) * l + c0 + c] : 0;
-      acc[m] = V(0);
-    }
-    for (int k = 0; k < rounds; ++k) {
-#pragma unroll
-      for (int m = 0; m < kSmemChains; ++m) {
-        const V v = col[id[m] * kSmemCols + c];
-        id[m] = next_index(id[m], to_int(v), k, t);
-        acc[m] = add(acc[m], v);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < kSmemChains; ++m) {
-      const int r = r0 + m * kRowStep;
-      if (r < r_end) out[static_cast<size_t>(r) * l + c0 + c] = acc[m];
-    }
-  }
-}
-
-template <typename V>
-__global__ void __launch_bounds__(kThreads)
-gather_l2_kernel(const V* __restrict__ table, const int* __restrict__ idx,
-                 V* __restrict__ out, int n, int t, int l, int rounds) {
-  const size_t total = static_cast<size_t>(n) * l;
-  const size_t base =
-      static_cast<size_t>(blockIdx.x) * kThreads * kChains + threadIdx.x;
-  int id[kChains];
-  int col[kChains];
-  V acc[kChains];
-#pragma unroll
-  for (int m = 0; m < kChains; ++m) {
-    const size_t e = base + static_cast<size_t>(m) * kThreads;
-    const bool live = e < total;
-    id[m] = live ? idx[e] : 0;
-    col[m] = live ? static_cast<int>(e % l) : 0;
-    acc[m] = V(0);
-  }
-  for (int k = 0; k < rounds; ++k) {
-#pragma unroll
-    for (int m = 0; m < kChains; ++m) {
-      const V v = __ldg(&table[static_cast<size_t>(id[m]) * l + col[m]]);
-      id[m] = next_index(id[m], to_int(v), k, t);
-      acc[m] = add(acc[m], v);
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < kChains; ++m) {
-    const size_t e = base + static_cast<size_t>(m) * kThreads;
-    if (e < total) out[e] = acc[m];
-  }
+  const int s = static_cast<int>(static_cast<unsigned>(idx) +
+                                 static_cast<unsigned>(vi) +
+                                 static_cast<unsigned>(k));
+  int a;
+  asm("abs.s32 %0, %1;" : "=r"(a) : "r"(s));
+  return a & (t - 1);
 }
 
 // Shared-memory words by 32-bit shared-window address: the same code serves
@@ -216,6 +162,17 @@ __device__ __forceinline__ void store_word(uint32_t addr, uint32_t v) {
 }
 
 template <bool kCluster>
+__device__ __forceinline__ void store_quad(uint32_t addr, uint4 q) {
+  if constexpr (kCluster) {
+    asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+                 "r"(q.x), "r"(q.y), "r"(q.z), "r"(q.w));
+  } else {
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+                 "r"(q.x), "r"(q.y), "r"(q.z), "r"(q.w));
+  }
+}
+
+template <bool kCluster>
 __device__ __forceinline__ void sync_owners() {
   if constexpr (kCluster) {
     asm volatile("barrier.cluster.arrive.release;\n"
@@ -227,6 +184,152 @@ __device__ __forceinline__ void sync_owners() {
 
 __device__ __forceinline__ float from_word(uint32_t w, float) { return __uint_as_float(w); }
 __device__ __forceinline__ int from_word(uint32_t w, int) { return static_cast<int>(w); }
+
+// The smem path.  Grid (row slabs, column groups); cluster (cb, 1, 1), cb = 1
+// (kCluster = false) being a plain launch.  A block owns C = 2^kLogC (2..16)
+// adjacent columns of the table and keeps 16 / C copies of each: word (copy
+// q, row r, column j) at r * 16 + q * C + j, so a row of shared memory is 16
+// "virtual columns", one per lane of a half-warp, whatever C is.  The blocks
+// of a cluster are row slabs of one column group and need the same words:
+// each loads 1 / cb of the table's rows and writes them to every block of
+// the cluster.  A block's elements are rows [slab) x C columns of idx, row
+// major; 1024 % C == 0, so a thread keeps its column through every pass.
+template <typename V, int kLogC, bool kCluster>
+__global__ void __launch_bounds__(kSmemThreads)
+gather_smem_kernel(const V* __restrict__ table, const int* __restrict__ idx,
+                   V* __restrict__ out, int n, int t, int l, int rounds,
+                   int rows_per_slab, int log_cb) {
+  constexpr int kC = 1 << kLogC;
+  static_assert(kC >= 2 && kC <= kSmemCols, "a block owns 2 to 16 columns");
+  constexpr int kPieces = kC >= 4 ? kC / 4 : 1;  // 16-byte pieces of a row's C columns
+  constexpr int kLogPieces = kC >= 4 ? kLogC - 2 : 0;
+  constexpr int kQuads = 4 / kPieces;            // 16-byte stores a piece: the copies
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int c0 = blockIdx.y * kC;
+  const int r_begin = min(n, static_cast<int>(blockIdx.x) * rows_per_slab);
+  const int r_end = min(n, r_begin + rows_per_slab);
+  const int elems = (r_end - r_begin) << kLogC;
+  // element e of the block (e = threadIdx.x mod C) is word at[e >> kLogC rows down]
+  const size_t at0 = static_cast<size_t>(r_begin) * l + c0 + (threadIdx.x & (kC - 1));
+
+  // The first pass's indices, asked for before the staging so that their
+  // trip to memory runs under it.
+  int id[kSmemChains];
+#pragma unroll
+  for (int m = 0; m < kSmemChains; ++m) {
+    const int e = threadIdx.x + m * kSmemThreads;
+    id[m] = e < elems ? idx[at0 + static_cast<size_t>(e >> kLogC) * l] : 0;
+  }
+
+  if constexpr (kCluster) sync_owners<true>();  // every block of the cluster has started
+
+  // Staging: 16-byte loads, all of a thread's in flight together.  A piece
+  // goes to every copy; the copy a store starts with turns with the row
+  // pair, so that the 8 lanes of a 16-byte store phase cover all 32 banks.
+  // A thread's rows lie kRowStep apart, a multiple of 8, so its piece and its
+  // turn are the same in every pass and a pass is one load and its stores.
+  constexpr int kRowStep = kSmemThreads >> kLogPieces;
+  static_assert(kRowStep % 8 == 0, "the turn must not change from pass to pass");
+  const uint32_t base = smem_address(smem_raw);
+  const int t_rows = t >> log_cb;
+  const int tr0 = kCluster ? static_cast<int>(blockIdx.x & ((1u << log_cb) - 1u)) * t_rows : 0;
+  const int row0 = tr0 + (threadIdx.x >> kLogPieces);
+  const int piece = threadIdx.x & (kPieces - 1);
+  uint32_t dst[kQuads];
+#pragma unroll
+  for (int s = 0; s < kQuads; ++s) {
+    const int turn = (s + (row0 >> 1)) & (kQuads - 1);
+    dst[s] = base + 4u * (row0 * kSmemCols + (kC >= 4 ? turn * kC + piece * 4 : turn * 4));
+  }
+  const uint32_t* from = reinterpret_cast<const uint32_t*>(table) +
+                         static_cast<size_t>(row0) * l + c0 + piece * 4;
+#pragma unroll 8
+  for (int row = row0; row < tr0 + t_rows; row += kRowStep) {
+    uint4 q;
+    if constexpr (kC >= 4) {
+      q = __ldg(reinterpret_cast<const uint4*>(from));
+    } else {
+      const uint2 h = __ldg(reinterpret_cast<const uint2*>(from));
+      q = make_uint4(h.x, h.y, h.x, h.y);
+    }
+    const uint32_t off = static_cast<uint32_t>(row - row0) * (kSmemCols * 4);
+#pragma unroll
+    for (int s = 0; s < kQuads; ++s) {
+      if constexpr (kCluster) {
+        for (uint32_t b = 0; b < (1u << log_cb); ++b) {
+          store_quad<true>(owner_address<true>(dst[s] + off, b), q);
+        }
+      } else {
+        store_quad<false>(dst[s] + off, q);
+      }
+    }
+    from += static_cast<size_t>(kRowStep) * l;
+  }
+  sync_owners<kCluster>();
+
+  // A lookup is one address (the lane's word of row id), one load, the next
+  // index and the sum.
+  const uint32_t lane_word = base + 4u * (threadIdx.x & (kSmemCols - 1));
+  for (int e0 = threadIdx.x;;) {
+    V acc[kSmemChains];
+#pragma unroll
+    for (int m = 0; m < kSmemChains; ++m) acc[m] = V(0);
+    for (int k = 0; k < rounds; ++k) {
+#pragma unroll
+      for (int m = 0; m < kSmemChains; ++m) {
+        const V v = from_word(
+            load_word<false>(lane_word + static_cast<uint32_t>(id[m]) * (kSmemCols * 4)), V());
+        id[m] = next_index(id[m], to_int(v), k, t);
+        acc[m] = add(acc[m], v);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kSmemChains; ++m) {
+      const int e = e0 + m * kSmemThreads;
+      if (e < elems) out[at0 + static_cast<size_t>(e >> kLogC) * l] = acc[m];
+    }
+    e0 += kSmemThreads * kSmemChains;
+    if (e0 >= elems) break;
+#pragma unroll
+    for (int m = 0; m < kSmemChains; ++m) {
+      const int e = e0 + m * kSmemThreads;
+      id[m] = e < elems ? idx[at0 + static_cast<size_t>(e >> kLogC) * l] : 0;
+    }
+  }
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+gather_l2_kernel(const V* __restrict__ table, const int* __restrict__ idx,
+                 V* __restrict__ out, int n, int t, int l, int rounds) {
+  const size_t total = static_cast<size_t>(n) * l;
+  const size_t base =
+      static_cast<size_t>(blockIdx.x) * kThreads * kChains + threadIdx.x;
+  int id[kChains];
+  int col[kChains];
+  V acc[kChains];
+#pragma unroll
+  for (int m = 0; m < kChains; ++m) {
+    const size_t e = base + static_cast<size_t>(m) * kThreads;
+    const bool live = e < total;
+    id[m] = live ? idx[e] : 0;
+    col[m] = live ? static_cast<int>(e % l) : 0;
+    acc[m] = V(0);
+  }
+  for (int k = 0; k < rounds; ++k) {
+#pragma unroll
+    for (int m = 0; m < kChains; ++m) {
+      const V v = __ldg(&table[static_cast<size_t>(id[m]) * l + col[m]]);
+      id[m] = next_index(id[m], to_int(v), k, t);
+      acc[m] = add(acc[m], v);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kChains; ++m) {
+    const size_t e = base + static_cast<size_t>(m) * kThreads;
+    if (e < total) out[e] = acc[m];
+  }
+}
 
 // The columns path.  Grid (column groups x blocks a cluster, row slabs);
 // cluster (cb, 1, 1), cb = 1 (kCluster = false) being a plain launch.  Block
@@ -331,18 +434,7 @@ gather_columns_kernel(const V* __restrict__ table, const int* __restrict__ idx,
   if constexpr (kCluster) sync_owners<true>();  // no block leaves while it is read
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 1;
-  }
-  return sms;
-}
-
-struct Plan {          // ops/cuda_kernels.py GatherPlan
+struct Plan {          // ops/cuda_kernels.py SmemPlan (interleaved 0) or GatherPlan
   int cols_per_block;
   int cluster_blocks;
   int row_slabs;
@@ -356,47 +448,91 @@ int log2_exact(int v) {  // -1 unless v is a power of two
   return (v > 0 && (1 << lg) == v) ? lg : -1;
 }
 
-// The launch of the columns path: grid, cluster and shared memory of `p`.
+enum Path { kPathSmem = 0, kPathColumns = 1, kPathL2 = 2 };  // GATHER_PATHS
+
 template <typename V, bool kCluster>
-cudaError_t columns_config(int t, int l, const Plan& p, cudaStream_t s,
-                           cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  auto kernel = gather_columns_kernel<V, kCluster>;
-  const size_t smem = static_cast<size_t>(t) * p.cols_per_block * sizeof(V);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err == cudaSuccess && p.cluster_blocks > 8) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+const void* smem_kernel(int log_c) {
+  switch (log_c) {
+    case 1: return reinterpret_cast<const void*>(gather_smem_kernel<V, 1, kCluster>);
+    case 2: return reinterpret_cast<const void*>(gather_smem_kernel<V, 2, kCluster>);
+    case 3: return reinterpret_cast<const void*>(gather_smem_kernel<V, 3, kCluster>);
+    default: return reinterpret_cast<const void*>(gather_smem_kernel<V, 4, kCluster>);
   }
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = p.cluster_blocks;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(l / (p.cols_per_block * p.cluster_blocks) * p.cluster_blocks,
-                      p.row_slabs);
-  cfg->blockDim = dim3(kColumnsThreads);
-  cfg->dynamicSmemBytes = smem;
-  cfg->stream = s;
-  cfg->attrs = attr;
-  cfg->numAttrs = kCluster ? 1 : 0;
+}
+
+// One launch of the smem or the columns path under `p`: kernel, grid,
+// threads, shared memory and cluster size.
+struct Launch {
+  const void* kernel;
+  dim3 grid;
+  int threads;
+  size_t smem;
+  int cluster_blocks;
+};
+
+template <typename V>
+Launch launch_of(int path, int t, int l, const Plan& p) {
+  const bool cluster = p.cluster_blocks > 1;
+  if (path == kPathSmem) {
+    const int log_c = log2_exact(p.cols_per_block);
+    return {cluster ? smem_kernel<V, true>(log_c) : smem_kernel<V, false>(log_c),
+            dim3(p.row_slabs, l >> log_c), kSmemThreads,
+            static_cast<size_t>(t) * kSmemCols * sizeof(V), p.cluster_blocks};
+  }
+  return {cluster ? reinterpret_cast<const void*>(gather_columns_kernel<V, true>)
+                  : reinterpret_cast<const void*>(gather_columns_kernel<V, false>),
+          dim3(l / (p.cols_per_block * p.cluster_blocks) * p.cluster_blocks, p.row_slabs),
+          kColumnsThreads, static_cast<size_t>(t) * p.cols_per_block * sizeof(V),
+          p.cluster_blocks};
+}
+
+// Once a kernel and device, not once a launch: let the kernel use all of a
+// block's shared memory and any cluster size the card takes.
+cudaError_t allow_all(const void* kernel) {
+  static std::mutex mu;
+  static std::set<std::pair<int, const void*>> done;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done.count({dev, kernel})) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kBlockBytes);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (err == cudaSuccess) done.insert({dev, kernel});
   return err;
 }
 
-template <typename V, bool kCluster>
-cudaError_t launch_columns(const V* tb, const int* idx, V* o, int n, int t,
-                           int l, int rounds, const Plan& p, cudaStream_t s) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  const cudaError_t err = columns_config<V, kCluster>(t, l, p, s, &cfg, &attr);
-  if (err != cudaSuccess) return err;
-  return cudaLaunchKernelEx(&cfg, gather_columns_kernel<V, kCluster>, tb, idx, o,
-                            n, t, l, rounds, log2_exact(p.cols_per_block),
-                            log2_exact(p.cluster_blocks), p.rows_per_slab,
-                            p.interleaved);
+cudaError_t configure(const Launch& lc, cudaStream_t s, cudaLaunchConfig_t* cfg,
+                      cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = lc.cluster_blocks;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = lc.grid;
+  cfg->blockDim = dim3(lc.threads);
+  cfg->dynamicSmemBytes = lc.smem;
+  cfg->stream = s;
+  cfg->attrs = attr;
+  cfg->numAttrs = lc.cluster_blocks > 1 ? 1 : 0;
+  return allow_all(lc.kernel);
 }
 
-bool plan_ok(int n, int t, const Plan& p) {
+// The smem path: a block owns cols_per_block (2..16) adjacent columns and a
+// slab of rows; the blocks of a cluster are row slabs of one column group.
+bool smem_plan_ok(int n, int t, const Plan& p) {
+  return log2_exact(p.cols_per_block) >= 1 && p.cols_per_block <= kSmemCols &&
+         log2_exact(p.cluster_blocks) >= 0 && p.cluster_blocks <= 8 &&
+         p.cluster_blocks <= t && p.row_slabs >= 1 &&
+         p.row_slabs % p.cluster_blocks == 0 && p.rows_per_slab >= 1 &&
+         static_cast<long long>(t) * kSmemCols * 4 <= kBlockBytes &&
+         static_cast<long long>(p.rows_per_slab) * p.row_slabs >= n;
+}
+
+bool columns_plan_ok(int n, int t, const Plan& p) {
   return log2_exact(p.cols_per_block) >= 0 && log2_exact(p.cluster_blocks) >= 0 &&
          p.cols_per_block * p.cluster_blocks <= kMaxGroupCols &&
          p.cluster_blocks <= t && p.row_slabs >= 1 && p.rows_per_slab >= 1 &&
@@ -404,12 +540,14 @@ bool plan_ok(int n, int t, const Plan& p) {
          static_cast<long long>(p.rows_per_slab) * p.row_slabs >= n;
 }
 
-enum Path { kPathSmem = 0, kPathColumns = 1, kPathL2 = 2 };  // GATHER_PATHS
+bool plan_ok(int path, int n, int t, const Plan& p) {
+  return path == kPathSmem ? smem_plan_ok(n, t, p)
+                           : path != kPathColumns || columns_plan_ok(n, t, p);
+}
 
 template <typename V>
 cudaError_t launch(const void* table, const int* idx, void* out, int n, int t,
-                   int l, int rounds, int path, const Plan& plan,
-                   cudaStream_t s) {
+                   int l, int rounds, int path, const Plan& p, cudaStream_t s) {
   const V* tb = static_cast<const V*>(table);
   V* o = static_cast<V*>(out);
   if (path == kPathL2) {
@@ -421,23 +559,20 @@ cudaError_t launch(const void* table, const int* idx, void* out, int n, int t,
                                                   rounds);
     return cudaGetLastError();
   }
-  if (path == kPathColumns) {
-    return plan.cluster_blocks == 1
-               ? launch_columns<V, false>(tb, idx, o, n, t, l, rounds, plan, s)
-               : launch_columns<V, true>(tb, idx, o, n, t, l, rounds, plan, s);
-  }
-  const size_t smem = static_cast<size_t>(t) * kSmemCols * sizeof(V);
-  cudaError_t err = cudaFuncSetAttribute(
-      gather_smem_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const Launch lc = launch_of<V>(path, t, l, p);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const cudaError_t err = configure(lc, s, &cfg, &attr);
   if (err != cudaSuccess) return err;
-  const int groups = l / kSmemCols;
-  const int slabs = std::max(1, std::min(n, sm_count() / groups));
-  const int rows_per_block = (n + slabs - 1) / slabs;
-  const dim3 grid(groups, (n + rows_per_block - 1) / rows_per_block);
-  gather_smem_kernel<V><<<grid, kSmemThreads, smem, s>>>(
-      tb, idx, o, n, t, l, rounds, rows_per_block);
-  return cudaGetLastError();
+  int log_cpb = log2_exact(p.cols_per_block);
+  int log_cb = log2_exact(p.cluster_blocks);
+  int rows_per_slab = p.rows_per_slab;
+  int interleaved = p.interleaved;
+  void* smem_args[] = {&tb, &idx, &o, &n, &t, &l, &rounds, &rows_per_slab, &log_cb};
+  void* columns_args[] = {&tb, &idx, &o, &n, &t, &l, &rounds, &log_cpb,
+                          &log_cb, &rows_per_slab, &interleaved};
+  return cudaLaunchKernelExC(&cfg, lc.kernel,
+                             path == kPathSmem ? smem_args : columns_args);
 }
 
 }  // namespace
@@ -445,12 +580,13 @@ cudaError_t launch(const void* table, const int* idx, void* out, int n, int t,
 // table: (t, l) float32 (is_int = 0) or int32 (is_int = 1), t a power of
 // two, l a multiple of 16, 16-byte aligned; idx: (n, l) int32 in [0, t);
 // out: (n, l) of the table's type.  path (the index in GATHER_PATHS): 0
-// stages 16 columns a block in shared memory (t * 16 * 4 bytes must fit a
-// block), 1 holds whole columns in a block's or a cluster's shared memory as
-// the plan says (cols_per_block .. interleaved; refused unless it is
-// consistent, fits a block and covers every row), 2 reads the table through
-// L2.  Returns the launch's error: a launch the card refuses is not tried
-// another way.
+// stages cols_per_block columns a block, 16 / cols_per_block copies of each,
+// in shared memory (t * 16 * 4 bytes must fit a block; cluster_blocks row
+// slabs of a column group share one staging pass), 1 holds whole columns in a
+// block's or a cluster's shared memory (cols_per_block .. interleaved), 2
+// reads the table through L2 and takes no plan.  A plan is refused unless it
+// is consistent, fits a block and covers every row.  Returns the launch's
+// error: a launch the card refuses is not tried another way.
 extern "C" int vulcan_chained_gather(const void* table, const int* idx,
                                      void* out, int n, int t, int l,
                                      int rounds, int is_int, int path,
@@ -464,9 +600,7 @@ extern "C" int vulcan_chained_gather(const void* table, const int* idx,
   }
   const Plan plan = {cols_per_block, cluster_blocks, row_slabs, rows_per_slab,
                      interleaved != 0};
-  if (path == kPathColumns && !plan_ok(n, t, plan)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!plan_ok(path, n, t, plan)) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
@@ -475,24 +609,25 @@ extern "C" int vulcan_chained_gather(const void* table, const int* idx,
   return static_cast<int>(err);
 }
 
-// How many clusters of the columns path's float32 kernel the card runs at
-// once under this plan (cudaOccupancyMaxActiveClusters; the GPCs of a part
-// are not all the same size), or minus the error.  A plan of more clusters
-// runs in waves.
-extern "C" int vulcan_gather_max_clusters(int t, int l, int cols_per_block,
-                                          int cluster_blocks, int row_slabs,
-                                          int rows_per_slab) {
+// How many clusters of the float32 kernel of `path` (0 or 1) the card runs
+// at once under this plan (cudaOccupancyMaxActiveClusters; the GPCs of a
+// part are not all the same size), or minus the error.  A plan of more
+// clusters runs in waves.
+extern "C" int vulcan_gather_max_clusters(int path, int t, int l,
+                                          int cols_per_block, int cluster_blocks,
+                                          int row_slabs, int rows_per_slab) {
   const Plan plan = {cols_per_block, cluster_blocks, row_slabs, rows_per_slab, 0};
-  if (t <= 0 || l <= 0 || !plan_ok(0, t, plan) || cluster_blocks < 2) {
+  if (t <= 0 || l <= 0 || (path != kPathSmem && path != kPathColumns) ||
+      !plan_ok(path, 0, t, plan) || cluster_blocks < 2) {
     return -static_cast<int>(cudaErrorInvalidValue);
   }
+  const Launch lc = launch_of<float>(path, t, l, plan);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = columns_config<float, true>(t, l, plan, nullptr, &cfg, &attr);
+  cudaError_t err = configure(lc, nullptr, &cfg, &attr);
   int clusters = 0;
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveClusters(&clusters,
-                                         gather_columns_kernel<float, true>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&clusters, lc.kernel, &cfg);
   }
   return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }

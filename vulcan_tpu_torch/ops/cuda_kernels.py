@@ -138,9 +138,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "vulcan_bilateral": [_P, _P, _I, _I, _I, _P, _F, _P],
     "vulcan_fill_smooth": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
-    "vulcan_fill_smooth_fused": [_P, _P, _I, _I, _I, _F, _F, _P],
+    "vulcan_fill_smooth_fused": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     "vulcan_chained_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "vulcan_gather_max_clusters": [_I, _I, _I, _I, _I, _I],
+    "vulcan_gather_max_clusters": [_I, _I, _I, _I, _I, _I, _I],
     "vulcan_subsample2": [_P, _P, _I, _I, _P],
 }
 
@@ -302,36 +302,72 @@ def fill_smooth(d: torch.Tensor, plan: tuple[tuple[int, bool], ...],
 
 
 # The fused kernel's round count is a template parameter (0..4); the
-# renderer's default is 2.
+# renderer's default is 2.  A warp owns a strip of FUSED_STRIP_ROWS output
+# rows; its 32 lanes are 32 adjacent columns, ``rounds + 1`` of them halo on
+# each side (``fused_core``, ``fused_strips``).
 FUSED_MAX_ROUNDS = 4
+FUSED_STRIP_ROWS = 12
+FUSED_WARPS_PER_BLOCK = 4
+FUSED_MAX_WARPS = 8                 # csrc/fill_smooth_fused.cu kMaxWarps
 
 
-def fill_smooth_fused(d: torch.Tensor, rounds: int, two_mu: float,
-                      half_mu: float) -> torch.Tensor:
+def fused_core(rounds: int) -> int:
+    """The output columns of one warp of T1: its 32 lanes less the halo of
+    ``rounds + 1`` on each side."""
+    if not 0 <= rounds <= FUSED_MAX_ROUNDS:
+        raise ValueError(f"fill_smooth_fused: rounds must be in [0, {FUSED_MAX_ROUNDS}]")
+    return 32 - 2 * (rounds + 1)
+
+
+def fused_strips(h: int, w: int, rounds: int,
+                 strip_rows: int = FUSED_STRIP_ROWS) -> list[tuple[int, int, int, int]]:
+    """T1's partition of an (h, w) image, a pure function: the output
+    rectangles ``(row_begin, row_end, col_begin, col_end)`` of its warps, in
+    the kernel's order (row-major over the strips).  A warp holds
+    ``fused_core(rounds)`` output columns and ``rounds + 1`` columns of halo
+    on each side, and reads the same halo of rows above and below its
+    strip."""
+    core = fused_core(rounds)
+    if strip_rows < 1:
+        raise ValueError(f"fill_smooth_fused: strip_rows must be >= 1, got {strip_rows}")
+    return [(y, min(h, y + strip_rows), x, min(w, x + core))
+            for y in range(0, h, strip_rows) for x in range(0, w, core)]
+
+
+def fill_smooth_fused(d: torch.Tensor, rounds: int, two_mu: float, half_mu: float,
+                      strip_rows: int = FUSED_STRIP_ROWS,
+                      warps_per_block: int = FUSED_WARPS_PER_BLOCK) -> torch.Tensor:
     """Launch T1 (``csrc/fill_smooth_fused.cu``): K2's fill rounds and
     smoothing pass in ONE launch, on an (H, W) float32 CUDA z-buffer."""
     _check(d, "fill_smooth_fused")
     if not 0 <= rounds <= FUSED_MAX_ROUNDS:
         raise ValueError(f"fill_smooth_fused: rounds must be in [0, {FUSED_MAX_ROUNDS}]")
+    if strip_rows < 1 or not 1 <= warps_per_block <= FUSED_MAX_WARPS:
+        raise ValueError("fill_smooth_fused: strip_rows must be >= 1 and warps_per_block "
+                         f"in [1, {FUSED_MAX_WARPS}], got {strip_rows}, {warps_per_block}")
     lib = load()
     out = d.new_empty(d.shape)
     err = _launch(lib.vulcan_fill_smooth_fused, d, d.data_ptr(), out.data_ptr(),
-                  d.shape[0], d.shape[1], rounds, two_mu, half_mu)
+                  d.shape[0], d.shape[1], rounds, strip_rows, warps_per_block,
+                  two_mu, half_mu)
     _raise_on(err, "fill_smooth_fused")
     return out
 
 
 # Chained gather (T2-T4), three paths by the table's height (csrc/gather.cu
-# says why): up to GATHER_SMEM_ROWS rows a block stages GATHER_COLS whole
-# columns in its shared memory ("smem"); while one whole column still fits a
-# block's GATHER_BLOCK_BYTES, a block holds one or two whole columns
-# ("columns"); a taller table is read through L2 ("l2").
+# says why): up to GATHER_SMEM_ROWS rows a block stages whole columns in its
+# shared memory, GATHER_COLS (copy, column) pairs a row ("smem",
+# ``smem_plan``); while one whole column still fits a block's
+# GATHER_BLOCK_BYTES, a block holds one or two whole columns ("columns",
+# ``gather_plan``); a taller table is read through L2 ("l2").
 GATHER_SMEM_ROWS = 2048
 GATHER_COLS = 16
 GATHER_BLOCK_BYTES = 232448         # 227 KB: what one block may use on sm_90
 GATHER_PATHS = ("smem", "columns", "l2")
 GATHER_COLUMNS_THREADS = 512        # csrc/gather.cu kColumnsThreads
 GATHER_COLUMNS_CHAINS = 8           # csrc/gather.cu kColumnsChains
+GATHER_SMEM_COLS_PER_BLOCK = 16     # the smem path's own choice (PERF.md has the table)
+GATHER_SMEM_MAX_CLUSTER = 8         # the portable cluster size
 
 
 def gather_path(rows: int) -> str:
@@ -383,6 +419,11 @@ class GatherPlan(NamedTuple):
         return 0, t_rows, c0, c0 + self.cols_per_block
 
 
+def _power_of_two(what: str, v: int) -> None:
+    if v < 1 or v & (v - 1):
+        raise ValueError(f"chained_gather: {what} must be a power of two, got {v}")
+
+
 def gather_plan(t_rows: int, cols: int, n: int, sms: int,
                 cluster_blocks: int = 1, cols_per_block: int | None = None,
                 row_slabs: int | None = None,
@@ -396,9 +437,8 @@ def gather_plan(t_rows: int, cols: int, n: int, sms: int,
     columns do not fit a block."""
     if cols_per_block is None:
         cols_per_block = 2 if t_rows * 8 <= GATHER_BLOCK_BYTES and cluster_blocks <= 8 else 1
-    for what, v in (("cluster_blocks", cluster_blocks), ("cols_per_block", cols_per_block)):
-        if v < 1 or v & (v - 1):
-            raise ValueError(f"chained_gather: {what} must be a power of two, got {v}")
+    _power_of_two("cluster_blocks", cluster_blocks)
+    _power_of_two("cols_per_block", cols_per_block)
     group_cols = cluster_blocks * cols_per_block
     if GATHER_COLS % group_cols:
         raise ValueError("chained_gather: a cluster owns at most "
@@ -418,27 +458,126 @@ def gather_plan(t_rows: int, cols: int, n: int, sms: int,
                       max(1, -(-n // row_slabs)), interleaved)
 
 
+class SmemPlan(NamedTuple):
+    """How the smem path cuts an (N, L) gather from a (T, L) table, T <=
+    ``GATHER_SMEM_ROWS``, into blocks.  A block owns ``cols_per_block``
+    adjacent columns (2, 4, 8 or 16) and keeps ``copies`` of each,
+    so that a row of its shared memory always holds 16 words, one per lane
+    of a half-warp: word (copy q, row r, column j) lies at ``word(q, r,
+    j)``.  ``row_slabs`` blocks share a column group, each taking
+    ``rows_per_slab`` rows of idx; ``cluster_blocks`` of them (1: a plain
+    launch) form a thread-block cluster and share one staging pass: each
+    loads ``1 / cluster_blocks`` of the table's rows and writes them to all."""
+    cols_per_block: int
+    cluster_blocks: int
+    row_slabs: int
+    rows_per_slab: int
+
+    @property
+    def copies(self) -> int:
+        return GATHER_COLS // self.cols_per_block
+
+    def smem_bytes(self, t_rows: int) -> int:
+        return t_rows * GATHER_COLS * 4
+
+    def grid(self, cols: int) -> tuple[int, int]:
+        return (self.row_slabs, cols // self.cols_per_block)
+
+    def word(self, copy: int, row: int, col: int) -> int:
+        """Where a block keeps copy ``copy`` of row ``row`` of its column
+        ``col``, in 4-byte words from the start of its shared memory."""
+        return row * GATHER_COLS + copy * self.cols_per_block + col
+
+    def block_extent(self, bx: int, by: int, n: int) -> tuple[int, int, int, int]:
+        """(row_begin, row_end, col_begin, col_end) of idx and out that block
+        (bx, by) of the grid takes, as the kernel computes it."""
+        r0 = min(n, bx * self.rows_per_slab)
+        return (r0, min(n, r0 + self.rows_per_slab),
+                by * self.cols_per_block, (by + 1) * self.cols_per_block)
+
+    def staged_rows(self, bx: int, t_rows: int) -> tuple[int, int]:
+        """The rows of the table that block ``bx`` loads (and writes to every
+        block of its cluster)."""
+        share = t_rows // self.cluster_blocks
+        rank = bx % self.cluster_blocks
+        return rank * share, (rank + 1) * share
+
+
+def smem_plan(t_rows: int, cols: int, n: int, sms: int,
+              cols_per_block: int = GATHER_SMEM_COLS_PER_BLOCK,
+              cluster_blocks: int = 1, row_slabs: int | None = None) -> SmemPlan:
+    """The smem path's partition, a pure function of the shapes and the
+    card's SM count.  Unless given, ``row_slabs`` fills the SMs once (whole
+    clusters only), with at most one slab a row.  The shared memory is 16
+    words a row of the table whatever ``cols_per_block`` is: a shorter table
+    leaves the rest unused, it does not get more copies.  Raises where the
+    table does not fit a block or the cluster is larger than the card takes
+    everywhere."""
+    _power_of_two("cols_per_block", cols_per_block)
+    _power_of_two("cluster_blocks", cluster_blocks)
+    if not 2 <= cols_per_block <= GATHER_COLS:
+        raise ValueError(f"chained_gather: a block owns 2 to {GATHER_COLS} columns, "
+                         f"got {cols_per_block}")
+    if cluster_blocks > min(GATHER_SMEM_MAX_CLUSTER, t_rows):
+        raise ValueError(
+            f"chained_gather: a cluster of {cluster_blocks} blocks is more than "
+            f"{GATHER_SMEM_MAX_CLUSTER} or than the table's {t_rows} rows")
+    if t_rows * GATHER_COLS * 4 > GATHER_BLOCK_BYTES:
+        raise ValueError(
+            f"chained_gather: {GATHER_COLS} words a row of {t_rows} rows do not fit "
+            f"a block's {GATHER_BLOCK_BYTES} bytes of shared memory")
+    if row_slabs is None:
+        groups = cols // cols_per_block
+        row_slabs = max(1, min(n, sms // groups)) // cluster_blocks * cluster_blocks
+        row_slabs = max(row_slabs, cluster_blocks)
+    elif row_slabs < 1 or row_slabs % cluster_blocks:
+        raise ValueError(f"chained_gather: {row_slabs} row slabs are not whole clusters "
+                         f"of {cluster_blocks}")
+    return SmemPlan(cols_per_block, cluster_blocks, row_slabs, max(1, -(-n // row_slabs)))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-# The columns path's own plan for (T, L, N, SM count), computed once a shape.
+# Each path's own plan for (T, L, N, SM count), computed once a shape.
 _own_gather_plan = functools.lru_cache(maxsize=64)(gather_plan)
+_own_smem_plan = functools.lru_cache(maxsize=64)(smem_plan)
+
+
+def check_gather_plan(path: str, plan, t_rows: int, n: int) -> None:
+    """Raise ``ValueError`` unless ``plan`` (a ``SmemPlan`` on the smem
+    path, a ``GatherPlan`` on the columns path, none on l2) is one the
+    kernel of ``path`` can run on a table of ``t_rows`` rows and ``n`` rows
+    of idx.  Needs no card."""
+    want = {"smem": SmemPlan, "columns": GatherPlan}.get(path)
+    if want is None or not isinstance(plan, want):
+        raise ValueError(f"chained_gather: the {path} path does not take {plan!r}")
+    fits = plan.smem_bytes(t_rows) <= GATHER_BLOCK_BYTES
+    if path == "columns":
+        fits = fits and GATHER_COLS % plan.group_cols == 0
+    else:
+        fits = (fits and plan.cols_per_block in (2, 4, 8, 16)
+                and plan.cluster_blocks <= min(GATHER_SMEM_MAX_CLUSTER, t_rows)
+                and plan.row_slabs % plan.cluster_blocks == 0)
+    if not fits or plan.row_slabs * plan.rows_per_slab < n:
+        raise ValueError(f"chained_gather: {plan} cannot hold a table of {t_rows} rows "
+                         f"and {n} rows of idx")
 
 
 def chained_gather(table: torch.Tensor, idx: torch.Tensor, rounds: int,
                    path: str | None = None,
-                   plan: GatherPlan | None = None) -> torch.Tensor:
+                   plan: GatherPlan | SmemPlan | None = None) -> torch.Tensor:
     """Launch T2-T4 (``csrc/gather.cu``): ``rounds`` chained lookups
     ``v = table[idx[i, j], j]``, ``idx = |idx + int(v) + k| % T``, summing
     ``v``.  ``table`` (T, L) float32 or int32, T a power of two, L a
     multiple of 16, 16-byte aligned; ``idx`` (N, L) int32 with entries in
     [0, T).  ``path`` forces one of ``GATHER_PATHS`` (default:
     ``gather_path(T)``) and raises if that path cannot hold the table;
-    ``plan`` replaces the columns path's own ``gather_plan`` (the probe's
-    variant table).  A launch the card refuses raises; no other path is
-    tried."""
+    ``plan`` replaces the path's own ``smem_plan`` or ``gather_plan`` (the
+    probe's variant tables) and raises if the kernel cannot run it.  A
+    launch the card refuses raises; no other path is tried."""
     if table.ndim == 2:
         t_rows, cols = table.shape
         if t_rows < 1 or t_rows & (t_rows - 1) or cols % GATHER_COLS:
@@ -458,16 +597,12 @@ def chained_gather(table: torch.Tensor, idx: torch.Tensor, rounds: int,
         raise ValueError("chained_gather: rounds must be >= 0")
     t_rows, cols = table.shape
     path = check_gather_path(t_rows, path)
-    if plan is not None and path != "columns":
-        raise ValueError(f"chained_gather: a plan goes with the columns path, not {path!r}")
-    if path == "columns":
-        if plan is None:
-            plan = _own_gather_plan(t_rows, cols, idx.shape[0],
-                                    _sm_count(table.get_device()))
-        elif plan.smem_bytes(t_rows) > GATHER_BLOCK_BYTES or GATHER_COLS % plan.group_cols:
-            raise ValueError(f"chained_gather: {plan} cannot hold a table of {t_rows} rows")
+    if plan is not None:
+        check_gather_plan(path, plan, t_rows, idx.shape[0])
     else:
-        plan = GatherPlan(0, 0, 0, 0)
+        own = {"smem": _own_smem_plan, "columns": _own_gather_plan}.get(path)
+        plan = (GatherPlan(0, 0, 0, 0) if own is None else
+                own(t_rows, cols, idx.shape[0], _sm_count(table.get_device())))
     lib = load()
     out = table.new_empty(idx.shape)
     err = _launch(
@@ -475,18 +610,19 @@ def chained_gather(table: torch.Tensor, idx: torch.Tensor, rounds: int,
         out.data_ptr(), idx.shape[0], t_rows, cols, rounds,
         int(table.dtype == torch.int32), GATHER_PATHS.index(path),
         plan.cols_per_block, plan.cluster_blocks, plan.row_slabs,
-        plan.rows_per_slab, int(plan.interleaved),
+        plan.rows_per_slab, int(path == "columns" and plan.interleaved),
     )
     _raise_on(err, f"chained_gather ({path})")
     return out
 
 
-def gather_max_clusters(t_rows: int, cols: int, plan: GatherPlan) -> int:
+def gather_max_clusters(t_rows: int, cols: int, plan: GatherPlan | SmemPlan) -> int:
     """How many of ``plan``'s clusters the current card runs at once
     (``cudaOccupancyMaxActiveClusters``): a plan of more runs in waves."""
+    path = "smem" if isinstance(plan, SmemPlan) else "columns"
     got = load().vulcan_gather_max_clusters(
-        t_rows, cols, plan.cols_per_block, plan.cluster_blocks, plan.row_slabs,
-        plan.rows_per_slab)
+        GATHER_PATHS.index(path), t_rows, cols, plan.cols_per_block,
+        plan.cluster_blocks, plan.row_slabs, plan.rows_per_slab)
     _raise_on(-min(got, 0), "gather_max_clusters")
     return got
 

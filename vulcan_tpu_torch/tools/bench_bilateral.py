@@ -5,9 +5,9 @@ timed against each other, and its instruction count a tap.
 rows a block)`` pair of ``TILES`` (``-DK1_ROWS_PER_THREAD``,
 ``-DK1_BLOCK_ROWS``); each build is checked against the plain version
 (max abs error <= 1e-5 m) and timed on the card, device time of
-back-to-back launches.  ``sass_counts`` disassembles a built library with
-``cuobjdump`` and counts the instructions of the radius-2 kernel, so the
-cost of a tap can be read off the machine code.  Needs the card and the
+back-to-back launches.  ``sass.sass_counts`` disassembles a built library
+with ``cuobjdump`` and counts the instructions of the radius-2 kernel, so
+the cost of a tap can be read off the machine code.  Needs the card and the
 CUDA toolkit:
 
     python -m vulcan_tpu_torch.tools.bench_bilateral [--sass-of LIBRARY.so]
@@ -18,9 +18,7 @@ Input: ``default_rng(0)`` depths uniform in [0.5, 3) m with 10% zero holes,
 from __future__ import annotations
 
 import argparse
-import collections
 import re
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -28,6 +26,7 @@ import torch
 
 from ..config import Config
 from ..ops import cuda_kernels, preprocess
+from .sass import sass_counts
 from .timing import device_ms, max_abs_err
 
 TOL = 1e-5  # m: ex2.approx and the folded exponent (csrc/bilateral.cu)
@@ -43,31 +42,9 @@ def make_input(h: int, w: int, device) -> torch.Tensor:
     return torch.from_numpy(d).to(device)
 
 
-def sass_counts(library: Path, kernel: str = KERNEL) -> list[dict]:
-    """Instruction counts of every function of ``library`` whose mangled
-    name matches ``kernel``: total and by opcode, from ``cuobjdump -sass``."""
-    cuobjdump = Path(cuda_kernels._nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(cuobjdump), "-sass", str(library)], check=True,
-                          capture_output=True, text=True).stdout
-    found, ops = [], None
-    for line in text.splitlines():
-        head = re.match(r"\s*Function : (\S+)", line)
-        if head:
-            ops = collections.Counter() if re.search(kernel, head[1]) else None
-            if ops is not None:
-                found.append(dict(function=head[1], ops=ops))
-            continue
-        inst = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d+\s+)?([A-Z][A-Z0-9_.]*)", line)
-        if inst and ops is not None:
-            ops[inst[1]] += 1
-    for f in found:
-        f["total"] = sum(f["ops"].values())
-    return found
-
-
 def print_sass(library: Path, taps: int) -> None:
     """``taps``: the taps one thread computes (25 a pixel at radius 2)."""
-    for f in sass_counts(library):
+    for f in sass_counts(library, KERNEL):
         top = ", ".join(f"{op} {n}" for op, n in f["ops"].most_common(12))
         staging = {"Lb1E": "16-byte staging", "Lb0E": "word staging"}.get(
             f["function"].split("bilateral_kernelILi2E")[1][:4], "one form")

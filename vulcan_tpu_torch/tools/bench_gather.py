@@ -7,12 +7,14 @@ element (i, j) of an index array:
     v = table[idx[i, j], j];  idx = |idx + int(v) + k| % T;  acc += v
 
   T2  f32 table (2048, 128), 32 rounds: the table sliced by column into
-      shared memory (``csrc/gather.cu``, smem path);
+      shared memory (``csrc/gather.cu``, smem path: a block owns 16
+      columns, ``cuda_kernels.smem_plan``);
   T3  the same on an int32 table with values in [-128, 127];
   T4  f32 table (16384, 128), 4 rounds: 8 MB held in shared memory, two
-      whole columns a block (columns path); printed beside it, "T4/l2":
-      the same case forced through L2 (``path="l2"``), the card's gather
-      rate from a table too large for shared memory.
+      whole columns a block (columns path, ``cuda_kernels.gather_plan``);
+      printed beside it, "T4/l2": the same case forced through L2
+      (``path="l2"``), the card's gather rate from a table too large for
+      shared memory.
 
 Inputs come from ``default_rng(0)`` in the JAX tool's order (table, idx0,
 table_i, table2, idx2).  Every case is checked equal to the plain version
@@ -20,10 +22,17 @@ table_i, table2, idx2).  Every case is checked equal to the plain version
 and the time of ``torch.gather`` for one round times the round count as a
 reference point (no single PyTorch call computes the chain).
 
-``variant_times`` times the columns path's alternatives on one case: a
-block alone or a thread-block cluster of 2 to 16 blocks that owns a group
-of columns in distributed shared memory, one or two columns a block,
-planar or interleaved.
+``variant_times`` times the alternatives of the path a case takes, each
+first checked exact.  On the smem path (``SMEM_VARIANTS``): 16, 8, 4 or 2
+columns a block with 1, 2, 4 or 8 copies of each, and thread-block clusters
+of 2 row slabs that share one staging pass; the first row is the first
+port's partition and the plan's own choice.  On the columns path (``VARIANTS``): a block alone or a
+cluster of 2 or 8 blocks that owns a group of columns in distributed
+shared memory, one or two columns a block, planar or interleaved.
+``round_costs`` splits one launch's time: device ms at 0, 1, 16, 32 and 64
+rounds (0 rounds is the launch, the staging, idx in and out; the slope is
+one round), on 16 rows of idx (the staging nearly alone) and on a table of
+64 rows (the same grid with next to nothing to stage).
 
     python -m vulcan_tpu_torch.tools.bench_gather [--device cpu]
 """
@@ -57,16 +66,19 @@ def chained_gather_plain(table: torch.Tensor, idx: torch.Tensor,
 
 
 def chained_gather(table: torch.Tensor, idx: torch.Tensor, rounds: int,
-                   path: str | None = None) -> torch.Tensor:
+                   path: str | None = None, plan=None) -> torch.Tensor:
     """``rounds`` chained lookups.  A CPU tensor takes the plain version; a
     CUDA tensor launches ``csrc/gather.cu`` and counts it in
     ``chained_gather.launches["<dtype>/<smem|columns|l2>"]``.  ``path``
-    forces one of the kernel's paths and raises if it cannot hold the
-    table."""
+    forces one of the kernel's paths and ``plan`` a partition of it
+    (``cuda_kernels.smem_plan``, ``gather_plan``); either raises, for a CPU
+    tensor too, if it cannot hold the table."""
     key = launch_key(table, path)
+    if plan is not None:
+        cuda_kernels.check_gather_plan(key.split("/")[1], plan, table.shape[0], idx.shape[0])
     if table.is_cpu:
         return chained_gather_plain(table, idx, rounds)
-    out = cuda_kernels.chained_gather(table, idx, rounds, path=path)
+    out = cuda_kernels.chained_gather(table, idx, rounds, path=path, plan=plan)
     chained_gather.launches[key] += 1
     return out
 
@@ -138,30 +150,44 @@ VARIANTS = (
     ("block alone, 2 columns", 1, 2, None, False),
     ("block alone, 2 columns, interleaved", 1, 2, None, True),
     ("cluster of 2, 2 columns a block", 2, 2, None, False),
-    ("cluster of 4, 2 columns a block", 4, 2, None, False),
     ("cluster of 8, 1 column a block", 8, 1, None, False),
-    ("cluster of 8, 2 columns a block", 8, 2, None, False),
-    ("cluster of 8, 2 columns, interleaved", 8, 2, None, True),
-    ("cluster of 16, 1 column a block", 16, 1, None, False),
+)
+
+# The smem path's alternatives: (name, cols_per_block, cluster_blocks).  The
+# first is the first port's partition and the plan's own choice.
+SMEM_VARIANTS = (
+    ("16 columns a block, 1 copy", 16, 1),
+    ("8 columns, 2 copies", 8, 1),
+    ("4 columns, 4 copies", 4, 1),
+    ("2 columns, 8 copies", 2, 1),
+    ("8 columns, 2 copies, cluster of 2 stages once", 8, 2),
+    ("16 columns, 1 copy, cluster of 2 stages once", 16, 2),
 )
 
 
-def variant_times(case: Case, reps: int = 20) -> list[dict]:
-    """Device ms of ``case`` under each of ``VARIANTS`` (each first checked
-    equal to the plain version) with the clusters the card runs at once
-    beside the clusters the plan launches, then on the default plan and
-    forced through L2."""
-    want = chained_gather_plain(case.table, case.idx, case.rounds)
+def variant_plans(case: Case) -> list[tuple[str, dict]]:
+    """``(name, chained_gather keywords)`` of every alternative of the path
+    ``case``'s table takes, then the path's own plan."""
     sms = cuda_kernels._sm_count(case.table.get_device())
+    shape = (*case.table.shape, case.idx.shape[0], sms)
+    if cuda_kernels.gather_path(shape[0]) == "smem":
+        calls = [(name, dict(plan=cuda_kernels.smem_plan(*shape, cpb, blocks)))
+                 for name, cpb, blocks in SMEM_VARIANTS]
+        return calls + [("default (smem_plan)", {})]
+    calls = [(name, dict(path="columns", plan=cuda_kernels.gather_plan(
+                 *shape, blocks, cpb, slabs, interleaved)))
+             for name, blocks, cpb, slabs, interleaved in VARIANTS]
+    return calls + [("default (gather_plan)", {}), ("l2", dict(path="l2"))]
+
+
+def variant_times(case: Case, reps: int = 20) -> list[dict]:
+    """Device ms of ``case`` under each of ``variant_plans`` (each first
+    checked equal to the plain version) with the clusters the card runs at
+    once beside the clusters the plan launches."""
+    want = chained_gather_plain(case.table, case.idx, case.rounds)
     t_rows, cols = case.table.shape
-    calls = []
-    for name, blocks, cpb, slabs, interleaved in VARIANTS:
-        plan = cuda_kernels.gather_plan(t_rows, cols, case.idx.shape[0], sms, blocks,
-                                        cpb, slabs, interleaved)
-        calls.append((name, dict(path="columns", plan=plan)))
-    calls += [("default (gather_plan)", {}), ("l2", dict(path="l2"))]
     rows = []
-    for name, kw in calls:
+    for name, kw in variant_plans(case):
         def call(kw=kw):
             return cuda_kernels.chained_gather(case.table, case.idx, case.rounds, **kw)
         if not torch.equal(call(), want):
@@ -175,6 +201,28 @@ def variant_times(case: Case, reps: int = 20) -> list[dict]:
             row["clusters_at_once"] = cuda_kernels.gather_max_clusters(t_rows, cols, plan)
         rows.append(row)
     return rows
+
+
+ROUND_STEPS = (0, 1, 16, 32, 64)
+
+
+def round_costs(case: Case, reps: int = 50, **kw) -> dict[str, float]:
+    """Device ms of one launch on ``case``'s table and idx at each round
+    count of ``ROUND_STEPS``, on its first 16 rows of idx alone, and on a
+    table cut to 64 rows: 0 rounds is the launch, the staging, idx in and
+    out; the slope is one round; 16 rows leave the staging nearly alone; 64
+    rows of table leave the same grid with next to nothing to stage.  ``kw``
+    goes to ``cuda_kernels.chained_gather`` (a plan)."""
+    few = case.idx[:16].contiguous()
+    short = case.table[:64].contiguous()
+    steps = [(f"{r} rounds", case.table, case.idx, r) for r in ROUND_STEPS]
+    steps += [(f"{r} rounds, 16 rows of idx", case.table, few, r) for r in (0, case.rounds)]
+    steps += [("0 rounds, 64 rows of table", short, case.idx % 64, 0)]
+    return {
+        name: device_ms(lambda table=table, idx=idx, r=r: cuda_kernels.chained_gather(
+            table, idx, r, **kw), reps=reps)
+        for name, table, idx, r in steps
+    }
 
 
 def run(device, reps: int = 10) -> list[dict]:

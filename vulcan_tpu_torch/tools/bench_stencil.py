@@ -3,12 +3,17 @@
 
 The splat renderer's post-pass (2 gated hole-fill rounds, then an
 edge-aware 3x3 smoothing pass) runs on the main path as kernel K2
-(``csrc/fill_smooth.cu``): one launch with a rounds + 1 halo, each thread
-sliding a 3-row window down a column strip.  T1 (``csrc/fill_smooth_fused.cu``)
-is the JAX tool's one-launch kernel as first ported, kept as K2's yardstick.
-This probe checks both against the plain version (finite masks equal, max
-abs error <= 1e-6 m) and times the three with the output fed back in, 30
-times, so no call can be skipped:
+(``csrc/fill_smooth.cu``): one launch with a rounds + 1 halo, a tile in
+shared memory, each thread sliding a 3-row window down a column strip, a
+block barrier between the passes.  T1 (``csrc/fill_smooth_fused.cu``) is the
+JAX tool's one-launch kernel with no shared memory and no barrier: a warp
+owns a strip of the image (``cuda_kernels.fused_strips``), its rows stream
+through the lanes' registers and the neighbours come by warp shuffle.  This
+probe checks both against the plain version (finite masks equal, max abs
+error <= 1e-6 m) and times the three with the output fed back in, 30
+times, so no call can be skipped.  ``launch_costs`` times one launch of K2
+or of T1 for every round count (the slope is one fill round);
+``strip_times`` times T1 by strip height and warps a block.
 
     python -m vulcan_tpu_torch.tools.bench_stencil [HxW] [--device cpu]
 
@@ -65,11 +70,18 @@ def make_input(h: int, w: int, device) -> torch.Tensor:
     return torch.from_numpy(d).to(device)
 
 
-def launch_costs(d: torch.Tensor, mu: float) -> dict[str, float]:
+def launch_costs(d: torch.Tensor, mu: float, fused: bool = False) -> dict[str, float]:
     """Device ms of one K2 launch on the CUDA image ``d`` for every round
     count the kernel compiles, with the smoothing pass, and for its
     fill-only launch: neighbouring counts differ by one fill round, and 0
-    rounds is the staging, the smoothing and the store alone."""
+    rounds is the staging, the smoothing and the store alone.  ``fused``:
+    the same of T1 (which has no fill-only form)."""
+    if fused:
+        return {
+            f"{r} rounds + smooth": device_ms(
+                lambda r=r: cuda_kernels.fill_smooth_fused(d, r, 2.0 * mu, 0.5 * mu))
+            for r in range(cuda_kernels.FUSED_MAX_ROUNDS + 1)
+        }
     top = cuda_kernels.FILL_SMOOTH_MAX_ROUNDS
     steps = [(r, True) for r in range(top + 1)] + [(top, False)]
     return {
@@ -77,6 +89,20 @@ def launch_costs(d: torch.Tensor, mu: float) -> dict[str, float]:
             lambda r=r, smooth=smooth: cuda_kernels.fill_smooth(
                 d, ((r, smooth),), 2.0 * mu, 0.5 * mu))
         for r, smooth in steps
+    }
+
+
+# (rows a strip, warps a block) T1 is timed at, the wrapper's own choice among them
+STRIPS = ((8, 2), (12, 1), (12, 2), (12, 4), (16, 2), (32, 2))
+
+
+def strip_times(d: torch.Tensor, mu: float, rounds: int = FILL_ROUNDS) -> dict:
+    """Device ms of one T1 launch on the CUDA image ``d`` for each strip
+    height and block size of ``STRIPS``."""
+    return {
+        (rows, warps): device_ms(lambda rows=rows, warps=warps: cuda_kernels.fill_smooth_fused(
+            d, rounds, 2.0 * mu, 0.5 * mu, rows, warps))
+        for rows, warps in STRIPS
     }
 
 
@@ -112,7 +138,7 @@ def run(device, h: int = 480, w: int = 640) -> dict:
     clock = clock_name(device)
     print(f"plain PyTorch   fill+smooth {h}x{w}: {ms['plain']:8.4f} ms ({clock})")
     print(f"K2, 1 launch    fill+smooth {h}x{w}: {ms['k2']:8.4f} ms")
-    print(f"T1, probe       fill+smooth {h}x{w}: {ms['fused']:8.4f} ms")
+    print(f"T1, warp strips fill+smooth {h}x{w}: {ms['fused']:8.4f} ms")
     print(f"speedup K2 over T1: {ms['fused'] / ms['k2']:.2f}x; "
           f"K2 over plain: {ms['plain'] / ms['k2']:.2f}x", flush=True)
     return dict(ms=ms, max_abs_err=errs)
