@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (vulcan_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile] [--parity]
 
 Run from the root of a checkout.  Phases, each printed as it runs:
 
@@ -30,13 +30,25 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      5 warm-up + 30 timed frames; the kernels must have launched once per
      frame (K2: one kernel launch per frame), with zero overflows, zero
      track failures and ATE < 0.01 m;
+  3b. the photometric paths at 480x640, each run with the counts set to 0
+     just before it: (a) the orbit in mode="combined" under the default
+     Config; (b) the orbit in depth mode with auto_photo_enter=0.99, which
+     must arm the combined-mode rescue; (c) the 245-frame desk orbit in
+     mode="combined".  Each prints ms/frame median and p90, ATE, armed
+     frames, host reads a frame and K1/K2 launches, and fails unless K1
+     and K2 launched once a frame, nothing overflowed, every pose is
+     finite and ATE < 0.01 m on (a) and (b), < 0.1 m on (c).  With
+     --parity also the desk in mode="light" and in depth mode under the
+     default Config (armed frames and ATE, recorded, not judged);
   4. agreement: the same port on the card and on the CPU (plain kernel
-     versions) over a small orbit must track the same trajectory;
-  5. (only with --profile) where a steady frame's time goes: stage wall
-     times with a device sync at each stage boundary, kernel time per stage
-     and the top kernels from torch.profiler (the step's ``vulcan.<stage>``
-     ranges), and the device's idle share; printed and written to
-     chiprun_out/profile_stages.json.
+     versions) over a small orbit must track the same trajectory, in depth
+     and in combined mode;
+  5. (only with --profile) where a steady frame's time goes, for the
+     orbit in depth mode, in combined mode (a) and with auto-photo armed
+     (b): stage wall times with a device sync at each stage boundary,
+     kernel time per stage and the top kernels from torch.profiler (the
+     step's ``vulcan.<stage>`` ranges), and the device's idle share;
+     printed and written to chiprun_out/profile_stages.json.
   6. probes: T5 at (479, 641), (2, 6) and (1, 1) in int32 and float32,
      bit for bit against its plain version; T5's host us per call step by
      step (``bench_subsample.host_breakdown``: the launch path's earlier
@@ -92,6 +104,9 @@ N_WARM, N_TIMED = 5, 30
 K1_TOL = 1e-5    # m: ex2.approx, the folded exponent, the reduction's order
 K2_TOL = 1e-6    # m: fill is min/max (exact); smoothing sums in one order
 AGREE_TOL = 1e-3  # m: card vs CPU per-frame translation (float reassociation)
+DESK_ATE = 0.1    # m: the desk's wrong-basin slide, which combined tracking
+                  # prevents, is 0.73 m; the reference holds 0.02162 m
+OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 
 def fail(msg: str) -> None:
@@ -504,25 +519,98 @@ def make_frames(P, camera, poses, h, w, device):
     return frames
 
 
-def run_pipeline(P, config, camera, poses, frames, h, w, device, sync):
-    pipe = P.Pipeline(config, camera, h, w, init_pose=poses[0], device=device)
-    est, ms = [], []
+def make_desk_frames(P, camera, poses, h, w, device):
+    """The desk scene's frames, as ``make_frames`` hands over the orbit's."""
+    from vulcan_tpu_torch.io.synthetic import render_desk_depth
+
+    frames = []
+    for pose in poses:
+        d, c = render_desk_depth(camera, pose, h, w, device=device)
+        d16 = np.clip(d.cpu().numpy() * 5000.0, 0, 65535).astype(np.uint16)
+        c8 = np.clip(c.cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
+        frames.append((d16, c8))
+    return frames
+
+
+def run_pipeline(P, config, camera, poses, frames, h, w, device, sync,
+                 mode="depth"):
+    """Returns (pipe, translations, ms per frame, armed frames): a frame
+    is armed when auto-photo tracked it in combined mode (the countdown
+    carried into it was positive)."""
+    pipe = P.Pipeline(config, camera, h, w, init_pose=poses[0], mode=mode,
+                      device=device)
+    est, ms, armed = [], [], 0
     for d16, c8 in frames:
+        armed += pipe.state.photo_cnt_host > 0
         t0 = time.perf_counter()
         pipe.process(d16, c8)
         if sync:
             sync()
         ms.append((time.perf_counter() - t0) * 1e3)
         est.append(pipe.pose.translation.cpu().numpy())
-    return pipe, np.stack(est), ms
+    return pipe, np.stack(est), ms, armed
 
 
-def profile_stages(P, torch, config, camera, poses, frames, dev, out_dir,
-                   wall_ms):
+def run_cell(P, torch, label, config, mode, camera, poses, frames, ate_limit,
+             must_arm=False):
+    """Phase 3b: one path over its frames at 480x640, counts set to 0 just
+    before it and read just after.  ``ate_limit`` None records the ATE
+    without judging it.  Returns the printed numbers as a dict."""
+    from vulcan_tpu_torch.ops import preprocess, splat
+    from vulcan_tpu_torch.utils.evaluate import ate_rmse
+    from vulcan_tpu_torch.utils.sync import read_int
+
+    n = len(frames)
+    torch.cuda.synchronize()
+    preprocess.bilateral_filter.launches = 0
+    splat._fill_and_smooth.launches = 0
+    splat._fill_and_smooth.kernel_launches = 0
+    read_int.count = 0
+    pipe, est, ms, armed = run_pipeline(
+        P, config, camera, poses, frames, 480, 640, torch.device("cuda:0"),
+        torch.cuda.synchronize, mode,
+    )
+    k1 = preprocess.bilateral_filter.launches
+    k2 = splat._fill_and_smooth.kernel_launches
+    reads = read_int.count
+    gt = np.stack([p.translation.numpy() for p in poses])
+    ate = ate_rmse(est, gt)
+    diag = pipe.diagnostics()
+    timed = np.asarray(ms[N_WARM:])
+    out = dict(cell=label, mode=mode, frames=n,
+               ms_median=float(np.median(timed)),
+               ms_p90=float(np.percentile(timed, 90)), ate_m=float(ate),
+               armed_frames=int(armed), host_reads_per_frame=reads / n,
+               k1_launches=k1, k2_kernel_launches=k2,
+               track_failures=diag["track_failures"],
+               degen_frames=diag["track_degen_frames"])
+    print(f"{label}: ms/frame median {out['ms_median']:.3f} p90 "
+          f"{out['ms_p90']:.3f} (warm-up {N_WARM}, timed {len(timed)}, synchronized "
+          f"per frame); ATE {ate:.6f} m over {n} frames; armed frames {armed}; "
+          f"host reads/frame {reads / n:.2f}; K1 launches {k1}, K2 kernel "
+          f"launches {k2}; track failures {diag['track_failures']}, degenerate "
+          f"frames {diag['track_degen_frames']}", flush=True)
+    if k1 != n or k2 != n:
+        fail(f"{label}: K1 launched {k1} and K2 {k2} times over {n} frames, "
+             "expected once a frame each")
+    if diag["alloc_overflow"] or diag["visible_overflow"]:
+        fail(f"{label}: allocation or visibility overflow")
+    if not np.all(np.isfinite(est)) or not bool(torch.isfinite(pipe.state.pose.rotation).all()):
+        fail(f"{label}: a non-finite pose")
+    if must_arm and not armed:
+        fail(f"{label}: auto-photo never armed")
+    if ate_limit is not None and not ate < ate_limit:
+        fail(f"{label}: ATE {ate} m not below {ate_limit} m")
+    return out
+
+
+def profile_stages(P, torch, config, camera, poses, frames, dev, wall_ms,
+                   mode="depth"):
     """Phase 5: where a steady frame's time goes, over 10 frames each of
     (a) stage wall times with a device sync at every stage boundary (no
     profiler), and (b) torch.profiler kernel times per stage range.
-    ``wall_ms`` is phase 3's unprofiled median, the base of the idle share."""
+    ``wall_ms`` is the path's unprofiled median (phase 3 or 3b), the base
+    of the idle share.  Returns the report."""
     from torch.profiler import ProfilerActivity, profile
     from vulcan_tpu_torch.ops import allocate, icp, sparse, splat
     from vulcan_tpu_torch.pipeline import fusion
@@ -547,9 +635,11 @@ def profile_stages(P, torch, config, camera, poses, frames, dev, out_dir,
         (allocate, "update_visibility", "visibility"),
         (sparse, "integrate_sparse", "integrate"), (splat, "render_splat", "render"),
     ]
-    pipe = P.Pipeline(config, camera, 480, 640, init_pose=poses[0], device=dev)
+    pipe = P.Pipeline(config, camera, 480, 640, init_pose=poses[0], mode=mode,
+                      device=dev)
     for d16, c8 in frames[:n_warm]:
         pipe.process(d16, c8)
+    armed = pipe.state.photo_cnt_host > 0
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in stage_fns]
     try:
         for mod, attr, name in stage_fns:
@@ -563,7 +653,8 @@ def profile_stages(P, torch, config, camera, poses, frames, dev, out_dir,
         for mod, attr, fn in originals:
             setattr(mod, attr, fn)
 
-    pipe = P.Pipeline(config, camera, 480, 640, init_pose=poses[0], device=dev)
+    pipe = P.Pipeline(config, camera, 480, 640, init_pose=poses[0], mode=mode,
+                      device=dev)
     for d16, c8 in frames[:n_warm]:
         pipe.process(d16, c8)
     torch.cuda.synchronize()
@@ -598,6 +689,8 @@ def profile_stages(P, torch, config, camera, poses, frames, dev, out_dir,
     )
     busy_ms = sum(k[1] for k in kernels)
     report = {
+        "mode": mode,
+        "armed_when_profiled": bool(armed),
         "frames": n_run,
         "wall_ms_per_frame_unprofiled_median": wall_ms,
         "wall_ms_per_frame_stage_synced": synced_frame_ms,
@@ -614,10 +707,7 @@ def profile_stages(P, torch, config, camera, poses, frames, dev, out_dir,
             for k in kernels[:25]
         ],
     }
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_stages.json"), "w") as f:
-        json.dump(report, f, indent=1)
-    print(f"profile: wall {wall_ms:.3f} ms/frame unprofiled, "
+    print(f"profile ({mode}{', armed' if armed else ''}): wall {wall_ms:.3f} ms/frame unprofiled, "
           f"{synced_frame_ms:.3f} ms with stage syncs; device busy "
           f"{busy_ms:.3f} ms (idle share {report['device_idle_share']:.3f}); "
           f"{report['device_ops_per_frame']:.0f} device ops/frame", flush=True)
@@ -626,10 +716,12 @@ def profile_stages(P, torch, config, camera, poses, frames, dev, out_dir,
               f"kernels {v['kernel_ms']:7.3f} ms")
     for k in kernels[:12]:
         print(f"  {k[1]:7.3f} ms {k[2]:7.1f}x  {k[0][:90]}")
+    return report
 
 
 def main() -> None:
     want_profile = "--profile" in sys.argv[1:]
+    want_parity = "--parity" in sys.argv[1:]
     phase("0 device")
     try:
         import torch
@@ -725,7 +817,7 @@ def main() -> None:
     splat._fill_and_smooth.launches = 0
     splat._fill_and_smooth.kernel_launches = 0
     read_int.count = 0
-    pipe, est, ms = run_pipeline(
+    pipe, est, ms, armed = run_pipeline(
         P, cfg, cam, poses, frames, 480, 640, dev, torch.cuda.synchronize
     )
     launches = {
@@ -765,27 +857,66 @@ def main() -> None:
         fail("model render covers under 30% of the image")
     if not ate < 0.01:
         fail(f"ATE {ate} m not below 0.01 m")
+    cells = [dict(cell="orbit/depth", mode="depth", frames=n,
+                  ms_median=float(np.median(timed)),
+                  ms_p90=float(np.percentile(timed, 90)), ate_m=float(ate),
+                  armed_frames=int(armed), host_reads_per_frame=reads / n,
+                  k1_launches=launches["bilateral"], k2_kernel_launches=k2_kernel_launches,
+                  track_failures=diag["track_failures"],
+                  degen_frames=diag["track_degen_frames"])]
 
-    phase("4 card vs CPU agreement (port, 120x160, 6 frames)")
+    phase("3b photometric paths: combined, auto-photo armed, desk (480x640)")
+    cells += [
+        run_cell(P, torch, "orbit/combined", cfg, "combined", cam, poses, frames,
+                 0.01),
+        run_cell(P, torch, "orbit/depth, auto_photo_enter=0.99",
+                 P.Config(auto_photo_enter=0.99), "depth", cam, poses, frames,
+                 0.01, must_arm=True),
+    ]
+    # bench.py's desk scene: 5 warm-up + 240 frames over one full orbit.
+    desk_poses = orbit_poses(245, center=(0.0, 0.0, -0.25), radius=1.5,
+                             height=0.55, span=2.0 * np.pi)
+    desk_frames = make_desk_frames(P, cam, desk_poses, 480, 640, dev)
+    cells.append(run_cell(P, torch, "desk/combined", cfg, "combined", cam,
+                          desk_poses, desk_frames, DESK_ATE))
+    if want_parity:
+        for mode in ("light", "depth"):
+            cells.append(run_cell(P, torch, f"desk/{mode}", cfg, mode, cam,
+                                  desk_poses, desk_frames, None))
+    del desk_frames
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "cells.json"), "w") as f:
+        json.dump(dict(device=smi, cells=cells), f, indent=1)
+
+    phase("4 card vs CPU agreement (port, 120x160, 6 frames, depth and combined)")
     small = P.Config(num_blocks=8192, hash_size=32768, max_visible=4096,
                      voxel_size=0.015, trunc_dist=0.06, depth_max=4.0)
     scam = P.PinholeCamera.create(130.0, 130.0, 79.5, 59.5)
     sposes = orbit_poses(6, radius=1.6, height=0.35, span=0.3)
     sframes = make_frames(P, scam, sposes, 120, 160, torch.device("cpu"))
-    _, est_gpu, _ = run_pipeline(P, small, scam, sposes, sframes, 120, 160, dev,
-                                 torch.cuda.synchronize)
-    _, est_cpu, _ = run_pipeline(P, small, scam, sposes, sframes, 120, 160,
-                                 torch.device("cpu"), None)
-    diff = float(np.abs(est_gpu - est_cpu).max())
-    print(f"max per-frame translation difference card vs CPU {diff:.3e} m "
-          f"(tol {AGREE_TOL:g})", flush=True)
-    if not diff <= AGREE_TOL:
-        fail("the port on the card and on the CPU disagree")
+    for mode in ("depth", "combined"):
+        _, est_gpu, _, _ = run_pipeline(P, small, scam, sposes, sframes, 120, 160,
+                                        dev, torch.cuda.synchronize, mode)
+        _, est_cpu, _, _ = run_pipeline(P, small, scam, sposes, sframes, 120, 160,
+                                        torch.device("cpu"), None, mode)
+        diff = float(np.abs(est_gpu - est_cpu).max())
+        print(f"{mode}: max per-frame translation difference card vs CPU "
+              f"{diff:.3e} m (tol {AGREE_TOL:g})", flush=True)
+        if not diff <= AGREE_TOL:
+            fail(f"the port on the card and on the CPU disagree in {mode} mode")
 
     if want_profile:
         phase("5 profile (10 steady frames, torch.profiler)")
-        profile_stages(P, torch, cfg, cam, poses, frames, dev,
-                       os.path.join(ROOT, "chiprun_out"), float(np.median(timed)))
+        reports = [
+            profile_stages(P, torch, cfg, cam, poses, frames, dev,
+                           float(np.median(timed))),
+            profile_stages(P, torch, cfg, cam, poses, frames, dev,
+                           cells[1]["ms_median"], "combined"),
+            profile_stages(P, torch, P.Config(auto_photo_enter=0.99), cam, poses,
+                           frames, dev, cells[2]["ms_median"]),
+        ]
+        with open(os.path.join(OUT_DIR, "profile_stages.json"), "w") as f:
+            json.dump(dict(device=smi, runs=reports), f, indent=1)
 
     phase("6 probes: T1-T5 against plain versions, then the probe entry points")
     kernels += probes(P, torch, dev)

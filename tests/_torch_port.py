@@ -13,6 +13,12 @@ from vulcan_tpu.io.synthetic import orbit_poses, render_scene_depth
 from vulcan_tpu_torch.core.se3 import SE3 as TSE3
 from vulcan_tpu_torch.utils.convert import flatten
 
+# The suite runs as several worker processes on the machine's cores: one
+# intra-op thread a worker keeps PyTorch's thread pools from spinning
+# against each other (with a pool as wide as the machine in every worker,
+# a 150x200 port step ran ~50x slower than alone).
+torch.set_num_threads(1)
+
 # tests/test_pipeline.py's closed-loop configuration and scene.
 _KW = dict(
     voxel_size=0.015,
@@ -70,3 +76,12 @@ def close_frac(a, b, atol):
     a, b = np.asarray(a), np.asarray(b)
     return float(np.mean(np.abs(a.astype(np.float64) - b.astype(np.float64)) > atol))
 
+
+
+def rot_angle(Ra, Rb):
+    """Angle (rad) between two float32 rotations, from the antisymmetric
+    part of Ra^T Rb: unlike arccos of the trace, it stays accurate for
+    small angles when the matrices are orthonormal only to float32."""
+    m = np.asarray(Ra, np.float64).T @ np.asarray(Rb, np.float64)
+    w = 0.5 * np.array([m[2, 1] - m[1, 2], m[0, 2] - m[2, 0], m[1, 0] - m[0, 1]])
+    return float(np.arcsin(min(1.0, np.linalg.norm(w))))

@@ -14,6 +14,7 @@ import torch
 
 import vulcan_tpu_torch as P
 from vulcan_tpu_torch.ops import cuda_kernels, preprocess, splat
+from vulcan_tpu_torch.pipeline import fusion
 
 from ._torch_port import CAM_T, CFG_T, H, W, orbit, scene, se3_t
 
@@ -92,19 +93,20 @@ def test_kernel_entry_refuses_cpu_tensors(launch):
 
 
 def test_cpu_step_launches_no_kernel():
-    """A whole CPU step goes through the plain versions: both launch
-    counters stay at 0."""
+    """Whole CPU steps go through the plain versions in every tracking
+    mode and in fusion at a given pose: the launch counters stay at 0."""
     poses = orbit(2)
-    pipe = P.Pipeline(CFG_T, CAM_T, H, W, init_pose=se3_t(poses[0]), device="cpu")
-    b0, f0 = preprocess.bilateral_filter.launches, splat._fill_and_smooth.launches
-    k0 = splat._fill_and_smooth.kernel_launches
-    for pose in poses:
-        d, c = scene(pose)
-        pipe.process(d, c)
-    assert preprocess.bilateral_filter.launches == b0 == 0
-    assert splat._fill_and_smooth.launches == f0 == 0
-    assert splat._fill_and_smooth.kernel_launches == k0 == 0
-    assert pipe.diagnostics()["frame"] == 2
+    frames = [scene(pose) for pose in poses]
+    for mode in fusion.MODES:
+        pipe = P.Pipeline(CFG_T, CAM_T, H, W, init_pose=se3_t(poses[0]), mode=mode,
+                          device="cpu")
+        for d, c in frames:
+            pipe.process(d, c)
+        pipe.process(*frames[0], pose=se3_t(poses[0]))
+        assert pipe.diagnostics()["frame"] == 3
+    assert preprocess.bilateral_filter.launches == 0
+    assert splat._fill_and_smooth.launches == 0
+    assert splat._fill_and_smooth.kernel_launches == 0
 
 
 def test_uint16_uint8_input_equals_float_input():

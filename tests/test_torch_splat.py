@@ -6,6 +6,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import vulcan_tpu_torch as P
 from vulcan_tpu.config import TINY as J_TINY
@@ -158,3 +159,72 @@ def test_render_splat_matches_reference(fused_volume):
         # of pixels (0.5% for the normals' wider footprint).
         assert np.mean(np.abs(a - b) > tol) < frac, name
     np.testing.assert_array_equal(rt.color.numpy(), np.zeros((H, W, 3), np.float32))
+
+
+def _carried(fused_volume):
+    """The fused volume on both sides, visibility re-run at its pose."""
+    jv, pose_j = fused_volume
+    tv = tB.VolumeState(**{k: t(v) for k, v in jflat(jv).items()})
+    pose_t = se3_t(pose_j)
+    jv = jal.update_visibility(jv, CAM_J, pose_j, H, W, CFG_J)
+    tv = tal.update_visibility(tv, CAM_T, pose_t, H, W, CFG_T)
+    return jv, tv, pose_j, pose_t
+
+
+def test_luma_zbuffer_words_match_reference(fused_volume):
+    """The packed ``zq19 << 12 | luma12`` scatter-min: the words are equal
+    but where a surfel's projection or its depth/luma rounding sits within
+    an ulp of a boundary (the reference's compiled loop fuses FMAs): at
+    most 0.1% of pixels.  Decoding is exact."""
+    jv, tv, pose_j, pose_t = _carried(fused_volume)
+    wj = np.asarray(jsplat._splat_zbuf_surfels(jv, CAM_J, pose_j, H, W, CFG_J,
+                                               luma=True))
+    wt = tsplat._splat_zbuf_surfels(tv, CAM_T, pose_t, H, W, CFG_T, luma=True)
+    assert wt.dtype == torch.int32
+    hit = wj != tsplat._LUMA_EMPTY
+    assert hit.mean() > 0.3
+    assert np.mean(wt.numpy() != wj) < 1e-3
+    for a, b in zip(tsplat._decode_luma_zbuf(wt, CFG_T),
+                    jsplat._decode_luma_zbuf(jnp.asarray(wj), CFG_J)):
+        np.testing.assert_array_equal(a.numpy()[wt.numpy() == wj],
+                                      np.asarray(b)[wt.numpy() == wj])
+    # Within one 9.5 um bin of the float32 z-buffer's depth.
+    z = tsplat._splat_zbuf_surfels(tv, CAM_T, pose_t, H, W, CFG_T).numpy()
+    d, _ = tsplat._decode_luma_zbuf(wt, CFG_T)
+    same = np.isfinite(z) & np.isfinite(d.numpy())
+    assert np.abs(d.numpy()[same] - z[same]).max() <= 2 * CFG_T.ray_far / tsplat._ZQ_MAX
+
+
+def test_rgb_zbuffer_matches_reference(fused_volume):
+    """The two-pass rgb888 form: the z-buffer as the depth-only one, the
+    colour words equal but at the boundary fraction."""
+    jv, tv, pose_j, pose_t = _carried(fused_volume)
+    zj, cj = jsplat._splat_zbuf_surfels(jv, CAM_J, pose_j, H, W, CFG_J,
+                                        with_color=True)
+    zt, ct = tsplat._splat_zbuf_surfels(tv, CAM_T, pose_t, H, W, CFG_T,
+                                        with_color=True)
+    np.testing.assert_array_equal(
+        zt.numpy(), tsplat._splat_zbuf_surfels(tv, CAM_T, pose_t, H, W, CFG_T).numpy())
+    cj = np.asarray(cj)
+    assert (cj >= 0).mean() > 0.3
+    assert np.mean(ct.numpy() != cj) < 1e-3
+    np.testing.assert_array_equal(ct.numpy() >= 0, np.isfinite(zt.numpy()))
+
+
+@pytest.mark.parametrize("space", ["luma", "rgb"])
+def test_render_splat_color_matches_reference(fused_volume, space):
+    """The model colour after diffusion into hole-filled pixels: equal to
+    1e-6 but for the boundary pixels and their 3x3 diffusion footprint
+    (0.5%); the luma render is grey."""
+    jv, tv, pose_j, pose_t = _carried(fused_volume)
+    rj = jsplat.render_splat(jv, CAM_J, pose_j, H, W, CFG_J, with_color=True,
+                             color_space=space)
+    rt = tsplat.render_splat(tv, CAM_T, pose_t, H, W, CFG_T, with_color=True,
+                             color_space=space)
+    cj, ct = np.asarray(rj.color), rt.color.numpy()
+    assert np.mean(np.asarray(rj.valid) != rt.valid.numpy()) < 1e-3
+    assert (cj.sum(-1) > 0).mean() > 0.3
+    assert np.mean(np.any(np.abs(ct - cj) > 1e-6, axis=-1)) < 5e-3
+    np.testing.assert_array_equal(ct[~rt.valid.numpy()], 0.0)
+    if space == "luma":
+        np.testing.assert_array_equal(ct[..., 0], ct[..., 2])

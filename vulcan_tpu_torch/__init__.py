@@ -1,4 +1,4 @@
-"""vulcan_tpu_torch: the PyTorch + CUDA port of vulcan_tpu (depth-mode slice).
+"""vulcan_tpu_torch: the PyTorch + CUDA port of vulcan_tpu (the online step).
 
 The JAX package ``vulcan_tpu`` is the reference; this package imports
 neither it nor JAX.  Plain tensor code is PyTorch; the reference's Pallas
@@ -17,6 +17,7 @@ torch.backends.cudnn.allow_tf32 = False
 from .config import TINY, Config  # noqa: E402
 from .core.camera import PinholeCamera  # noqa: E402
 from .core.se3 import SE3  # noqa: E402
+from .ops.light import Light  # noqa: E402
 from .pipeline.api import Pipeline  # noqa: E402
 
-__all__ = ["Config", "TINY", "PinholeCamera", "SE3", "Pipeline"]
+__all__ = ["Config", "TINY", "PinholeCamera", "SE3", "Light", "Pipeline"]

@@ -1,8 +1,9 @@
 """Analytic synthetic scenes (part of ``vulcan_tpu/io/synthetic.py``).
 
-Exact ray-sphere/plane intersections give ground-truth depth images and an
-orbiting camera gives ground-truth poses; ``chip_smoke.py`` makes its
-frames here, since the port runs without JAX.
+Exact ray-sphere/plane/box intersections give ground-truth depth images
+and an orbiting camera gives ground-truth poses: the sphere orbit
+(``render_scene_depth``) and the cluttered desk (``render_desk_depth``).
+``chip_smoke.py`` makes its frames here, since the port runs without JAX.
 """
 from __future__ import annotations
 
@@ -71,25 +72,106 @@ def render_scene_depth(
     d_world = pose.rotate(camera.rays(height, width, device))
     o = pose.translation
     best_t = torch.full((height, width), float("inf"), device=device)
-    a = torch.sum(d_world * d_world, dim=-1)
-    for center, radius in spheres:
-        oc = o - torch.tensor(center, dtype=torch.float32, device=device)
-        b = 2.0 * torch.sum(d_world * oc, dim=-1)
-        cc = torch.sum(oc * oc) - radius * radius
-        disc = b * b - 4.0 * a * cc
-        t = (-b - torch.sqrt(torch.clamp(disc, min=0.0))) / (2.0 * a)
-        ok = (disc >= 0.0) & (t > 0.0)
-        best_t = torch.where(ok & (t < best_t), t, best_t)
+    hits = [_ray_sphere_t(o, d_world, c, r) for c, r in spheres]
     if floor_z is not None:
-        dz = d_world[..., 2]
-        safe = torch.where(torch.abs(dz) > 1e-9, dz, 1e-9)
-        t = (floor_z - o[2]) / safe
-        ok = (torch.abs(dz) > 1e-9) & (t > 0.0)
+        hits.append(_ray_floor_t(o, d_world, floor_z))
+    for t, ok in hits:
         best_t = torch.where(ok & (t < best_t), t, best_t)
     hit = torch.isfinite(best_t)
     depth = torch.where(hit, best_t, 0.0)
     p = o + depth[..., None] * d_world
     color = torch.where(hit[..., None], procedural_color(p), 0.0)
+    return depth, color
+
+
+# The cluttered-desk scene: a tabletop with ~18 primitives at varied
+# depths.  Axis-aligned boxes: ((lo_x, lo_y, lo_z), (hi_x, hi_y, hi_z)).
+DESK_BOXES = (
+    ((-0.70, -0.50, -0.32), (0.70, 0.50, -0.28)),   # table top
+    ((-0.65, -0.45, -0.70), (-0.57, -0.37, -0.32)), # 4 legs
+    ((0.57, -0.45, -0.70), (0.65, -0.37, -0.32)),
+    ((-0.65, 0.37, -0.70), (-0.57, 0.45, -0.32)),
+    ((0.57, 0.37, -0.70), (0.65, 0.45, -0.32)),
+    ((-0.30, -0.05, -0.28), (0.10, 0.02, 0.02)),    # monitor panel
+    ((-0.14, -0.02, -0.28), (-0.06, 0.06, -0.24)),  # monitor base
+    ((0.25, -0.35, -0.28), (0.50, -0.10, -0.22)),   # keyboard
+    ((-0.55, -0.40, -0.28), (-0.35, -0.18, -0.12)), # book stack
+    ((-0.52, -0.37, -0.12), (-0.38, -0.21, -0.06)),
+    ((0.30, 0.18, -0.28), (0.44, 0.32, -0.02)),     # box on desk
+)
+DESK_SPHERES = (
+    ((0.18, 0.28, -0.22), 0.06),                    # mug
+    ((-0.18, 0.30, -0.20), 0.08),                   # bowl
+    ((0.52, 0.05, -0.23), 0.05),                    # apple
+    ((-0.05, -0.38, -0.21), 0.07),                  # ball
+    ((0.05, 0.40, -0.16), 0.12),                    # vase
+    ((-0.40, 0.12, -0.18), 0.10),                   # globe
+    ((0.55, 0.35, -0.19), 0.09),
+)
+DESK_FLOOR = -0.70
+
+
+def _ray_sphere_t(o, d_world, center, radius):
+    """Nearest z-depth of a ray-sphere hit, with the hit mask."""
+    oc = o - torch.tensor(center, dtype=torch.float32, device=o.device)
+    a = torch.sum(d_world * d_world, dim=-1)
+    b = 2.0 * torch.sum(d_world * oc, dim=-1)
+    cc = torch.sum(oc * oc) - radius * radius
+    disc = b * b - 4.0 * a * cc
+    t = (-b - torch.sqrt(torch.clamp(disc, min=0.0))) / (2.0 * a)
+    return t, (disc >= 0.0) & (t > 0.0)
+
+
+def _ray_floor_t(o, d_world, floor_z):
+    """z-depth where each ray meets the plane z = floor_z, with the mask."""
+    dz = d_world[..., 2]
+    t = (floor_z - o[2]) / torch.where(torch.abs(dz) > 1e-9, dz, 1e-9)
+    return t, (torch.abs(dz) > 1e-9) & (t > 0.0)
+
+
+def _ray_box_t(o, d_world, lo, hi):
+    """Ray-AABB slab intersection; returns (t_entry, hit) with t in z-depth
+    units (rays have unit camera-space z, like the spheres)."""
+    eps = 1e-9
+    inv = 1.0 / torch.where(torch.abs(d_world) > eps, d_world, eps)
+    t0 = (lo - o) * inv
+    t1 = (hi - o) * inv
+    t_near = torch.amax(torch.minimum(t0, t1), dim=-1)
+    t_far = torch.amin(torch.maximum(t0, t1), dim=-1)
+    hit = (t_near <= t_far) & (t_far > 0.0) & (t_near > 0.0)
+    return t_near, hit
+
+
+def render_desk_depth(
+    camera: PinholeCamera, pose: SE3, height: int, width: int, device=None
+):
+    """Exact depth + colour of the cluttered desk scene, on ``device`` (the
+    CUDA card when None).  The colour is ``procedural_color`` modulated by
+    an ~8 cm-scale pattern, so the desk's dominant planes carry intensity
+    gradient for photometric tracking."""
+    device = resolve_device(device)
+    pose = pose.to(device)
+    d_world = pose.rotate(camera.rays(height, width, device))
+    o = pose.translation
+    best_t = torch.full((height, width), float("inf"), device=device)
+    hits = [_ray_sphere_t(o, d_world, c, r) for c, r in DESK_SPHERES]
+    for lo, hi in DESK_BOXES:
+        hits.append(_ray_box_t(
+            o, d_world,
+            torch.tensor(lo, dtype=torch.float32, device=device),
+            torch.tensor(hi, dtype=torch.float32, device=device),
+        ))
+    hits.append(_ray_floor_t(o, d_world, DESK_FLOOR))
+    for t, ok in hits:
+        best_t = torch.where(ok & (t < best_t), t, best_t)
+    hit = torch.isfinite(best_t)
+    depth = torch.where(hit, best_t, 0.0)
+    p = o + depth[..., None] * d_world
+    tex = 0.80 + 0.20 * (
+        torch.sin(p[..., 0] * 80.0) * torch.sin(p[..., 1] * 74.0)
+        * torch.sin(p[..., 2] * 68.0)
+    )
+    color = torch.where(hit[..., None], procedural_color(p) * tex[..., None], 0.0)
     return depth, color
 
 

@@ -1,7 +1,7 @@
 """The per-voxel TSDF update rule and nearest-pixel image sampling.
 
 Part of ``vulcan_tpu/ops/dense.py``: only what the sparse integrator of
-the depth-mode slice uses (``voxel_update``, ``_sample_nearest``).  The
+the online step uses (``voxel_update``, ``_sample_nearest``).  The
 dense-grid backend itself is still to be ported (ROADMAP.md).
 
     sdf = depth(project(voxel)) - z_voxel

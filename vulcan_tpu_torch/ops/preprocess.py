@@ -150,6 +150,19 @@ def downsample_depth(depth: torch.Tensor, config: Config) -> torch.Tensor:
     )
 
 
+def intensity_from_color(color: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) RGB in [0, 1] -> (H, W) luma for photometric tracking."""
+    return 0.299 * color[..., 0] + 0.587 * color[..., 1] + 0.114 * color[..., 2]
+
+
+def downsample_intensity(img: torch.Tensor) -> torch.Tensor:
+    """Half-resolution plain 2x2 box average (photometric pyramids).  The
+    four pixels are summed in the reference's order, row by row."""
+    h, w = img.shape
+    x = img[: h - h % 2, : w - w % 2]
+    return (x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2] + x[1::2, 1::2]) / 4.0
+
+
 def build_frame_maps(
     depth: torch.Tensor,
     intensity,
@@ -163,25 +176,30 @@ def build_frame_maps(
     return FrameMaps(d, verts, normals, intensity, camera)
 
 
-def build_pyramid(frame: Frame, config: Config) -> tuple[FrameMaps, ...]:
+def build_pyramid(
+    frame: Frame, config: Config, with_intensity: bool = True
+) -> tuple[FrameMaps, ...]:
     """Coarse-to-fine pyramid of FrameMaps; index 0 = full resolution.
 
     The bilateral filter runs once at full resolution; coarser levels
-    subsample the filtered depth.  Depth-mode tracking reads no intensity,
-    so this slice builds none (the reference's ``with_intensity=False``).
+    subsample the filtered depth.  ``with_intensity=False`` (geometric-only
+    tracking) skips the luma image and its pyramid.
     """
     depth = (
         bilateral_filter(frame.depth, config)
         if config.bilateral_enabled
         else frame.depth
     )
+    intensity = intensity_from_color(frame.color) if with_intensity else None
     camera = frame.camera
     levels = []
     for level in range(config.pyramid_levels):
         if level > 0:
             depth = downsample_depth(depth, config)
+            if intensity is not None:
+                intensity = downsample_intensity(intensity)
             camera = camera.scaled(0.5)
         levels.append(
-            build_frame_maps(depth, None, camera, config, filter_depth=False)
+            build_frame_maps(depth, intensity, camera, config, filter_depth=False)
         )
     return tuple(levels)

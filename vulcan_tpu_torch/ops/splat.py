@@ -1,20 +1,25 @@
-"""Surfel-splatting model renderer, depth-mode branches.
+"""Surfel-splatting model renderer.
 
-Counterpart of the depth-mode path of ``vulcan_tpu/ops/splat.py``
-(``render_splat`` with ``with_color=False``, ``normals="cross"``,
-``splat_source="surfels"``, no polish):
+Counterpart of ``vulcan_tpu/ops/splat.py``'s ``render_splat`` with
+``normals="cross"``, ``splat_source="surfels"`` and no polish:
 
   1. ``_surfel_block_list``: visible blocks with a nonempty persistent
      surfel list (maintained by integration);
   2. ``_splat_zbuf_surfels``: project every surfel (z_surf = z_voxel +
      tsdf * mu on the voxel's own ray) and scatter-min its depth into a
-     float32 z-buffer, in two tiers over the surfel slots;
+     z-buffer, in two tiers over the surfel slots.  Without colour it is a
+     float32 z-buffer; ``model_color="luma"`` makes it one scatter-min of a
+     packed ``zq19 << 12 | luma12`` int32 word, ``"rgb"`` adds a second
+     pass that scatters each depth winner's rgb888;
   3. ``_fill_and_smooth`` (kernel K2 on the card): hole fill and
      edge-aware smoothing of the z-buffer;
-  4. cross-product normals from the vertex map, 3x3 normal smoothing.
+  4. cross-product normals from the vertex map, 3x3 normal smoothing, and
+     the model colour diffused into the hole-filled pixels.
 
-The colour/luma and cached/direct variants are still to be ported
-(ROADMAP.md).
+The reference picks a surfel's rgb out of its block's ``colorpack`` row
+with a one-hot matmul (a TPU layout trick, exact for 0..255); here the
+same int32 word is read by index.  The cached and direct z-buffer
+sources are not ported.
 """
 from __future__ import annotations
 
@@ -30,6 +35,23 @@ from .allocate import compact_mask
 from .dense import round_to_int
 from .preprocess import _shift2d
 from .raycast import Render, _cross_normals_axes
+
+_ZQ_BITS = 19                       # packed-luma depth quantization bits
+_ZQ_MAX = (1 << _ZQ_BITS) - 1       # depth step = ray_far / _ZQ_MAX
+_LUMA_EMPTY = 0x7FFFFFFF            # packed-luma z-buffer init value
+
+
+def _decode_luma_zbuf(word: torch.Tensor, config: Config):
+    """Packed (zq19 << 12 | i12) -> (depth f32, +inf empty; intensity)."""
+    valid = word != _LUMA_EMPTY
+    depth = torch.where(
+        valid, (word >> 12).to(torch.float32) * (config.ray_far / _ZQ_MAX),
+        float("inf"),
+    )
+    inten = torch.where(
+        valid, (word & 0xFFF).to(torch.float32) * (1.0 / 4095.0), 0.0
+    )
+    return depth, inten
 
 
 def _surfel_block_list(volume: B.VolumeState, config: Config):
@@ -49,11 +71,20 @@ def _splat_zbuf_surfels(
     height: int,
     width: int,
     config: Config,
-) -> torch.Tensor:
-    """Float32 z-buffer (H*W,), +inf = empty, from the persistent surfel
-    lists.  Tier 1 scatters slots [0, S/2) of every surface block, tier 2
-    slots [S/2, S) of the blocks that use them.  The tiers' lengths are
-    read on the host (one counted read) to size the chunk loops."""
+    with_color: bool = False,
+    luma: bool = False,
+):
+    """Z-buffer (H*W,) from the persistent surfel lists.  Tier 1 scatters
+    slots [0, S/2) of every surface block, tier 2 slots [S/2, S) of the
+    blocks that use them; the tiers' lengths are read on the host (one
+    counted read) to size the chunk loops.
+
+    Returns the float32 z-buffer (+inf = empty); with ``with_color``
+    (zbuf, rgb888 int32 buffer, -1 = no colour), whose second pass
+    scatter-maxes a surfel's colour where its depth is within 1e-5 m of
+    the finished z-buffer; with ``luma`` the packed int32 buffer of one
+    scatter-min (nearest depth bin wins, ties to the darker luma; decode
+    with ``_decode_luma_zbuf``)."""
     vs = config.voxel_size
     mu = config.trunc_dist
     S = config.surfel_slots
@@ -73,10 +104,11 @@ def _splat_zbuf_surfels(
     n2 = torch.sum(rowv).to(torch.int32)
     n_surf_h, n2_h = read_ints(n_surf, n2)
 
-    # Index npix is a trash slot for masked lanes (sliced off at the end).
-    zbuf = torch.full((npix + 1,), float("inf"), dtype=torch.float32, device=dev)
-
-    def scatter_tier(ids_list, n_list, s_lo, s_hi, chunk):
+    def scatter_tier(buf, ids_list, n_list, s_lo, s_hi, chunk, zref=None):
+        """Scatter surfel slots [s_lo, s_hi) of the listed blocks into
+        ``buf`` (index npix is a trash slot for masked lanes): min-z, or
+        the packed luma word, or (``zref`` given) the rgb888 colour of the
+        surfels whose depth won ``zref``."""
         C = min(chunk, ids_list.shape[0])
         for i in range((n_list + C - 1) // C):
             start = i * C
@@ -117,17 +149,50 @@ def _splat_zbuf_surfels(
             u = round_to_int(camera.fx * cx / zc + camera.cx)
             v = round_to_int(camera.fy * cy / zc + camera.cy)
             inb = (u >= 0) & (u < width) & (v >= 0) & (v < height) & zok
-            pix = torch.where(inb, v * width + u, npix)
-            zbuf.scatter_reduce_(
-                0,
-                pix.reshape(-1),
-                torch.where(inb, z_surf, float("inf")).reshape(-1),
-                "amin",
+            pix = torch.where(inb, v * width + u, npix).reshape(-1)
+            if zref is None and not luma:
+                buf.scatter_reduce_(
+                    0, pix, torch.where(inb, z_surf, float("inf")).reshape(-1),
+                    "amin",
+                )
+                continue
+            # The voxel's colour word (w8|r8|g8|b8) within its block's row.
+            word = torch.gather(volume.colorpack[ids], 1, lidx.to(torch.int64))
+            r, g, b = (word >> 16) & 0xFF, (word >> 8) & 0xFF, word & 0xFF
+            if luma:
+                lum = (0.299 * r + 0.587 * g + 0.114 * b) * (1.0 / 255.0)
+                i12 = torch.clamp(torch.round(lum * 4095.0), 0, 4095).to(torch.int32)
+                zq = torch.clamp(
+                    torch.round(z_surf * (_ZQ_MAX / config.ray_far)),
+                    0, _ZQ_MAX - 1,   # keeps the word below _LUMA_EMPTY
+                ).to(torch.int32)
+                packed = (zq << 12) | i12
+                buf.scatter_reduce_(
+                    0, pix, torch.where(inb, packed, _LUMA_EMPTY).reshape(-1),
+                    "amin",
+                )
+                continue
+            rgb888 = (r << 16) | (g << 8) | b
+            zb = zref[torch.clamp(pix, max=npix - 1)].reshape(z_surf.shape)
+            win = inb & (z_surf <= zb + 1e-5)
+            buf.scatter_reduce_(
+                0, pix, torch.where(win, rgb888, -1).reshape(-1), "amax"
             )
 
-    scatter_tier(render_ids, n_surf_h, 0, s1, 2048)
-    scatter_tier(ids2, n2_h, s1, S, 512)
-    return zbuf[:npix]
+    def tiers(buf, zref=None):
+        scatter_tier(buf, render_ids, n_surf_h, 0, s1, 2048, zref)
+        scatter_tier(buf, ids2, n2_h, s1, S, 512, zref)
+        return buf[:npix]
+
+    if luma:
+        return tiers(torch.full((npix + 1,), _LUMA_EMPTY, dtype=torch.int32,
+                                device=dev))
+    zbuf = tiers(torch.full((npix + 1,), float("inf"), dtype=torch.float32,
+                            device=dev))
+    if not with_color:
+        return zbuf
+    cbuf = tiers(torch.full((npix + 1,), -1, dtype=torch.int32, device=dev), zbuf)
+    return zbuf, cbuf
 
 
 def _fill_smooth_steps(d: torch.Tensor, mu: float, rounds: int,
@@ -198,6 +263,28 @@ _fill_and_smooth.launches = 0
 _fill_and_smooth.kernel_launches = 0
 
 
+def _diffuse(value: torch.Tensor, ok: torch.Tensor, rounds: int) -> torch.Tensor:
+    """Grow ``value`` (H, W, C) from its ``ok`` pixels into their
+    neighbours, ``rounds`` times: each newly reached pixel takes the mean
+    of its valid 3x3 neighbours.  The reach of the depth hole fill, so
+    filled depth pixels get a colour."""
+    for _ in range(rounds):
+        okf = ok.to(torch.float32)
+        acc = value * okf[..., None]
+        cnt = okf
+        for ddy in (-1, 0, 1):
+            for ddx in (-1, 0, 1):
+                if ddx == 0 and ddy == 0:
+                    continue
+                acc = acc + _shift2d(value * okf[..., None], ddy, ddx)
+                cnt = cnt + _shift2d(okf, ddy, ddx)
+        grown = cnt > 0.0
+        fill = acc / torch.clamp(cnt, min=1.0)[..., None]
+        value = torch.where((~ok & grown)[..., None], fill, value)
+        ok = ok | grown
+    return value
+
+
 def render_splat(
     volume: B.VolumeState,
     camera: PinholeCamera,
@@ -205,11 +292,27 @@ def render_splat(
     height: int,
     width: int,
     config: Config,
+    with_color: bool = False,
+    color_space: str = "rgb",
 ) -> Render:
-    """Render depth-mode model maps by surfel splatting (the reference's
-    ``render_splat`` with ``normals="cross"`` and ``with_color=False``)."""
-    zbuf = _splat_zbuf_surfels(volume, camera, pose, height, width, config)
+    """Render model maps by surfel splatting (the reference's
+    ``render_splat`` with ``normals="cross"``).  ``with_color`` renders the
+    model colour: ``color_space="luma"`` as a grey intensity image from the
+    packed one-pass scatter, ``"rgb"`` from the two-pass rgb888 scatter.
+    Without it the colour is zeros."""
     inf = float("inf")
+    cbuf = ibuf = None
+    if with_color and color_space == "luma":
+        wbuf = _splat_zbuf_surfels(
+            volume, camera, pose, height, width, config, luma=True
+        )
+        zbuf, ibuf = _decode_luma_zbuf(wbuf, config)
+    elif with_color:
+        zbuf, cbuf = _splat_zbuf_surfels(
+            volume, camera, pose, height, width, config, with_color=True
+        )
+    else:
+        zbuf = _splat_zbuf_surfels(volume, camera, pose, height, width, config)
     depth = zbuf.reshape(height, width)
     has = torch.isfinite(depth)
     d = _fill_and_smooth(torch.where(has, depth, inf), config)
@@ -248,6 +351,23 @@ def render_splat(
     ny = torch.where(good, sy_ * inv, ny)
     nz = torch.where(good, sz_ * inv, nz)
 
+    rounds = config.splat_fill_rounds
+    if ibuf is not None:
+        # Luma: diffuse the scattered intensity (valid where the packed
+        # word hit), then broadcast grey: intensity_from_color of (i, i, i)
+        # is i, so the tracker sees the packed intensity unchanged.
+        inten = _diffuse(ibuf.reshape(height, width, 1), has, rounds)
+        color = inten.expand(height, width, 3)
+    elif cbuf is not None:
+        cimg = cbuf.reshape(height, width)
+        c_ok = cimg >= 0
+        rgb = torch.stack(
+            [(cimg >> 16) & 0xFF, (cimg >> 8) & 0xFF, cimg & 0xFF], dim=-1
+        ).to(torch.float32) * (1.0 / 255.0)
+        color = _diffuse(torch.where(c_ok[..., None], rgb, 0.0), c_ok, rounds)
+    else:
+        color = torch.zeros((height, width, 3), device=depth.device)
+
     valid = hit & n_ok
     zero = torch.zeros((), device=depth.device)
     return Render(
@@ -258,7 +378,7 @@ def render_splat(
         nx=torch.where(valid, nx, zero),
         ny=torch.where(valid, ny, zero),
         nz=torch.where(valid, nz, zero),
-        color=torch.zeros((height, width, 3), device=depth.device),
+        color=torch.where(valid[..., None], color, zero),
         valid=valid,
         camera=camera,
         pose=pose,

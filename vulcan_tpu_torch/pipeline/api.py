@@ -26,7 +26,9 @@ def _as_tensor(x, device) -> torch.Tensor:
 
 class Pipeline:
     """Full online loop: track + fuse + render per frame on ``device``
-    (the CUDA card when None; ``device="cpu"`` runs the plain versions)."""
+    (the CUDA card when None; ``device="cpu"`` runs the plain versions).
+    ``mode`` is the tracking mode: "depth", "color", "combined" or
+    "light"."""
 
     def __init__(
         self,
@@ -49,13 +51,10 @@ class Pipeline:
         )
 
     def process(self, depth, color=None, pose: SE3 | None = None) -> None:
-        """Feed one frame (numpy arrays or tensors).  uint16 depth (TUM raw
-        units) and uint8 colour are uploaded as they are and converted on
-        the device; other dtypes are converted to float32."""
-        if pose is not None:
-            raise NotImplementedError(
-                "fusion with a given pose (step_known_pose) is not ported yet"
-            )
+        """Feed one frame (numpy arrays or tensors).  With ``pose`` given
+        (camera-to-world), fuse at that pose without tracking.  uint16
+        depth (TUM raw units) and uint8 colour are uploaded as they are and
+        converted on the device; other dtypes are converted to float32."""
         depth = _as_tensor(depth, self.device)
         if depth.dtype not in (torch.uint16, torch.float32):
             depth = depth.to(torch.float32)
@@ -64,7 +63,14 @@ class Pipeline:
         color = _as_tensor(color, self.device)
         if color.dtype not in (torch.uint8, torch.float32):
             color = color.to(torch.float32)
-        self.state = fusion.step(self.state, depth, color, self.config, self.mode)
+        if pose is not None:
+            self.state = fusion.step_known_pose(
+                self.state, depth, color, pose.to(self.device), self.config
+            )
+        else:
+            self.state = fusion.step(
+                self.state, depth, color, self.config, self.mode
+            )
 
     @property
     def pose(self) -> SE3:
@@ -81,7 +87,7 @@ class Pipeline:
             "track_level_inliers": [int(x) for x in s.track_level_inliers],
             "track_level_degen": [round(float(x), 6) for x in s.track_level_degen],
             "track_degen_frames": int(s.track_degen_frames),
-            "photo_armed_frames": int(s.photo_cnt),
+            "photo_armed_frames": s.photo_cnt_host,
             "allocated_blocks": int(s.volume.free_count) - 1,
             "visible_blocks": int(s.volume.num_visible),
             "alloc_overflow": int(s.volume.alloc_overflow),

@@ -1,14 +1,24 @@
-"""The online reconstruction step, depth mode.
+"""The online reconstruction step.
 
-Counterpart of ``vulcan_tpu/pipeline/fusion.py`` for the depth-mode slice
-under the default renderer: preprocess -> track -> fusion gate ->
-allocate + visibility -> integrate -> splat render.  The reference runs
-this as one jitted, donated function; here it runs eagerly, with the
-volume updated in place.  The host reads the step makes (integrate chunk
-count, splat tier lengths, the auto-photo arming check) are counted by
-``utils.sync.read_int``.  Each stage runs under a
-``torch.profiler.record_function`` range named ``vulcan.<stage>`` so a
-profiler trace attributes host and device time per stage.
+Counterpart of ``vulcan_tpu/pipeline/fusion.py`` under the splat renderer,
+in all four tracking modes: preprocess -> track -> fusion gate ->
+allocate + visibility -> integrate -> splat render, plus
+``step_known_pose`` (fusion with a given pose) and ``Config.ablate``.  The
+reference runs this as one jitted, donated function; here it runs eagerly,
+with the volume updated in place.  The host reads the step makes
+(integrate chunk count, splat tier lengths, the auto-photo countdown) are
+counted by ``utils.sync.read_int``.
+
+Auto-photo (depth mode, ``Config.auto_photo``): a frame whose geometric
+conditioning is weak arms combined tracking for ``auto_photo_hold``
+frames.  The reference switches the track with ``lax.cond`` on the
+device countdown; here the countdown's host value, read once a frame to
+choose the render's colour, is carried in ``PipelineState`` and picks the
+next frame's track in Python, with no further read.
+
+Each stage runs under a ``torch.profiler.record_function`` range named
+``vulcan.<stage>`` so a profiler trace attributes host and device time per
+stage.
 """
 from __future__ import annotations
 
@@ -24,20 +34,20 @@ from ..core.frame import Frame
 from ..core.se3 import SE3
 from ..ops import allocate, icp, sparse, splat
 from ..ops import blocks as B
-from ..ops.preprocess import build_pyramid
+from ..ops.preprocess import bilateral_filter, build_pyramid
 from ..ops.raycast import Render
 from ..utils.sync import read_int
 
-_NOT_PORTED = "is not ported yet (vulcan_tpu_torch carries the depth-mode slice)"
+MODES = icp.MODES
+_NOT_PORTED = "is not ported yet (vulcan_tpu_torch renders with the surfel splat)"
 
 
 def check_supported(config: Config, mode: str) -> None:
-    """Raise for every setting outside the ported slice.  These are loud
-    stops, never silent fallbacks to another path."""
-    if mode != "depth":
-        raise NotImplementedError(
-            f"mode={mode!r} {_NOT_PORTED}: only mode='depth'"
-        )
+    """Raise for every setting outside the ported code: ValueError for a
+    mode that does not exist, NotImplementedError for what the reference
+    has and the port does not.  Loud stops, never silent fallbacks."""
+    if mode not in MODES:
+        raise ValueError(f"mode={mode!r}: one of {MODES}")
     bad = {
         "render_mode": (config.render_mode, "march", "the hierarchical ray march"),
         "splat_source": (config.splat_source, "direct", "the direct splat source"),
@@ -54,14 +64,18 @@ def check_supported(config: Config, mode: str) -> None:
             f"assoc_patch={config.assoc_patch!r}: the TPU one-hot patch "
             f"association {_NOT_PORTED}"
         )
-    if config.ablate:
-        raise NotImplementedError(f"ablate={config.ablate!r} {_NOT_PORTED}")
+
+
+def _ablated(config: Config) -> set[str]:
+    """The stages ``Config.ablate`` skips (comma-separated names)."""
+    return set(config.ablate.split(",")) if config.ablate else set()
 
 
 @dataclasses.dataclass
 class PipelineState:
-    """State carried across frames (field for field the reference's).
-    The current pose lives in ``model.pose``."""
+    """State carried across frames (field for field the reference's, plus
+    the host copy of ``photo_cnt``).  The current pose lives in
+    ``model.pose``."""
 
     volume: B.VolumeState
     model: Render                   # last rendered model maps
@@ -75,6 +89,9 @@ class PipelineState:
     track_level_degen: torch.Tensor     # (levels,) f32 observability score
     track_degen_frames: torch.Tensor    # () int32, frames held as degenerate
     photo_cnt: torch.Tensor             # () int32 auto-photo countdown
+    # photo_cnt as the host last read it (no tensor, not in the reference):
+    # > 0 arms the next frame's combined track without another read.
+    photo_cnt_host: int = dataclasses.field(default=0, metadata={"host": True})
 
     @property
     def pose(self) -> SE3:
@@ -146,13 +163,16 @@ def _to_metric(depth: torch.Tensor, color: torch.Tensor, config: Config):
     return depth, color
 
 
-def _gate(state: PipelineState, result: icp.TrackResult, config: Config):
+def _gate(state: PipelineState, result: icp.TrackResult, config: Config,
+          auto: bool):
     """Fusion gate, degeneracy hold and auto-photo countdown.
 
     A diverged or starved track is not fused: the previous pose is kept
     and the frame's depth masked to invalid (frame 0, with an empty model,
     bypasses the gate).  A degenerate track keeps its pose but is not
-    fused.  Returns (pose, trusted, degenerate, fuse_ok, photo_cnt).
+    fused.  Under ``auto`` a weak geometric score re-arms the countdown,
+    which is read on the host (counted).  Returns (pose, trusted,
+    degenerate, fuse_ok, photo_cnt, photo_cnt_host).
     """
     model_empty = ~torch.any(state.model.valid)
     levels_sane = torch.all(result.level_error < 3.0 * config.icp_max_error)
@@ -163,24 +183,66 @@ def _gate(state: PipelineState, result: icp.TrackResult, config: Config):
     degenerate = (
         (~model_empty) & trusted & (result.min_degen < config.degen_min_eig)
     )
-    photo_cnt = state.photo_cnt
-    if config.auto_photo and config.degen_min_eig > 0.0:
+    photo_cnt, photo_cnt_host = state.photo_cnt, state.photo_cnt_host
+    if auto:
         weak = (~model_empty) & (result.geo_degen < config.auto_photo_enter)
         photo_cnt = torch.where(
             weak,
             torch.full_like(state.photo_cnt, config.auto_photo_hold),
             torch.clamp(state.photo_cnt - 1, min=0),
         )
-        # Armed frames render the luma model and track in combined mode:
-        # stop before this frame touches the volume.
-        if read_int(photo_cnt) > 0:
-            raise NotImplementedError(
-                "auto-photo armed (geometric conditioning "
-                f"< auto_photo_enter={config.auto_photo_enter}): the "
-                "combined-mode slice (photometric tracking, luma model "
-                f"render) {_NOT_PORTED}"
+        photo_cnt_host = read_int(photo_cnt)
+    return (pose, trusted, degenerate, trusted & ~degenerate, photo_cnt,
+            photo_cnt_host)
+
+
+def _no_track(state: PipelineState, config: Config) -> icp.TrackResult:
+    """The ``ablate="track"`` stand-in: the pose held, every gate passed."""
+    levels = config.pyramid_levels
+    dev = state.photo_cnt.device
+    return icp.TrackResult(
+        pose=state.pose,
+        error=torch.zeros((), device=dev),
+        inliers=torch.tensor(10**6, dtype=torch.int32, device=dev),
+        valid=torch.ones((), dtype=torch.bool, device=dev),
+        level_error=torch.zeros(levels, device=dev),
+        level_inliers=torch.full((levels,), 10**6, dtype=torch.int32, device=dev),
+        level_degen=torch.ones(levels, device=dev),
+        min_degen=torch.ones((), device=dev),
+        geo_degen=torch.ones((), device=dev),
+    )
+
+
+def _fuse_and_render(volume: B.VolumeState, frame: Frame, filtered: torch.Tensor,
+                     config: Config, h: int, w: int, with_color: bool = True):
+    """Allocate, update visibility, integrate and render at ``frame.pose``,
+    skipping the stages ``Config.ablate`` names (integration needs the
+    allocation's band list).  Returns (volume, render or None)."""
+    skip = _ablated(config)
+    band_ids = n_band = None
+    if "alloc" not in skip:
+        with record_function("vulcan.allocate"):
+            volume, band_ids, n_band = allocate.allocate_for_frame(
+                volume, filtered, frame.camera, frame.pose, config
             )
-    return pose, trusted, degenerate, trusted & ~degenerate, photo_cnt
+    if "vis" not in skip:
+        with record_function("vulcan.visibility"):
+            volume = allocate.update_visibility(
+                volume, frame.camera, frame.pose, h, w, config
+            )
+    if "integrate" not in skip and "alloc" not in skip:
+        with record_function("vulcan.integrate"):
+            volume = sparse.integrate_sparse(
+                volume, frame, config, ids=band_ids, count=n_band
+            )
+    if "render" in skip:
+        return volume, None
+    with record_function("vulcan.render"):
+        render = splat.render_splat(
+            volume, frame.camera, frame.pose, h, w, config,
+            with_color=with_color, color_space=config.model_color,
+        )
+    return volume, render
 
 
 def step(
@@ -196,44 +258,62 @@ def step(
     this call updates in place (see ``ops/sparse.py``).
     """
     check_supported(config, mode)
+    skip = _ablated(config)
     depth, color = _to_metric(depth, color, config)
     h, w = depth.shape
     camera = state.model.camera
     frame = Frame(depth, color, camera, state.pose)
+    # Depth mode's collapse rescue: a weak geometric score arms combined
+    # tracking, and the luma model render it needs, for auto_photo_hold
+    # frames; armed at frame t, frame t+1 tracks with both terms.
+    auto = (
+        mode == "depth"
+        and config.auto_photo
+        and config.degen_min_eig > 0.0
+        and "track" not in skip
+    )
+    with_int = mode != "depth" or auto
     with record_function("vulcan.preprocess"):
-        live_pyr = build_pyramid(frame, config)
+        live_pyr = build_pyramid(frame, config, with_intensity=with_int)
 
     # --- track against the previous model ---------------------------------
-    with record_function("vulcan.track"):
-        model_pyr = icp.model_pyramid(state.model, config.pyramid_levels)
-        init_pose = predict_pose(state, config)
-        result = icp.track(live_pyr, model_pyr, init_pose, config)
+    if "track" in skip:
+        result = _no_track(state, config)
+    else:
+        with record_function("vulcan.track"):
+            model_pyr = icp.model_pyramid(
+                state.model, config.pyramid_levels,
+                with_intensity=with_int,
+                # Silhouette erosion scaled so coarse voxels (voxel-size
+                # depth steps) do not erode every photometric sample.
+                flat_thresh=max(0.05, 6.0 * config.voxel_size),
+            )
+            init_pose = predict_pose(state, config)
+            if auto:
+                mode_now = "combined" if state.photo_cnt_host > 0 else "depth"
+            else:
+                mode_now = mode
+            result = icp.track(live_pyr, model_pyr, init_pose, config, mode_now)
 
     with record_function("vulcan.gate"):
-        pose, trusted, degenerate, fuse_ok, photo_cnt = _gate(
-            state, result, config
+        pose, trusted, degenerate, fuse_ok, photo_cnt, photo_cnt_host = _gate(
+            state, result, config, auto
         )
     fused_depth = torch.where(fuse_ok, depth, 0.0)
     filtered = torch.where(fuse_ok, live_pyr[0].depth, 0.0)
 
     # --- fuse + render with the tracked pose -------------------------------
-    tracked = Frame(fused_depth, color, camera, pose)
-    with record_function("vulcan.allocate"):
-        volume, band_ids, n_band = allocate.allocate_for_frame(
-            state.volume, filtered, camera, pose, config
-        )
-    with record_function("vulcan.visibility"):
-        volume = allocate.update_visibility(volume, camera, pose, h, w, config)
-    with record_function("vulcan.integrate"):
-        volume = sparse.integrate_sparse(
-            volume, tracked, config, ids=band_ids, count=n_band
-        )
-    with record_function("vulcan.render"):
-        render = splat.render_splat(volume, camera, pose, h, w, config)
+    # Depth-only tracking reads no model colour; an armed frame renders it
+    # so that the next frame has both sides of the photometric term.
+    volume, render = _fuse_and_render(
+        state.volume, Frame(fused_depth, color, camera, pose), filtered,
+        config, h, w,
+        with_color=(photo_cnt_host > 0) if auto else (mode != "depth"),
+    )
     return dataclasses.replace(
         state,
         volume=volume,
-        model=render,
+        model=render if render is not None else state.model,
         prev_pose=state.pose,
         frame_idx=state.frame_idx + 1,
         track_error=result.error,
@@ -244,6 +324,7 @@ def step(
         track_level_degen=result.level_degen,
         track_degen_frames=state.track_degen_frames + degenerate.to(torch.int32),
         photo_cnt=photo_cnt,
+        photo_cnt_host=photo_cnt_host,
     )
 
 
@@ -261,3 +342,32 @@ def step_seq(
         state = step(state, d, c, config, mode)
         trans.append(state.pose.translation)
     return state, torch.stack(trans)
+
+
+def step_known_pose(
+    state: PipelineState,
+    depth: torch.Tensor,
+    color: torch.Tensor,
+    pose: SE3,
+    config: Config,
+) -> PipelineState:
+    """Fusion-only frame with a given camera-to-world pose (ground-truth
+    trajectories, evaluation): no tracking, no gate; the model renders
+    with colour.  Of the reference's pyramid only the filtered depth is
+    read, so only the filter runs."""
+    check_supported(config, "depth")
+    depth, color = _to_metric(depth, color, config)
+    h, w = depth.shape
+    frame = Frame(depth, color, state.model.camera, pose)
+    with record_function("vulcan.preprocess"):
+        filtered = (
+            bilateral_filter(depth, config) if config.bilateral_enabled else depth
+        )
+    volume, render = _fuse_and_render(state.volume, frame, filtered, config, h, w)
+    return dataclasses.replace(
+        state,
+        volume=volume,
+        model=render if render is not None else state.model,
+        prev_pose=state.pose,
+        frame_idx=state.frame_idx + 1,
+    )
