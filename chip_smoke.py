@@ -72,7 +72,23 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      (``bench_stencil.launch_costs``) and T1 by strip height
      (``bench_stencil.strip_times``); then the three probe entry points
      (``vulcan_tpu_torch.tools.bench_*.run``) with every probe count set to
-     0, each kernel of them launched at least once.
+     0, each kernel of them launched at least once;
+  7. mesh and API at 640x480 under the default Config: (a) extract_mesh of
+     phase 3's volume (its ms, the median of 3 between CUDA events, and its
+     host reads), equal to the port's plain path on a CPU copy (counts
+     exact, positions and colours within 1e-5); (b) the orbit again with
+     mesh_dirty_eps=0 and 512 cache slots a block, update_mesh_cache +
+     cache_to_mesh every 5 frames and after the last (dirty blocks, ms and
+     reads of each, the triangles over the default 256 slots), the last
+     decode equal to a full extraction within the cache's quantization,
+     K1/K2 once a frame and 3 host reads a frame in the step; (c)
+     export_ply read back face for face,
+     a v4 snapshot saved from the card and loaded on the CPU (every array
+     equal), both traced at one pose within the splat tolerances; (d) the
+     five-class flow (Volume, Integrator, Tracer, DepthTracker, Extractor)
+     over 10 frames: ATE < 0.01 m, a mesh, K1 once a track and K2 once a
+     trace; with --profile also the device busy ms and operations of one
+     extraction, update and decode.  Written to chiprun_out/mesh.json.
 
 Every failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -604,6 +620,17 @@ def run_cell(P, torch, label, config, mode, camera, poses, frames, ate_limit,
     return out
 
 
+def dev_us(e, self_only):
+    """A torch.profiler event's device time in us (self or total; the
+    attribute's name depends on the PyTorch version)."""
+    names = (("self_device_time_total", "self_cuda_time_total") if self_only
+             else ("device_time_total", "cuda_time_total"))
+    for a in names:
+        if hasattr(e, a):
+            return float(getattr(e, a))
+    return 0.0
+
+
 def profile_stages(P, torch, config, camera, poses, frames, dev, wall_ms,
                    mode="depth"):
     """Phase 5: where a steady frame's time goes, over 10 frames each of
@@ -663,14 +690,6 @@ def profile_stages(P, torch, config, camera, poses, frames, dev, wall_ms,
             pipe.process(d16, c8)
             torch.cuda.synchronize()
 
-    def dev_us(e, self_only):
-        names = (("self_device_time_total", "self_cuda_time_total") if self_only
-                 else ("device_time_total", "cuda_time_total"))
-        for a in names:
-            if hasattr(e, a):
-                return float(getattr(e, a))
-        return 0.0
-
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.key_averages()
     # Host-side stage ranges carry their kernels' device time; the
@@ -716,6 +735,264 @@ def profile_stages(P, torch, config, camera, poses, frames, dev, wall_ms,
               f"kernels {v['kernel_ms']:7.3f} ms")
     for k in kernels[:12]:
         print(f"  {k[1]:7.3f} ms {k[2]:7.1f}x  {k[0][:90]}")
+    return report
+
+
+MESH_POS_TOL = 1e-5     # m: card vs CPU extraction (one division a vertex)
+MESH_COLOR_TOL = 1e-5   # colour interpolation: FMA contraction on the card
+INC_POS_TOL = 2e-4      # m: the cache's 16-bit edge parameter (tests/test_mcubes.py)
+INC_COLOR_TOL = 1 / 128  # the cache's rgb888 colour (tests/test_mcubes.py)
+MESH_EVERY = 5           # frames between re-meshes (the CLI's --mesh-every)
+MESH_SLOTS = 512         # cache slots a block in (b); the default is 256
+
+
+def events_ms(fn, torch):
+    """(result, ms) of one call of ``fn()`` between two CUDA events (the
+    host's part, host reads included, is inside the window)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def profile_call(fn, torch) -> tuple[float, float]:
+    """(device busy ms, device operations) of one call of ``fn()``, from
+    torch.profiler's kernel and memory-operation events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages() if e.device_type == cuda]
+    return (sum(dev_us(e, True) for e in events) / 1e3,
+            float(sum(e.count for e in events)))
+
+
+def compare_meshes(label, got, want, pos_tol, color_tol):
+    """Equal counts and overflows, positions and colours of every lane
+    within the tolerances (lanes past the count are zeros on both)."""
+    for k in ("count", "overflow", "compact_dropped"):
+        a, b = int(getattr(got, k)), int(getattr(want, k))
+        if a != b:
+            fail(f"{label}: {k} {a} against {b}")
+    dp = float((got.positions.cpu() - want.positions.cpu()).abs().max())
+    dc = float((got.colors.cpu() - want.colors.cpu()).abs().max())
+    print(f"{label}: count {int(got.count)} equal, max |position diff| {dp:.3e} m "
+          f"(tol {pos_tol:g}), max |colour diff| {dc:.3e} (tol {color_tol:g})", flush=True)
+    if not (dp <= pos_tol and dc <= color_tol):
+        fail(f"{label}: positions or colours differ beyond the tolerance")
+    return dp, dc
+
+
+def metric_frame(d16, c8, cfg):
+    """A uint16/uint8 sensor frame in meters and [0, 1], as the step converts it."""
+    return (d16.astype(np.float32) * np.float32(1.0 / cfg.depth_raw_scale),
+            c8.astype(np.float32) * np.float32(1.0 / 255.0))
+
+
+def mesh_and_api(P, torch, cfg, cam, poses, frames, pipe, dev, want_profile) -> dict:
+    """Phase 7: the mesh path and the five-class API at 640x480 on the card.
+    (a) full extraction of phase 3's volume, against the port's plain path
+    on a CPU copy; (b) incremental meshing every MESH_EVERY frames over the
+    orbit (mesh_dirty_eps=0), its last decode against a full extraction;
+    (c) PLY export and a v4 snapshot from the card loaded on the CPU, both
+    traced at one pose; (d) the five-class flow over 10 frames.  With
+    ``want_profile``, the device busy ms and operations of one extraction,
+    update and decode (torch.profiler).  Returns the printed numbers."""
+    import dataclasses as dc
+
+    from vulcan_tpu_torch.io.ply import read_ply
+    from vulcan_tpu_torch.ops import mcubes, preprocess, splat
+    from vulcan_tpu_torch.tools.timing import call_ms
+    from vulcan_tpu_torch.utils.convert import volume_from_numpy, volume_to_numpy
+    from vulcan_tpu_torch.utils.evaluate import ate_rmse
+    from vulcan_tpu_torch.utils.sync import read_int
+
+    cpu = torch.device("cpu")
+    h, w = frames[0][0].shape
+    report = {}
+
+    # (a) full extraction, card against CPU
+    vol = pipe.state.volume
+    read_int.count = 0
+    mesh = pipe.extract_mesh()
+    torch.cuda.synchronize()
+    reads = read_int.count
+    extract_ms = call_ms(pipe.extract_mesh, reps=3, warm=1)
+    n_tri, blocks = int(mesh.count), int(vol.free_count) - 1
+    print(f"(a) extract_mesh: {n_tri} triangles from {blocks} allocated blocks, "
+          f"overflow {int(mesh.overflow)}, {extract_ms:.3f} ms (median of 3, CUDA "
+          f"events), host reads/extraction {reads}", flush=True)
+    if not n_tri > 0 or int(mesh.overflow):
+        fail("(a) the card's mesh is empty or overflowed")
+    vol_cpu = volume_from_numpy(volume_to_numpy(vol), cpu)
+    t0 = time.perf_counter()
+    mesh_cpu = mcubes.extract_mesh(vol_cpu, cfg)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    dp, dcol = compare_meshes("(a) card vs CPU", mesh, mesh_cpu, MESH_POS_TOL,
+                              MESH_COLOR_TOL)
+    report["full"] = dict(triangles=n_tri, allocated_blocks=blocks, ms=extract_ms,
+                          host_reads=reads, cpu_ms=cpu_ms, max_pos_diff_m=dp,
+                          max_color_diff=dcol)
+    if want_profile:
+        busy, ops = profile_call(pipe.extract_mesh, torch)
+        report["full"].update(device_busy_ms=busy, device_ops=ops)
+        print(f"(a) profile: device busy {busy:.3f} ms, {ops:.0f} device ops", flush=True)
+    del vol_cpu, mesh_cpu
+
+    # (b) incremental meshing every MESH_EVERY frames (mesh_dirty_eps=0).
+    # The default 256 cache slots a block drop ~0.5% of this orbit's
+    # triangles (blocks of up to ~350, counted in overflow, as the
+    # reference counts them), so the decode runs with MESH_SLOTS and
+    # reports what 256 would have dropped.
+    cfg0 = dc.replace(cfg, mesh_dirty_eps=0.0, mesh_slots=MESH_SLOTS)
+    pipe0 = P.Pipeline(cfg0, cam, h, w, init_pose=poses[0], device=dev)
+    cache = mcubes.create_mesh_cache(cfg0, dev)
+    preprocess.bilateral_filter.launches = 0
+    splat._fill_and_smooth.kernel_launches = 0
+    step_reads, cadences = 0, []
+    for k, (d16, c8) in enumerate(frames):
+        read_int.count = 0
+        pipe0.process(d16, c8)
+        step_reads += read_int.count
+        if (k + 1) % MESH_EVERY and k + 1 < len(frames):
+            continue
+        dirty = int(pipe0.state.volume.mesh_dirty.sum())
+        read_int.count = 0
+        (vol0, cache), up_ms = events_ms(
+            lambda: mcubes.update_mesh_cache(pipe0.state.volume, cache, cfg0), torch)
+        up_reads = read_int.count
+        pipe0.state.volume = vol0
+        read_int.count = 0
+        inc, dec_ms = events_ms(lambda: mcubes.cache_to_mesh(vol0, cache, cfg0), torch)
+        most = int(cache.counts.max())
+        drop256 = int(torch.clamp(cache.counts - cfg.mesh_slots, min=0).sum())
+        cadences.append(dict(frame=k + 1, dirty_blocks=dirty, update_ms=up_ms,
+                             update_reads=up_reads, decode_ms=dec_ms,
+                             decode_reads=read_int.count, triangles=int(inc.count),
+                             most_in_a_block=most, default_slots_would_drop=drop256))
+        print(f"(b) frame {k + 1}: {dirty} dirty blocks, update {up_ms:.3f} ms "
+              f"({up_reads} reads), decode {dec_ms:.3f} ms ({read_int.count} reads), "
+              f"{int(inc.count)} triangles, at most {most} in a block ({drop256} over "
+              f"{cfg.mesh_slots} slots)", flush=True)
+        if most >= MESH_SLOTS:
+            fail(f"(b) a block filled all {MESH_SLOTS} cache slots")
+    k1, k2 = preprocess.bilateral_filter.launches, splat._fill_and_smooth.kernel_launches
+    n = len(frames)
+    print(f"(b) step host reads/frame {step_reads / n:.2f}; K1 launches {k1}, "
+          f"K2 kernel launches {k2} over {n} frames", flush=True)
+    if k1 != n or k2 != n:
+        fail(f"(b) K1 launched {k1} and K2 {k2} times over {n} frames")
+    if step_reads != 3 * n:
+        fail(f"(b) the step made {step_reads} host reads over {n} frames, not 3 a frame")
+    if want_profile:
+        # One more frame, then its update and decode under the profiler.
+        pipe0.process(*frames[-1])
+        vol0, prof_cache = pipe0.state.volume, cache
+        up = profile_call(lambda: mcubes.update_mesh_cache(vol0, prof_cache, cfg0), torch)
+        dec = profile_call(lambda: mcubes.cache_to_mesh(vol0, prof_cache, cfg0), torch)
+        report["profile"] = dict(update_device_busy_ms=up[0], update_device_ops=up[1],
+                                 decode_device_busy_ms=dec[0], decode_device_ops=dec[1])
+        print(f"(b) profile of one more frame's update: device busy {up[0]:.3f} ms, "
+              f"{up[1]:.0f} ops; decode {dec[0]:.3f} ms, {dec[1]:.0f} ops", flush=True)
+        vol0, cache = mcubes.update_mesh_cache(vol0, cache, cfg0)
+        pipe0.state.volume = vol0
+        inc = mcubes.cache_to_mesh(vol0, cache, cfg0)
+    full0 = pipe0.extract_mesh()
+    if not int(full0.count) > 0:
+        fail("(b) empty mesh")
+    compare_meshes("(b) last decode vs full extraction", inc, full0, INC_POS_TOL,
+                   INC_COLOR_TOL)
+    report["incremental"] = dict(every=MESH_EVERY, cadences=cadences,
+                                 step_reads_per_frame=step_reads / n,
+                                 full_triangles=int(full0.count),
+                                 **report.pop("profile", {}))
+    del pipe0, cache, vol0, inc, full0
+
+    # (c) PLY export and a snapshot from the card loaded on the CPU
+    tmp = os.path.join(ROOT, "build", "chip_smoke_tmp")
+    os.makedirs(tmp, exist_ok=True)
+    ply = os.path.join(tmp, "orbit.ply")
+    t0 = time.perf_counter()
+    count = pipe.export_ply(ply)
+    ply_ms = (time.perf_counter() - t0) * 1e3
+    faces = len(read_ply(ply)[2])
+    print(f"(c) export_ply: {count} triangles, {faces} faces read back, "
+          f"{os.path.getsize(ply) / 2**20:.1f} MiB, {ply_ms:.1f} ms (host clock)", flush=True)
+    if faces != count or count != n_tri:
+        fail(f"(c) PLY holds {faces} faces, the mesh {count} (phase (a): {n_tri})")
+    card = P.Volume(cfg, device=dev)
+    card.state = vol
+    snap = os.path.join(tmp, "orbit.npz")
+    t0 = time.perf_counter()
+    card.save(snap)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    host = P.Volume(cfg, device="cpu")
+    host.load(snap)
+    for f in dc.fields(vol):
+        if not torch.equal(getattr(vol, f.name).cpu(), getattr(host.state, f.name)):
+            fail(f"(c) snapshot field {f.name} differs after the round trip")
+    pose = poses[-1]
+    r_card = P.Tracer(card).trace(cam, pose, h, w)
+    r_host = P.Tracer(host).trace(cam, pose, h, w)
+    vc, vh = r_card.valid.cpu(), r_host.valid
+    both = vc & vh
+    d_diff = (r_card.depth.cpu() - r_host.depth).abs()[both]
+    valid_mismatch = float((vc != vh).float().mean())
+    depth_off = float((d_diff > 1e-5).float().mean())
+    print(f"(c) snapshot: save {save_ms:.1f} ms, {os.path.getsize(snap) / 2**20:.1f} MiB, "
+          f"every array equal on the CPU; trace card vs CPU: valid mismatch "
+          f"{valid_mismatch:.2e} (tol 1e-3), depth off by > 1e-5 m on {depth_off:.2e} "
+          f"of pixels (tol 2e-3), max {float(d_diff.max()):.3e} m", flush=True)
+    if not (float(vc.float().mean()) > 0.3 and valid_mismatch < 1e-3 and depth_off < 2e-3):
+        fail("(c) the snapshot's trace on the CPU differs from the card's")
+    report["ply_snapshot"] = dict(ply_ms=ply_ms, save_ms=save_ms, faces=faces,
+                                  trace_valid_mismatch=valid_mismatch,
+                                  trace_depth_off=depth_off)
+    for path in (ply, snap):
+        os.remove(path)
+    del card, host, r_card, r_host
+
+    # (d) the five-class flow over the first 10 orbit frames
+    n5 = 10
+    volume = P.Volume(cfg, device=dev)
+    integrator, tracer = P.Integrator(volume), P.Tracer(volume)
+    tracker, extractor = P.DepthTracker(cfg, device=dev), P.Extractor(volume)
+    preprocess.bilateral_filter.launches = 0
+    splat._fill_and_smooth.kernel_launches = 0
+    integrator.integrate(P.make_frame(*metric_frame(*frames[0], cfg), cam, poses[0],
+                                      device=dev))
+    pose, est = poses[0].to(dev), [poses[0].translation.numpy()]
+    t0 = time.perf_counter()
+    for d16, c8 in frames[1:n5]:
+        d, c = metric_frame(d16, c8, cfg)
+        model = tracer.trace(cam, pose, h, w)
+        pose = tracker.track(model, P.make_frame(d, c, cam, pose, device=dev),
+                             init_pose=pose).pose
+        integrator.integrate(P.make_frame(d, c, cam, pose, device=dev))
+        est.append(pose.translation.cpu().numpy())
+    torch.cuda.synchronize()
+    flow_ms = (time.perf_counter() - t0) * 1e3 / (n5 - 1)
+    k1, k2 = preprocess.bilateral_filter.launches, splat._fill_and_smooth.kernel_launches
+    gt = np.stack([p.translation.numpy() for p in poses[:n5]])
+    ate = ate_rmse(np.stack(est), gt)
+    m5 = extractor.extract()
+    print(f"(d) five-class flow: ATE {ate:.6f} m over {n5} frames, {flow_ms:.3f} ms a "
+          f"frame (trace + track + integrate), mesh {int(m5.count)} triangles; "
+          f"K1 launches {k1} over {n5 - 1} tracks, K2 kernel launches {k2} over "
+          f"{n5 - 1} traces", flush=True)
+    if k1 != n5 - 1 or k2 != n5 - 1:
+        fail("(d) K1 must launch once a track and K2 once a trace")
+    if not ate < 0.01 or not int(m5.count) > 0:
+        fail(f"(d) ATE {ate} m or an empty mesh")
+    report["five_class"] = dict(frames=n5, ate_m=float(ate), ms_per_frame=flow_ms,
+                                triangles=int(m5.count), k1_launches=k1,
+                                k2_kernel_launches=k2)
     return report
 
 
@@ -920,6 +1197,15 @@ def main() -> None:
 
     phase("6 probes: T1-T5 against plain versions, then the probe entry points")
     kernels += probes(P, torch, dev)
+
+    phase("7 mesh and API: extraction, incremental meshing, PLY, snapshot, five classes")
+    t0 = time.perf_counter()
+    mesh_report = mesh_and_api(P, torch, cfg, cam, poses, frames, pipe, dev,
+                               want_profile)
+    mesh_report["phase_s"] = time.perf_counter() - t0
+    print(f"phase 7 took {mesh_report['phase_s']:.1f} s", flush=True)
+    with open(os.path.join(OUT_DIR, "mesh.json"), "w") as f:
+        json.dump(dict(device=smi, **mesh_report), f, indent=1)
 
     if any(m == "jax" or m.startswith(("jax.", "vulcan_tpu.")) or m == "vulcan_tpu"
            for m in sys.modules):

@@ -1,6 +1,7 @@
 """Guards of the PyTorch port: no JAX, no nvcc or GPU needed to import,
 plain versions only for CPU tensors, and a chip smoke test that refuses
 to run without a card."""
+import ast
 import os
 import re
 import shutil
@@ -49,6 +50,27 @@ def test_sources_name_no_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|vulcan_tpu)(\s|\.|$)", re.M)
     for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
         assert not pat.search(path.read_text()), path
+
+
+def test_sources_build_no_path_into_the_reference():
+    """No string in the port's code (docstrings aside) names the JAX
+    package or a file in it: nothing is loaded from ``vulcan_tpu/`` by
+    path; what the port needs of it, it keeps a copy of."""
+    for path in PKG.rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        docs = {
+            id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)
+        }
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docs):
+                assert not re.search(r"(^|[^_\w])vulcan_tpu($|[/.\\])", node.value), (
+                    path, node.value)
+        assert not re.search(r"spec_from_file_location|SourceFileLoader|runpy",
+                             path.read_text()), path
 
 
 def test_kernel_module_imports_without_nvcc_or_gpu(tmp_path):
@@ -141,15 +163,23 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
         assert '"ok": true' not in proc.stdout
 
 
-@pytest.mark.parametrize("entry", ["pipeline", "render_scene_depth"])
+@pytest.mark.parametrize("entry", ["pipeline", "render_scene_depth", "volume",
+                                   "tracker", "make_frame"])
 def test_entry_point_without_device_needs_a_card(entry, monkeypatch):
     """With no ``device`` the port's entry points target the card; with no
-    card they raise and name ``device="cpu"``, never falling back."""
+    card they raise and name ``device="cpu"``, never falling back; with
+    ``device="cpu"`` they run."""
     from vulcan_tpu_torch.io.synthetic import render_scene_depth
 
+    calls = {
+        "pipeline": lambda **kw: P.Pipeline(CFG_T, CAM_T, H, W, **kw),
+        "render_scene_depth": lambda **kw: render_scene_depth(
+            CAM_T, se3_t(orbit(1)[0]), H, W, **kw),
+        "volume": lambda **kw: P.Volume(CFG_T, **kw),
+        "tracker": lambda **kw: P.DepthTracker(CFG_T, **kw),
+        "make_frame": lambda **kw: P.make_frame(np.zeros((H, W), np.float32), **kw),
+    }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
-        if entry == "pipeline":
-            P.Pipeline(CFG_T, CAM_T, H, W)
-        else:
-            render_scene_depth(CAM_T, se3_t(orbit(1)[0]), H, W)
+        calls[entry]()
+    calls[entry](device="cpu")

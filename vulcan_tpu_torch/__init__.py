@@ -1,4 +1,5 @@
-"""vulcan_tpu_torch: the PyTorch + CUDA port of vulcan_tpu (the online step).
+"""vulcan_tpu_torch: the PyTorch + CUDA port of vulcan_tpu (the online step,
+marching cubes and the five-class API).
 
 The JAX package ``vulcan_tpu`` is the reference; this package imports
 neither it nor JAX.  Plain tensor code is PyTorch; the reference's Pallas
@@ -16,8 +17,23 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .config import TINY, Config  # noqa: E402
 from .core.camera import PinholeCamera  # noqa: E402
+from .core.frame import Frame, make_frame  # noqa: E402
 from .core.se3 import SE3  # noqa: E402
 from .ops.light import Light  # noqa: E402
-from .pipeline.api import Pipeline  # noqa: E402
+from .pipeline.api import (  # noqa: E402
+    ColorTracker,
+    DepthTracker,
+    Extractor,
+    Integrator,
+    LightTracker,
+    Pipeline,
+    Tracer,
+    Tracker,
+    Volume,
+)
 
-__all__ = ["Config", "TINY", "PinholeCamera", "SE3", "Light", "Pipeline"]
+__all__ = [
+    "Config", "TINY", "PinholeCamera", "Frame", "make_frame", "SE3", "Light",
+    "Volume", "Integrator", "Tracer", "Tracker", "DepthTracker", "ColorTracker",
+    "LightTracker", "Extractor", "Pipeline",
+]

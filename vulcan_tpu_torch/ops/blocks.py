@@ -187,6 +187,15 @@ def coords_in_bounds(coords: torch.Tensor) -> torch.Tensor:
     return torch.all((coords >= -COORD_BOUND) & (coords < COORD_BOUND), dim=-1)
 
 
+def lookup_blocks(volume: VolumeState, block_coords: torch.Tensor,
+                  config: Config) -> torch.Tensor:
+    """Hash-lookup block coords (..., 3) -> block index (0 = null/missing)."""
+    idx, found = hashing.lookup(
+        volume.hash_codes, volume.hash_values, block_coords, config
+    )
+    return torch.where(found, idx, 0)
+
+
 def pack_voxel_color(rgb: torch.Tensor, cweight: torch.Tensor) -> torch.Tensor:
     """(..., 3) f32 rgb in [0,1] + (...,) f32 weight -> (...) int32."""
     c = torch.clamp(torch.round(rgb * 255.0), 0, 255).to(torch.int32)

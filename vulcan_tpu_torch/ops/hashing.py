@@ -63,6 +63,20 @@ def lookup_codes(table_codes, values, qcodes, slot0, config: Config):
     return idx, found
 
 
+def lookup(table_codes, values, coords: torch.Tensor, config: Config):
+    """Lookup by block coords (..., 3): packs and bounds-checks them, then
+    ``lookup_codes``.  Returns (block_idx, found); -1 where absent or out
+    of bounds."""
+    from . import blocks as B
+
+    inb = B.coords_in_bounds(coords)
+    qcodes = torch.where(inb, B.pack_block_coords(coords), EMPTY_CODE)
+    slot0 = hash_coords(coords, config.hash_size)
+    idx, found = lookup_codes(table_codes, values, qcodes, slot0, config)
+    found = found & inb
+    return torch.where(found, idx, -1), found
+
+
 def insert_unique(table_codes, values, free_count, coords, want, config: Config):
     """Insert up to N *unique* block coords; allocate block slots in order.
 

@@ -184,6 +184,25 @@ def model_pyramid(
     return tuple(maps)
 
 
+def model_from_frame_maps(maps: FrameMaps, pose: SE3) -> ModelMaps:
+    """Lift camera-space FrameMaps to world-space ModelMaps (to bootstrap
+    tracking before the first render, and in tests)."""
+    ok = maps.depth > 0.0
+    origin = _snap_origin(pose.translation)
+    v = torch.where(ok[..., None], pose.apply(maps.vertices), origin)
+    n = torch.where(ok[..., None], pose.rotate(maps.normals), 0.0)
+    vp1, vp2 = _pack_vertices(v[..., 0], v[..., 1], v[..., 2], origin)
+    return ModelMaps(
+        vp1, vp2,
+        _pack_normals(n[..., 0], n[..., 1], n[..., 2], ok),
+        intensity=maps.intensity,
+        valid=ok,
+        origin=origin,
+        camera=maps.camera,
+        world_to_cam=pose.inverse(),
+    )
+
+
 def _bilinear_taps(uv: torch.Tensor, h: int, w: int):
     """The 2x2 bilinear footprint of each point of ``uv`` in an (h, w)
     image: its top-left tap (int64, clamped into the image), the

@@ -1,8 +1,10 @@
-"""Model render container and image-space normals.
+"""Model render container, the renderer dispatch and image-space normals.
 
 Part of ``vulcan_tpu/ops/raycast.py``: the ``Render`` maps that the tracker
-consumes and ``_cross_normals_axes``.  The hierarchical ray march itself
-(``render_mode="march"``) is still to be ported (ROADMAP.md).
+consumes, ``render`` (the renderer named by ``Config.render_mode``) and
+``_cross_normals_axes``.  The port renders with the surfel splat
+(``ops/splat.py``); the hierarchical ray march (``render_mode="march"``)
+and gradient normals are not ported (ROADMAP.md queue 1 item 6) and raise.
 """
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ import dataclasses
 
 import torch
 
+from ..config import Config
 from ..core.camera import PinholeCamera
 from ..core.se3 import SE3
 from .preprocess import _shift2d
@@ -30,6 +33,37 @@ class Render:
     valid: torch.Tensor          # (H, W) bool
     camera: PinholeCamera
     pose: SE3                    # camera-to-world used for the render
+
+
+def render(
+    volume,
+    camera: PinholeCamera,
+    pose: SE3,
+    height: int,
+    width: int,
+    config: Config,
+    normals: str = "cross",
+    with_color: bool = True,
+    color_space: str = "rgb",
+) -> Render:
+    """Render model maps with the configured renderer.  ``color_space=
+    "luma"`` renders a grey intensity image (see ``ops/splat.py``)."""
+    if config.render_mode == "march":
+        raise NotImplementedError(
+            'render_mode="march": the hierarchical ray march is not ported yet '
+            "(ROADMAP.md queue 1 item 6)"
+        )
+    if normals == "gradient":
+        raise NotImplementedError(
+            'normals="gradient": TSDF-gradient normals come with the ray march, '
+            "which is not ported yet (ROADMAP.md queue 1 item 6)"
+        )
+    from . import splat
+
+    return splat.render_splat(
+        volume, camera, pose, height, width, config,
+        with_color=with_color, color_space=color_space,
+    )
 
 
 def _cross_normals_axes(px, py, pz, hit):

@@ -39,30 +39,34 @@ from ..ops.raycast import Render
 from ..utils.sync import read_int
 
 MODES = icp.MODES
-_NOT_PORTED = "is not ported yet (vulcan_tpu_torch renders with the surfel splat)"
+_NOT_PORTED = ("is not ported yet (ROADMAP.md queue 1 item 6; vulcan_tpu_torch "
+               "renders with the surfel splat)")
+_TPU_ONLY = "is a TPU layout that vulcan_tpu_torch does not carry"
 
 
-def check_supported(config: Config, mode: str) -> None:
+def check_supported(config: Config, mode: str = "depth") -> None:
     """Raise for every setting outside the ported code: ValueError for a
     mode that does not exist, NotImplementedError for what the reference
     has and the port does not.  Loud stops, never silent fallbacks."""
     if mode not in MODES:
         raise ValueError(f"mode={mode!r}: one of {MODES}")
     bad = {
-        "render_mode": (config.render_mode, "march", "the hierarchical ray march"),
-        "splat_source": (config.splat_source, "direct", "the direct splat source"),
+        "render_mode": (config.render_mode, "march", "the hierarchical ray march",
+                        _NOT_PORTED),
+        "splat_source": (config.splat_source, "direct", "the direct splat source",
+                         _NOT_PORTED),
         "integrate_gather": (config.integrate_gather, "onehot",
-                             "the TPU one-hot patch gather"),
+                             "the one-hot patch gather", _TPU_ONLY),
     }
-    for name, (value, unsupported, what) in bad.items():
+    for name, (value, unsupported, what, why) in bad.items():
         if value == unsupported:
-            raise NotImplementedError(f"{name}={value!r}: {what} {_NOT_PORTED}")
+            raise NotImplementedError(f"{name}={value!r}: {what} {why}")
     if config.splat_polish > 0:
         raise NotImplementedError(f"splat_polish={config.splat_polish} {_NOT_PORTED}")
     if config.assoc_patch in ("on", "geom"):
         raise NotImplementedError(
-            f"assoc_patch={config.assoc_patch!r}: the TPU one-hot patch "
-            f"association {_NOT_PORTED}"
+            f"assoc_patch={config.assoc_patch!r}: the one-hot patch "
+            f"association {_TPU_ONLY}"
         )
 
 

@@ -1,13 +1,14 @@
-"""Carry pipeline state between the JAX package and the port as numpy.
+"""Carry state between the JAX package and the port as numpy.
 
-Both packages' ``PipelineState`` are trees of dataclasses with the same
-field names, so a state flattens to one dict of numpy arrays keyed by the
-dotted field path: ``volume.tsdf``, ``model.pose.rotation``,
-``model.camera.fx``, ``prev_pose.translation``, ``frame_idx``, ...  The
-tests flatten a JAX state the same way and start both implementations
-from identical arrays.  Fields marked ``metadata={"host": True}`` (the
-port's host copies of device values) are left out and restored from the
-device value they copy.
+Both packages' ``PipelineState``, ``VolumeState``, ``MeshCache`` and
+``Mesh`` are trees of dataclasses with the same field names, so a state
+flattens to one dict of numpy arrays keyed by the dotted field path:
+``volume.tsdf``, ``model.pose.rotation``, ``model.camera.fx``,
+``prev_pose.translation``, ``frame_idx``, ...  (a ``VolumeState`` alone:
+``tsdf``, ``hash_codes``, ...).  The tests flatten a JAX state the same
+way and start both implementations from identical arrays.  Fields marked
+``metadata={"host": True}`` (the port's host copies of device values) are
+left out and restored from the device value they copy.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from ..config import Config
 from ..core.camera import PinholeCamera
 from ..core.se3 import SE3
 from ..ops.blocks import VolumeState
+from ..ops.mcubes import Mesh, MeshCache
 from ..ops.raycast import Render
 from ..pipeline.fusion import PipelineState
 
@@ -46,20 +48,48 @@ def pipeline_state_to_numpy(state: PipelineState) -> dict[str, np.ndarray]:
     return flatten(state)
 
 
+def _tensor(arrays: dict[str, np.ndarray], key: str, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(arrays[key], copy=True)).to(device)
+
+
+def _dataclass_from_numpy(cls, arrays: dict[str, np.ndarray], device, prefix=""):
+    return cls(**{f.name: _tensor(arrays, prefix + f.name, device)
+                  for f in dataclasses.fields(cls)})
+
+
+def volume_to_numpy(state: VolumeState) -> dict[str, np.ndarray]:
+    """{field name: numpy array} of a volume (the snapshot's arrays)."""
+    return flatten(state)
+
+
+def volume_from_numpy(arrays: dict[str, np.ndarray], device=None) -> VolumeState:
+    return _dataclass_from_numpy(VolumeState, arrays, device)
+
+
+def mesh_cache_to_numpy(cache: MeshCache) -> dict[str, np.ndarray]:
+    return flatten(cache)
+
+
+def mesh_cache_from_numpy(arrays: dict[str, np.ndarray], device=None) -> MeshCache:
+    return _dataclass_from_numpy(MeshCache, arrays, device)
+
+
+def mesh_to_numpy(mesh: Mesh) -> dict[str, np.ndarray]:
+    return flatten(mesh)
+
+
 def pipeline_state_from_numpy(
     arrays: dict[str, np.ndarray], config: Config, device=None
 ) -> PipelineState:
     """Build the port's state from flattened arrays (see module doc)."""
 
     def t(key):
-        return torch.from_numpy(np.array(arrays[key], copy=True)).to(device)
+        return _tensor(arrays, key, device)
 
     def se3(key):
         return SE3(t(f"{key}.rotation"), t(f"{key}.translation"))
 
-    volume = VolumeState(
-        **{f.name: t(f"volume.{f.name}") for f in dataclasses.fields(VolumeState)}
-    )
+    volume = _dataclass_from_numpy(VolumeState, arrays, device, "volume.")
     expect = (config.num_blocks, config.block_volume)
     if tuple(volume.tsdf.shape) != expect:
         raise ValueError(
