@@ -88,7 +88,26 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      five-class flow (Volume, Integrator, Tracer, DepthTracker, Extractor)
      over 10 frames: ATE < 0.01 m, a mesh, K1 once a track and K2 once a
      trace; with --profile also the device busy ms and operations of one
-     extraction, update and decode.  Written to chiprun_out/mesh.json.
+     extraction, update and decode.  Written to chiprun_out/mesh.json;
+  8. render paths at 640x480, each orbit run with the counts set to 0 just
+     before it: (a) the orbit under render_mode="march" in depth and in
+     combined mode, K1 once a frame and K2 never (the march has no
+     fill/smooth step); (b) the orbit in depth mode with
+     splat_source="direct" and with splat_polish=2, K1 and K2 once a
+     frame; each prints ms/frame median and p90, ATE, host reads a frame
+     and fails on ATE >= 0.01 m, a track failure or an overflow; (c)
+     Tracer.trace of phase 3's final volume under the march (cross and
+     gradient normals) and the splat with gradient normals, each against
+     the same call on a CPU copy of the volume (the tests' tolerances),
+     and the direct z-buffer against the surfel one on the orbit's first
+     10 frames fused with 512 surfel slots (equal hit masks, depths within
+     the surfels' 14-bit tsdf step; on phase 3's volume, whose default 192
+     slots overflow in some blocks, recorded only); (d) the dense backend at BASELINE config 2's 256^3 over
+     the orbit's frames at their true poses: integrate ms and 640x480
+     raycast ms (CUDA events), valid pixels, the share of the pixels whose
+     true surface lies in the grid that it hits (fails under 90%) and the
+     depth error against the true depth.  With --profile also phase 5's
+     breakdown of the march path.  Written to chiprun_out/render.json.
 
 Every failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -568,10 +587,13 @@ def run_pipeline(P, config, camera, poses, frames, h, w, device, sync,
 
 
 def run_cell(P, torch, label, config, mode, camera, poses, frames, ate_limit,
-             must_arm=False):
-    """Phase 3b: one path over its frames at 480x640, counts set to 0 just
-    before it and read just after.  ``ate_limit`` None records the ATE
-    without judging it.  Returns the printed numbers as a dict."""
+             must_arm=False, k2_per_frame=1, no_failures=False):
+    """Phases 3b and 8: one path over its frames at 480x640, counts set to 0
+    just before it and read just after.  ``ate_limit`` None records the
+    ATE without judging it.  K1 must launch once a frame and K2
+    ``k2_per_frame`` times a frame (0 on the ray march, which has no
+    fill/smooth step); ``no_failures`` fails on a track failure.  Returns
+    the printed numbers as a dict."""
     from vulcan_tpu_torch.ops import preprocess, splat
     from vulcan_tpu_torch.utils.evaluate import ate_rmse
     from vulcan_tpu_torch.utils.sync import read_int
@@ -606,11 +628,13 @@ def run_cell(P, torch, label, config, mode, camera, poses, frames, ate_limit,
           f"host reads/frame {reads / n:.2f}; K1 launches {k1}, K2 kernel "
           f"launches {k2}; track failures {diag['track_failures']}, degenerate "
           f"frames {diag['track_degen_frames']}", flush=True)
-    if k1 != n or k2 != n:
+    if k1 != n or k2 != k2_per_frame * n:
         fail(f"{label}: K1 launched {k1} and K2 {k2} times over {n} frames, "
-             "expected once a frame each")
+             f"expected once and {k2_per_frame} times a frame")
     if diag["alloc_overflow"] or diag["visible_overflow"]:
         fail(f"{label}: allocation or visibility overflow")
+    if no_failures and diag["track_failures"]:
+        fail(f"{label}: {diag['track_failures']} track failures")
     if not np.all(np.isfinite(est)) or not bool(torch.isfinite(pipe.state.pose.rotation).all()):
         fail(f"{label}: a non-finite pose")
     if must_arm and not armed:
@@ -639,7 +663,7 @@ def profile_stages(P, torch, config, camera, poses, frames, dev, wall_ms,
     ``wall_ms`` is the path's unprofiled median (phase 3 or 3b), the base
     of the idle share.  Returns the report."""
     from torch.profiler import ProfilerActivity, profile
-    from vulcan_tpu_torch.ops import allocate, icp, sparse, splat
+    from vulcan_tpu_torch.ops import allocate, icp, raycast, sparse
     from vulcan_tpu_torch.pipeline import fusion
 
     n_warm, n_run = 15, 10
@@ -660,7 +684,7 @@ def profile_stages(P, torch, config, camera, poses, frames, dev, wall_ms,
         (icp, "track", "track"), (fusion, "_gate", "gate"),
         (allocate, "allocate_for_frame", "allocate"),
         (allocate, "update_visibility", "visibility"),
-        (sparse, "integrate_sparse", "integrate"), (splat, "render_splat", "render"),
+        (sparse, "integrate_sparse", "integrate"), (raycast, "render", "render"),
     ]
     pipe = P.Pipeline(config, camera, 480, 640, init_pose=poses[0], mode=mode,
                       device=dev)
@@ -996,6 +1020,195 @@ def mesh_and_api(P, torch, cfg, cam, poses, frames, pipe, dev, want_profile) -> 
     return report
 
 
+MAPS = ("depth", "vx", "vy", "vz", "nx", "ny", "nz")
+DENSE_N = 256                       # BASELINE config 2: a 256^3 dense grid
+DENSE_ORIGIN = (-1.024, -1.024, -0.75)  # m: 2.048 m cube (8 mm voxels) over
+                                        # the orbit's spheres and floor
+
+
+def hold_render(label, got, want) -> dict:
+    """A render on the card against the same call on a CPU copy, at the
+    tests' tolerances (tests/test_torch_raycast.py ``assert_render_close``):
+    masks on 99.9% of pixels, depth and vertices within 1e-5 m on 99.9% of
+    the common ones, normals within 1e-3 on 98%, colour on 99.9%.  The
+    card's transforms (cuBLAS) round differently from the CPU's, and the
+    march's sample indices round those floats."""
+    vg, vc = got.valid.cpu().numpy(), want.valid.numpy()
+    both = vg & vc
+    out = dict(valid_frac=float(vg.mean()), valid_mismatch=float(np.mean(vg != vc)))
+    for name in MAPS:
+        a, b = getattr(got, name).cpu().numpy()[both], getattr(want, name).numpy()[both]
+        out[f"{name}_off"] = float(np.mean(np.abs(a - b) > (1e-3 if name[0] == "n" else 1e-5)))
+    out["color_off"] = float(np.mean(np.any(got.color.cpu().numpy() != want.color.numpy(),
+                                            axis=-1)))
+    print(f"{label}: valid {out['valid_frac']:.4f} of pixels, mismatch "
+          f"{out['valid_mismatch']:.2e} (tol 1e-3); depth off {out['depth_off']:.2e}, "
+          f"normals off {max(out['nx_off'], out['ny_off'], out['nz_off']):.2e} (tol 2e-2), "
+          f"colour off {out['color_off']:.2e}", flush=True)
+    bad = (out["valid_frac"] < 0.3 or out["valid_mismatch"] > 1e-3
+           or out["color_off"] > 1e-3
+           or any(out[f"{m}_off"] > (2e-2 if m[0] == "n" else 1e-3) for m in MAPS))
+    if bad:
+        fail(f"{label}: the card and the CPU copy disagree beyond the tolerances")
+    return out
+
+
+def render_paths(P, torch, cfg, cam, poses, frames, pipe, dev, want_profile) -> dict:
+    """Phase 8: the render paths off the main line at 640x480.  (a) the
+    orbit under render_mode="march" in depth and combined mode; (b) the
+    orbit in depth mode with splat_source="direct" and with
+    splat_polish=2; (c) Tracer.trace of phase 3's final volume under the
+    march (cross and gradient normals) and the splat with gradient
+    normals, each against a CPU copy, and the direct against the surfel
+    z-buffer; (d) the dense backend at 256^3 over the orbit's frames at
+    their true poses.  With ``want_profile`` also phase 5's stage
+    breakdown of the march path.  Returns the printed numbers."""
+    import dataclasses as dc
+
+    from vulcan_tpu_torch.io.synthetic import render_scene_depth
+    from vulcan_tpu_torch.ops import allocate, dense, splat
+    from vulcan_tpu_torch.ops import blocks as B
+    from vulcan_tpu_torch.utils.sync import read_int
+
+    h, w = frames[0][0].shape
+    report = {}
+    t0 = time.perf_counter()
+
+    def took(part):
+        report[f"{part}_s"] = time.perf_counter() - t0
+        print(f"phase 8 {part} took {report[f'{part}_s']:.1f} s", flush=True)
+
+    # (a), (b): the orbit through each path, counts set to 0 around each.
+    cells = [
+        run_cell(P, torch, "orbit/march", P.Config(render_mode="march"), "depth", cam,
+                 poses, frames, 0.01, k2_per_frame=0, no_failures=True),
+        run_cell(P, torch, "orbit/march, combined", P.Config(render_mode="march"),
+                 "combined", cam, poses, frames, 0.01, k2_per_frame=0, no_failures=True),
+        run_cell(P, torch, "orbit/direct", P.Config(splat_source="direct"), "depth",
+                 cam, poses, frames, 0.01, no_failures=True),
+        run_cell(P, torch, "orbit/polish", P.Config(splat_polish=2), "depth", cam,
+                 poses, frames, 0.01, no_failures=True),
+    ]
+    report["cells"] = cells
+    if want_profile:
+        report["profile_march"] = profile_stages(
+            P, torch, P.Config(render_mode="march"), cam, poses, frames, dev,
+            cells[0]["ms_median"])
+    took("(a)-(b)")
+
+    # (c) traces of phase 3's final volume, card against a CPU copy.
+    state = pipe.state.volume
+    cpu_state = B.VolumeState(**{f.name: getattr(state, f.name).cpu()
+                                 for f in dc.fields(state)})
+    pose = poses[-1]
+    pose_d = pose.to(dev)
+    traces = {}
+    for label, over, normals in (("march/cross", dict(render_mode="march"), "cross"),
+                                 ("march/gradient", dict(render_mode="march"), "gradient"),
+                                 ("splat/gradient", {}, "gradient")):
+        c = dc.replace(cfg, **over)
+        renders = []
+        for device, st in ((dev, state), (torch.device("cpu"), cpu_state)):
+            vol = P.Volume(c, device=device)
+            vol.state = st
+            splat._fill_and_smooth.launches = 0
+            read_int.count = 0
+            r, ms = events_ms(lambda: P.Tracer(vol).trace(cam, pose, h, w,
+                                                          normals=normals), torch)
+            if device == dev:
+                k2, reads, card_ms = splat._fill_and_smooth.launches, read_int.count, ms
+            renders.append(r)
+        traces[label] = dict(hold_render(f"(c) trace {label} card vs CPU", *renders),
+                             ms=card_ms, k2_launches=k2, host_reads=reads)
+        print(f"(c) trace {label}: {card_ms:.3f} ms on the card (CUDA events, host "
+              f"included), {reads} host reads, K2 launches {k2}", flush=True)
+        if k2 != (0 if over else 1):
+            fail(f"(c) trace {label}: K2 launched {k2} times")
+        del renders
+    report["traces"] = traces
+
+    # The direct source against the persistent surfels.  On phase 3's
+    # volume (recorded, not judged) blocks whose surfel lists overflowed the
+    # default slots lose voxels that the direct source still scatters; the
+    # judged pair is the orbit's first 10 frames fused at their true poses
+    # with 512 slots (no list can overflow), as tests/test_sparse.py
+    # holds the reference: equal hit masks, depths within the surfels'
+    # 14-bit tsdf step (the two are not bit-equal in either package).
+    def direct_vs_surfels(state, c):
+        vis = allocate.update_visibility(state, cam, pose_d, h, w, c)
+        za = splat._splat_zbuf_direct(vis, cam, pose_d, h, w, c)
+        zb = splat._splat_zbuf_surfels(vis, cam, pose_d, h, w, c)
+        ids = vis.visible_ids[:int(vis.num_visible)].long()
+        live = ((vis.tsdf[ids].abs() < B.surfel_band(c)) & (vis.weight[ids] > 0)).sum(1)
+        hit, hit_b = torch.isfinite(za), torch.isfinite(zb)
+        return dict(hits=int(hit.sum()), mask_mismatch=int((hit != hit_b).sum()),
+                    blocks_over_slots=int((live > c.surfel_slots).sum()),
+                    slots=c.surfel_slots,
+                    max_dz_m=float((za - zb)[hit & hit_b].abs().max()))
+
+    dvs = {"phase 3 volume": direct_vs_surfels(state, cfg)}
+    c512 = dc.replace(cfg, surfel_slots=512)
+    pipe512 = P.Pipeline(c512, cam, h, w, init_pose=poses[0], device=dev)
+    for (d16, c8), p in zip(frames[:10], poses[:10]):
+        pipe512.process(d16, c8, pose=p)
+    dvs["10 frames, 512 slots"] = direct_vs_surfels(pipe512.state.volume, c512)
+    for label, r in dvs.items():
+        print(f"(c) direct vs surfel z-buffer, {label}: {r['hits']} hits, mask mismatch "
+              f"{r['mask_mismatch']} pixels, {r['blocks_over_slots']} visible blocks over "
+              f"{r['slots']} surfel slots, max |dz| {r['max_dz_m']:.3e} m", flush=True)
+    r = dvs["10 frames, 512 slots"]
+    if r["blocks_over_slots"] or r["mask_mismatch"] or not r["max_dz_m"] < 1e-5:
+        fail("(c) the direct z-buffer differs from the surfel z-buffer beyond the "
+             "surfels' tsdf step")
+    report["direct_vs_surfels"] = dvs
+    del pipe512, cpu_state
+    took("(a)-(c)")
+
+    # (d) the dense backend at 256^3 (BASELINE config 2), fused at the
+    # orbit's true poses, raycast from the last one.
+    n = DENSE_N
+    vol = dense.create_dense_volume((n, n, n), DENSE_ORIGIN, device=dev)
+    integ_ms = []
+    for (d16, c8), p in zip(frames, poses):
+        frame = P.make_frame(*metric_frame(d16, c8, cfg), cam, p, device=dev)
+        vol, ms = events_ms(lambda: dense.integrate_dense(vol, frame, cfg), torch)
+        integ_ms.append(ms)
+    events_ms(lambda: dense.raycast_dense(vol, cam, pose_d, h, w, cfg), torch)  # warm
+    ray_ms = []
+    for _ in range(3):
+        out, ms = events_ms(lambda: dense.raycast_dense(vol, cam, pose_d, h, w, cfg), torch)
+        ray_ms.append(ms)
+    true_d, _ = render_scene_depth(cam, pose, h, w, SPHERES, FLOOR, device=dev)
+    p_true = pose_d.apply(cam.rays(h, w, dev) * true_d[..., None])
+    vox = (p_true - vol.origin) / cfg.voxel_size
+    inside = torch.all((vox >= 2) & (vox <= n - 3), dim=-1)
+    gt_valid = (true_d > 0) & inside
+    hit_d = out["valid"] & gt_valid
+    hit_rate = float(hit_d.sum()) / max(int(gt_valid.sum()), 1)
+    err = (out["depth"] - true_d).abs()[hit_d]
+    d_rep = dict(shape=[n, n, n], mbytes=6 * n ** 3 * 4 / 1e6,
+                 integrate_ms_median=float(np.median(integ_ms[N_WARM:])),
+                 integrate_ms_p90=float(np.percentile(integ_ms[N_WARM:], 90)),
+                 raycast_ms_median=float(np.median(ray_ms)),
+                 valid_pixels=int(out["valid"].sum()), gt_valid_pixels=int(gt_valid.sum()),
+                 hit_rate=hit_rate, depth_err_mean_m=float(err.mean()),
+                 depth_err_median_m=float(err.median()))
+    print(f"(d) dense {n}^3 ({d_rep['mbytes']:.1f} MB of 6 float32 channels): integrate "
+          f"{d_rep['integrate_ms_median']:.3f} ms median p90 {d_rep['integrate_ms_p90']:.3f} "
+          f"over {len(frames) - N_WARM} frames (CUDA events); raycast 640x480 "
+          f"{d_rep['raycast_ms_median']:.3f} ms (median of 3); {d_rep['valid_pixels']} "
+          f"valid pixels, {hit_rate:.4f} of the {d_rep['gt_valid_pixels']} whose true "
+          f"surface lies in the grid; depth error mean {d_rep['depth_err_mean_m']:.6f} m "
+          f"median {d_rep['depth_err_median_m']:.6f} m", flush=True)
+    if not hit_rate >= 0.9:
+        fail(f"(d) the dense raycast hit {hit_rate:.4f} of the true surface, not 90%")
+    if not (torch.isfinite(out["depth"]).all() and d_rep["depth_err_mean_m"] < cfg.trunc_dist):
+        fail("(d) the dense raycast's depth is off")
+    report["dense"] = d_rep
+    del vol, out
+    return report
+
+
 def main() -> None:
     want_profile = "--profile" in sys.argv[1:]
     want_parity = "--parity" in sys.argv[1:]
@@ -1206,6 +1419,15 @@ def main() -> None:
     print(f"phase 7 took {mesh_report['phase_s']:.1f} s", flush=True)
     with open(os.path.join(OUT_DIR, "mesh.json"), "w") as f:
         json.dump(dict(device=smi, **mesh_report), f, indent=1)
+
+    phase("8 render paths: march, direct, polish, traces, dense 256^3 (480x640)")
+    t0 = time.perf_counter()
+    render_report = render_paths(P, torch, cfg, cam, poses, frames, pipe, dev,
+                                 want_profile)
+    render_report["phase_s"] = time.perf_counter() - t0
+    print(f"phase 8 took {render_report['phase_s']:.1f} s", flush=True)
+    with open(os.path.join(OUT_DIR, "render.json"), "w") as f:
+        json.dump(dict(device=smi, **render_report), f, indent=1)
 
     if any(m == "jax" or m.startswith(("jax.", "vulcan_tpu.")) or m == "vulcan_tpu"
            for m in sys.modules):

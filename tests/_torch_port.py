@@ -201,3 +201,35 @@ def reference_five_class(cfg_j=CFG_J, cam_j=CAM_J, h=H, w=W):
             model, j_make_frame(depth, color, cam_j, pose), init_pose=pose)
 
     return integrate, trace, track
+
+
+# --- a fused orbit volume on both sides (the render paths' input) ---
+@functools.lru_cache(maxsize=None)
+def _fused_orbit_reference():
+    import jax.numpy as jnp
+
+    from vulcan_tpu.core.frame import make_frame as j_make_frame
+    from vulcan_tpu.ops import allocate as jal
+    from vulcan_tpu.ops import blocks as jB
+    from vulcan_tpu.ops import sparse as jsp
+
+    poses = orbit(3)
+    jv = jB.create_volume(CFG_J)
+    for pose in poses[1:]:
+        d, c = scene(pose)
+        frame = j_make_frame(jnp.asarray(d), jnp.asarray(c), CAM_J, pose)
+        jv, band, n_band = jal.allocate_for_frame(jv, frame.depth, CAM_J, pose, CFG_J)
+        jv = jal.update_visibility(jv, CAM_J, pose, H, W, CFG_J)
+        jv = jsp.integrate_sparse(jv, frame, CFG_J, ids=band, count=n_band)
+    return jv, poses[2]
+
+
+def fused_orbit_volumes():
+    """(reference volume, port volume, reference pose, port pose): the
+    reference's volume after fusing two orbit frames at their true poses,
+    carried to the port, with the visible list of the second pose."""
+    from vulcan_tpu_torch.ops import blocks as tB
+
+    jv, pose_j = _fused_orbit_reference()
+    tv = tB.VolumeState(**{k: t(v) for k, v in jflat(jv).items()})
+    return jv, tv, pose_j, se3_t(pose_j)

@@ -1,8 +1,8 @@
 """The port's five-class API (``pipeline/api.py``): ``make_frame``,
 ``Volume`` (setters, ``validate``, v4 snapshots both ways), ``Integrator``,
 ``Tracer``, the four trackers and ``Extractor``, held against the JAX
-package's classes on tests/test_pipeline.py's scene, and the settings
-that stay unported."""
+package's classes on tests/test_pipeline.py's scene.  (``Tracer`` under
+the ray march: tests/test_torch_raycast.py.)"""
 import dataclasses
 
 import jax.numpy as jnp
@@ -16,7 +16,6 @@ from vulcan_tpu import make_frame as j_make_frame
 from vulcan_tpu.ops import blocks as jB
 from vulcan_tpu.utils.evaluate import ate_rmse as j_ate_rmse
 from vulcan_tpu_torch.io.ply import read_ply
-from vulcan_tpu_torch.ops import raycast as traycast
 from vulcan_tpu_torch.ops.raycast import Render
 from vulcan_tpu_torch.utils.convert import flatten, volume_from_numpy
 from vulcan_tpu_torch.utils.evaluate import ate_rmse
@@ -344,19 +343,3 @@ def test_pipeline_export_ply(tmp_path):
     verts, cols, faces = read_ply(path)
     assert len(faces) == count and len(verts) < 3 * count
     assert faces.max() < len(verts) and 0.0 <= cols.min() and cols.max() <= 1.0
-
-
-@pytest.mark.parametrize("case", ["march_volume", "march_render", "gradient_trace"])
-def test_unported_render_settings_raise(case):
-    """The ray march and gradient normals (ROADMAP queue 1 item 6) stop
-    loudly wherever they are asked for."""
-    march = dataclasses.replace(CFG_T, render_mode="march")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        if case == "march_volume":
-            P.Volume(march, device="cpu")
-        elif case == "march_render":
-            vol = P.Volume(CFG_T, device="cpu")
-            traycast.render(vol.state, CAM_T, se3_t(orbit(1)[0]), H, W, march)
-        else:
-            vol = P.Volume(CFG_T, device="cpu")
-            P.Tracer(vol).trace(CAM_T, se3_t(orbit(1)[0]), H, W, normals="gradient")

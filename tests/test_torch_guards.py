@@ -2,6 +2,7 @@
 plain versions only for CPU tensors, and a chip smoke test that refuses
 to run without a card."""
 import ast
+import dataclasses
 import os
 import re
 import shutil
@@ -35,6 +36,7 @@ def test_import_pulls_in_no_jax():
         "vulcan_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
         for p in sorted(PKG.rglob("*.py")) if p.name != "__init__.py"
     )
+    assert "vulcan_tpu_torch.ops.render_cache" in mods.split(", ")
     proc = _run(
         "import importlib, sys\n"
         f"for m in '{mods}'.split(', '): importlib.import_module(m)\n"
@@ -129,6 +131,31 @@ def test_cpu_step_launches_no_kernel():
     assert preprocess.bilateral_filter.launches == 0
     assert splat._fill_and_smooth.launches == 0
     assert splat._fill_and_smooth.kernel_launches == 0
+
+
+@pytest.mark.parametrize(
+    "setting", [dict(render_mode="march"), dict(splat_source="direct"),
+                dict(splat_polish=2)], ids=["march", "direct", "polish"])
+def test_render_settings_run_in_pipeline_on_cpu(setting):
+    """The render settings that the port once refused run end to end in
+    ``Pipeline`` on the CPU, tracked in depth and combined mode and fused
+    at a given pose, through the plain versions (no launch counted)."""
+    cfg = dataclasses.replace(CFG_T, **setting)
+    poses = orbit(2)
+    frames = [scene(pose) for pose in poses]
+    for mode in ("depth", "combined"):
+        pipe = P.Pipeline(cfg, CAM_T, H, W, init_pose=se3_t(poses[0]), mode=mode,
+                          device="cpu")
+        for d, c in frames:
+            pipe.process(d, c)
+        err = pipe.pose.translation.numpy() - np.asarray(poses[-1].translation)
+        assert float(np.linalg.norm(err)) < 0.01
+        pipe.process(*frames[0], pose=se3_t(poses[0]))
+        diag = pipe.diagnostics()
+        assert diag["frame"] == 3 and diag["track_failures"] == 0
+        assert pipe.state.model.valid.float().mean() > 0.3
+    assert preprocess.bilateral_filter.launches == 0
+    assert splat._fill_and_smooth.launches == 0
 
 
 def test_uint16_uint8_input_equals_float_input():

@@ -1,7 +1,7 @@
 """The online step (Pipeline.process -> fusion.step) held against the JAX
 package on tests/test_pipeline.py's closed-loop orbit: depth mode, the
 auto-photo rescue, fusion at given poses (step_known_pose), each
-``Config.ablate`` stage, and the guards on what is not ported."""
+``Config.ablate`` stage, and the guards on the TPU-only layouts."""
 import dataclasses
 
 import jax
@@ -146,11 +146,6 @@ def test_to_metric_matches_reference():
 @pytest.mark.parametrize(
     "override,mode,error",
     [
-        pytest.param(dict(render_mode="march"), "depth", NotImplementedError,
-                     id="march"),
-        pytest.param(dict(splat_source="direct"), "depth", NotImplementedError,
-                     id="direct"),
-        pytest.param(dict(splat_polish=2), "depth", NotImplementedError, id="polish"),
         pytest.param(dict(integrate_gather="onehot"), "depth", NotImplementedError,
                      id="onehot"),
         pytest.param(dict(assoc_patch="on"), "depth", NotImplementedError,

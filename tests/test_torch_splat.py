@@ -10,17 +10,16 @@ import torch
 
 import vulcan_tpu_torch as P
 from vulcan_tpu.config import TINY as J_TINY
-from vulcan_tpu.core.frame import make_frame
 from vulcan_tpu.ops import allocate as jal
-from vulcan_tpu.ops import blocks as jB
-from vulcan_tpu.ops import sparse as jsp
 from vulcan_tpu.ops import splat as jsplat
 from vulcan_tpu_torch.ops import allocate as tal
 from vulcan_tpu_torch.ops import blocks as tB
 from vulcan_tpu_torch.ops import cuda_kernels
 from vulcan_tpu_torch.ops import splat as tsplat
 
-from ._torch_port import CAM_J, CAM_T, CFG_J, CFG_T, H, W, jflat, orbit, scene, se3_t, t
+from ._torch_port import (
+    CAM_J, CAM_T, CFG_J, CFG_T, H, W, fused_orbit_volumes, jflat, se3_t, t,
+)
 
 
 @pytest.fixture(scope="module")
@@ -99,15 +98,8 @@ def test_fill_smooth_launch_by_launch_matches_reference(holed_zbuf, rounds):
 def fused_volume():
     """The reference's volume after fusing two orbit frames at their true
     poses, with the visible list of the second."""
-    poses = orbit(3)
-    jv = jB.create_volume(CFG_J)
-    for pose in poses[1:]:
-        d, c = scene(pose)
-        frame = make_frame(jnp.asarray(d), jnp.asarray(c), CAM_J, pose)
-        jv, band, n_band = jal.allocate_for_frame(jv, frame.depth, CAM_J, pose, CFG_J)
-        jv = jal.update_visibility(jv, CAM_J, pose, H, W, CFG_J)
-        jv = jsp.integrate_sparse(jv, frame, CFG_J, ids=band, count=n_band)
-    return jv, poses[2]
+    jv, _, pose_j, _ = fused_orbit_volumes()
+    return jv, pose_j
 
 
 def test_surfel_block_list_exact(fused_volume):
@@ -129,7 +121,7 @@ def test_render_splat_matches_reference(fused_volume):
     jv = jal.update_visibility(jv, CAM_J, pose_j, H, W, CFG_J)
     tv = tal.update_visibility(tv, CAM_T, pose_t, H, W, CFG_T)
     rj = jsplat.render_splat(jv, CAM_J, pose_j, H, W, CFG_J, with_color=False)
-    rt = tsplat.render_splat(tv, CAM_T, pose_t, H, W, CFG_T)
+    rt = tsplat.render_splat(tv, CAM_T, pose_t, H, W, CFG_T, with_color=False)
 
     zj = np.asarray(jsplat._splat_zbuf_surfels(jv, CAM_J, pose_j, H, W, CFG_J))
     zt = tsplat._splat_zbuf_surfels(tv, CAM_T, pose_t, H, W, CFG_T).numpy()

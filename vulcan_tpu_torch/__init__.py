@@ -1,5 +1,6 @@
-"""vulcan_tpu_torch: the PyTorch + CUDA port of vulcan_tpu (the online step,
-marching cubes and the five-class API).
+"""vulcan_tpu_torch: the PyTorch + CUDA port of vulcan_tpu (the online step
+under either renderer, marching cubes, the five-class API and the
+dense-grid backend).
 
 The JAX package ``vulcan_tpu`` is the reference; this package imports
 neither it nor JAX.  Plain tensor code is PyTorch; the reference's Pallas

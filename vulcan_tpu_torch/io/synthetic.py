@@ -1,8 +1,10 @@
 """Analytic synthetic scenes (part of ``vulcan_tpu/io/synthetic.py``).
 
 Exact ray-sphere/plane/box intersections give ground-truth depth images
-and an orbiting camera gives ground-truth poses: the sphere orbit
-(``render_scene_depth``) and the cluttered desk (``render_desk_depth``).
+and an orbiting camera gives ground-truth poses: one sphere
+(``render_sphere_depth``, with its signed distance ``sphere_sdf``), the
+sphere orbit (``render_scene_depth``) and the cluttered desk
+(``render_desk_depth``).
 ``chip_smoke.py`` makes its frames here, since the port runs without JAX.
 """
 from __future__ import annotations
@@ -49,10 +51,47 @@ def orbit_poses(
     return poses
 
 
+def sphere_sdf(points: torch.Tensor, center, radius: float) -> torch.Tensor:
+    """Signed distance (..., ) of points (..., 3) to a sphere."""
+    c = torch.as_tensor(center, dtype=points.dtype, device=points.device)
+    return torch.linalg.vector_norm(points - c, dim=-1) - radius
+
+
 def procedural_color(points: torch.Tensor) -> torch.Tensor:
     """Smooth position-based RGB in [0,1]."""
     k = torch.tensor([3.0, 5.0, 7.0], dtype=points.dtype, device=points.device)
     return 0.5 + 0.5 * torch.sin(points * k)
+
+
+def render_sphere_depth(
+    camera: PinholeCamera,
+    pose: SE3,
+    height: int,
+    width: int,
+    center=(0.0, 0.0, 0.0),
+    radius: float = 0.5,
+    device=None,
+):
+    """Exact depth (z-depth, 0 = miss) and colour of one sphere, solved as
+    the reference solves it.  Returns (depth (H, W), color (H, W, 3)) on
+    ``device`` (the CUDA card when None)."""
+    device = resolve_device(device)
+    pose = pose.to(device)
+    d_world = pose.rotate(camera.rays(height, width, device))      # z = 1
+    o = pose.translation
+    oc = o - torch.as_tensor(center, dtype=torch.float32, device=device)
+    # |o + t*d - c|^2 = r^2 for t (d not normalized; t is z-depth).
+    a = torch.sum(d_world * d_world, dim=-1)
+    b = 2.0 * torch.sum(d_world * oc, dim=-1)
+    cc = torch.sum(oc * oc) - radius * radius
+    disc = b * b - 4.0 * a * cc
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    t = (-b - sq) / (2.0 * a)
+    hit = (disc >= 0.0) & (t > 0.0)
+    depth = torch.where(hit, t, 0.0)
+    p = o + t[..., None] * d_world
+    color = torch.where(hit[..., None], procedural_color(p), 0.0)
+    return depth, color
 
 
 def render_scene_depth(

@@ -212,6 +212,12 @@ def unpack_voxel_color(packed: torch.Tensor):
     return torch.stack([r, g, b], dim=-1) * (1.0 / 255.0), cw
 
 
+def visible_rows(volume: VolumeState) -> torch.Tensor:
+    """(max_visible,) bool -- which rows of the visible list hold a block."""
+    ids = volume.visible_ids
+    return (torch.arange(ids.shape[0], device=ids.device) < volume.num_visible) & (ids > 0)
+
+
 def allocated_mask(volume: VolumeState, config: Config) -> torch.Tensor:
     """(num_blocks,) bool -- which block slots hold real allocated blocks."""
     n = volume.tsdf.shape[0]

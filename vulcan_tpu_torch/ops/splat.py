@@ -1,25 +1,32 @@
 """Surfel-splatting model renderer.
 
-Counterpart of ``vulcan_tpu/ops/splat.py``'s ``render_splat`` with
-``normals="cross"``, ``splat_source="surfels"`` and no polish:
+Counterpart of ``vulcan_tpu/ops/splat.py``'s ``render_splat``:
 
-  1. ``_surfel_block_list``: visible blocks with a nonempty persistent
-     surfel list (maintained by integration);
-  2. ``_splat_zbuf_surfels``: project every surfel (z_surf = z_voxel +
-     tsdf * mu on the voxel's own ray) and scatter-min its depth into a
-     z-buffer, in two tiers over the surfel slots.  Without colour it is a
-     float32 z-buffer; ``model_color="luma"`` makes it one scatter-min of a
-     packed ``zq19 << 12 | luma12`` int32 word, ``"rgb"`` adds a second
-     pass that scatters each depth winner's rgb888;
-  3. ``_fill_and_smooth`` (kernel K2 on the card): hole fill and
-     edge-aware smoothing of the z-buffer;
-  4. cross-product normals from the vertex map, 3x3 normal smoothing, and
-     the model colour diffused into the hole-filled pixels.
+  1. the z-buffer, from one of three sources:
+     ``_splat_zbuf_surfels`` (``splat_source="surfels"``, the default):
+     every surfel of the persistent per-block lists (z_surf = z_voxel +
+     tsdf * mu on the voxel's own ray) scatter-mins its depth, in two
+     tiers over the surfel slots.  Without colour it is a float32
+     z-buffer; ``model_color="luma"`` makes it one scatter-min of a packed
+     ``zq19 << 12 | luma12`` int32 word, ``"rgb"`` adds a second pass that
+     scatters each depth winner's rgb888;
+     ``_splat_zbuf_direct`` (``splat_source="direct"``): the same surfel
+     model read straight from the voxel rows of the blocks that hold a
+     near-surface voxel (``_surface_block_list``);
+     ``_splat_zbuf_cached``: voxel-edge crossings of the render-cache
+     halos, used whenever the cache is built anyway (polish, gradient
+     normals, or colour off the surfel path);
+  2. ``_fill_and_smooth`` (kernel K2 on the card): hole fill and
+     edge-aware smoothing of the z-buffer, on every source;
+  3. the optional trilinear polish (``splat_polish`` secant rounds on the
+     cache's quantized march texture), cross-product or TSDF-gradient
+     normals and their 3x3 smoothing, and the model colour: diffused into
+     the hole-filled pixels on the surfel paths, nearest-voxel through the
+     cache otherwise.
 
 The reference picks a surfel's rgb out of its block's ``colorpack`` row
 with a one-hot matmul (a TPU layout trick, exact for 0..255); here the
-same int32 word is read by index.  The cached and direct z-buffer
-sources are not ported.
+same int32 word is read by index.
 """
 from __future__ import annotations
 
@@ -28,13 +35,14 @@ import torch
 from ..config import Config
 from ..core.camera import PinholeCamera
 from ..core.se3 import SE3
-from ..utils.sync import read_ints
+from ..utils.sync import read_int, read_ints
 from . import blocks as B
 from . import cuda_kernels
+from . import render_cache as RC
 from .allocate import compact_mask
 from .dense import round_to_int
 from .preprocess import _shift2d
-from .raycast import Render, _cross_normals_axes
+from .raycast import Render, _cross_normals_axes, _secant
 
 _ZQ_BITS = 19                       # packed-luma depth quantization bits
 _ZQ_MAX = (1 << _ZQ_BITS) - 1       # depth step = ray_far / _ZQ_MAX
@@ -54,14 +62,51 @@ def _decode_luma_zbuf(word: torch.Tensor, config: Config):
     return depth, inten
 
 
+def _surface_block_list(volume: B.VolumeState, config: Config):
+    """Visible blocks holding an observed voxel inside the splat band,
+    compacted (one dense row pass + a prefix-sum compaction)."""
+    ids = volume.visible_ids
+    rows = ids.to(torch.int64)
+    near = (torch.abs(volume.tsdf[rows]) < B.surfel_band(config)) & (
+        volume.weight[rows] > 0.0)
+    has_surf = B.visible_rows(volume) & torch.any(near, dim=1)
+    n_surf = torch.sum(has_surf).to(torch.int32)
+    return compact_mask(has_surf, ids, ids.shape[0], 0), n_surf
+
+
 def _surfel_block_list(volume: B.VolumeState, config: Config):
     """Visible blocks with a nonempty persistent surfel list, compacted."""
     ids = volume.visible_ids
-    V = ids.shape[0]
-    rowv = (torch.arange(V, device=ids.device) < volume.num_visible) & (ids > 0)
-    has_surf = rowv & (volume.surf_count[ids.to(torch.int64)] > 0)
+    has_surf = B.visible_rows(volume) & (volume.surf_count[ids.to(torch.int64)] > 0)
     n_surf = torch.sum(has_surf).to(torch.int32)
-    return compact_mask(has_surf, ids, V, 0), n_surf
+    return compact_mask(has_surf, ids, ids.shape[0], 0), n_surf
+
+
+def _to_camera(w2c: SE3, wx, wy, wz):
+    """World points given per axis -> camera coordinates, per axis."""
+    R, tr = w2c.rotation, w2c.translation
+    cx = R[0, 0] * wx + R[0, 1] * wy + R[0, 2] * wz + tr[0]
+    cy = R[1, 0] * wx + R[1, 1] * wy + R[1, 2] * wz + tr[1]
+    cz = R[2, 0] * wx + R[2, 1] * wy + R[2, 2] * wz + tr[2]
+    return cx, cy, cz
+
+
+def _pixel(camera: PinholeCamera, cx, cy, cz, zok, height: int, width: int):
+    """The pixel each point projects to, rounded half to even: (flat
+    index, with height*width a trash slot for the masked lanes; in-bounds
+    mask)."""
+    zc = torch.clamp(cz, min=1e-6)
+    u = round_to_int(camera.fx * cx / zc + camera.cx)
+    v = round_to_int(camera.fy * cy / zc + camera.cy)
+    inb = (u >= 0) & (u < width) & (v >= 0) & (v < height) & zok
+    return torch.where(inb, v * width + u, height * width), inb
+
+
+def _local_xyz(device):
+    """Planar local voxel coordinates (1, 512) of lidx = (lx*8+ly)*8+lz."""
+    lidx = torch.arange(512, device=device)[None, :]
+    return ((lidx // 64).to(torch.float32), ((lidx // 8) % 8).to(torch.float32),
+            (lidx % 8).to(torch.float32))
 
 
 def _splat_zbuf_surfels(
@@ -89,8 +134,6 @@ def _splat_zbuf_surfels(
     mu = config.trunc_dist
     S = config.surfel_slots
     w2c = pose.inverse()
-    R = w2c.rotation
-    tr = w2c.translation
     cw = pose.translation                       # camera centre, world
     dev = volume.tsdf.device
     npix = height * width
@@ -125,10 +168,7 @@ def _splat_zbuf_surfels(
             wx = (coords[:, 0:1] * 8 + lx) * vs
             wy = (coords[:, 1:2] * 8 + ly) * vs
             wz = (coords[:, 2:3] * 8 + lz) * vs
-            cx = R[0, 0] * wx + R[0, 1] * wy + R[0, 2] * wz + tr[0]
-            cy = R[1, 0] * wx + R[1, 1] * wy + R[1, 2] * wz + tr[1]
-            cz = R[2, 0] * wx + R[2, 1] * wy + R[2, 2] * wz + tr[2]
-
+            cx, cy, cz = _to_camera(w2c, wx, wy, wz)
             z_surf = cz + t * mu
             # Back-face cull: the stored orientation points outward; a
             # surfel facing away from the camera must not write depth.
@@ -145,11 +185,8 @@ def _splat_zbuf_surfels(
                 & (z_surf < config.ray_far)
                 & (cz > 1e-6)
             )
-            zc = torch.clamp(cz, min=1e-6)
-            u = round_to_int(camera.fx * cx / zc + camera.cx)
-            v = round_to_int(camera.fy * cy / zc + camera.cy)
-            inb = (u >= 0) & (u < width) & (v >= 0) & (v < height) & zok
-            pix = torch.where(inb, v * width + u, npix).reshape(-1)
+            pix, inb = _pixel(camera, cx, cy, cz, zok, height, width)
+            pix = pix.reshape(-1)
             if zref is None and not luma:
                 buf.scatter_reduce_(
                     0, pix, torch.where(inb, z_surf, float("inf")).reshape(-1),
@@ -193,6 +230,133 @@ def _splat_zbuf_surfels(
         return zbuf
     cbuf = tiers(torch.full((npix + 1,), -1, dtype=torch.int32, device=dev), zbuf)
     return zbuf, cbuf
+
+
+def _splat_zbuf_direct(
+    volume: B.VolumeState,
+    camera: PinholeCamera,
+    pose: SE3,
+    height: int,
+    width: int,
+    config: Config,
+):
+    """Z-buffer (H*W,) of the projective-TSDF voxel surfels read straight
+    from the voxel rows: every observed voxel with |tsdf| inside the splat
+    band splats ``z_voxel + tsdf * mu`` at its own projected pixel, under
+    the surfel path's back-face cull (the same quantized orientation,
+    computed here from the rows).  The chunk count over the surface list
+    is one counted read."""
+    vs = config.voxel_size
+    mu = config.trunc_dist
+    w2c = pose.inverse()
+    cw = pose.translation                       # camera centre, world
+    dev = volume.tsdf.device
+    npix = height * width
+
+    render_ids, n_surf = _surface_block_list(volume, config)
+    C = min(1024, render_ids.shape[0])
+    lx, ly, lz = _local_xyz(dev)
+    band = B.surfel_band(config)
+    zbuf = torch.full((npix + 1,), float("inf"), dtype=torch.float32, device=dev)
+    for i in range((read_int(n_surf) + C - 1) // C):
+        start = i * C
+        ids = render_ids[start:start + C].to(torch.int64)
+        rv = (start + torch.arange(C, device=dev) < n_surf) & (ids > 0)
+        t = volume.tsdf[ids]                                  # (C, 512)
+        obs = (volume.weight[ids] > 0.0) & rv[:, None]
+        coords = volume.block_coords[ids].to(torch.float32)   # (C, 3)
+        wx = (coords[:, 0:1] * 8 + lx) * vs
+        wy = (coords[:, 1:2] * 8 + ly) * vs
+        wz = (coords[:, 2:3] * 8 + lz) * vs
+        cx, cy, cz = _to_camera(w2c, wx, wy, wz)
+        z_surf = cz + t * mu
+        if config.splat_backface_cull:
+            gxq, gyq, gzq = B.quantized_orientation(t)
+            back = (
+                gxq.to(torch.float32) * (wx - cw[0])
+                + gyq.to(torch.float32) * (wy - cw[1])
+                + gzq.to(torch.float32) * (wz - cw[2])
+            ) > 0.0
+        else:
+            back = torch.zeros_like(obs)
+        zok = (
+            obs
+            & ~back
+            & (torch.abs(t) < band)
+            & (z_surf > config.ray_near)
+            & (z_surf < config.ray_far)
+            & (cz > 1e-6)
+        )
+        pix, inb = _pixel(camera, cx, cy, cz, zok, height, width)
+        zbuf.scatter_reduce_(
+            0, pix.reshape(-1), torch.where(inb, z_surf, float("inf")).reshape(-1),
+            "amin",
+        )
+    return zbuf[:npix]
+
+
+def _splat_zbuf_cached(
+    volume: B.VolumeState,
+    cache: RC.RenderCache,
+    camera: PinholeCamera,
+    pose: SE3,
+    height: int,
+    width: int,
+    config: Config,
+):
+    """Z-buffer (H*W,) of the voxel-edge zero crossings of the render
+    cache's halos (+x, +y, +z edges of every voxel), culled by the sign of
+    the crossing's axis normal against the ray.  One counted read sizes
+    the chunk loop over the visible rows."""
+    vs = config.voxel_size
+    w2c = pose.inverse()
+    R = w2c.rotation
+    dev = volume.tsdf.device
+    npix = height * width
+
+    V = volume.visible_ids.shape[0]
+    C = min(1024, V)
+    lx, ly, lz = _local_xyz(dev)
+    zbuf = torch.full((npix + 1,), float("inf"), dtype=torch.float32, device=dev)
+    for i in range((read_int(volume.num_visible) + C - 1) // C):
+        start = i * C
+        off = (start + 1) * 729
+        t = cache.tsdf[off:off + C * 729].reshape(C, 9, 9, 9)
+        obs = (cache.march[off:off + C * 729] != RC.MARCH_UNSEEN).reshape(C, 9, 9, 9)
+        f0 = t[:, :8, :8, :8].reshape(C, 512)
+        o0 = obs[:, :8, :8, :8].reshape(C, 512)
+        rows = cache.row_block[start + 1:start + 1 + C].to(torch.int64)
+        coords = volume.block_coords[rows]                    # (C, 3) int32
+        bx = (coords[:, 0:1] * 8).to(torch.float32) + lx
+        by = (coords[:, 1:2] * 8).to(torch.float32) + ly
+        bz = (coords[:, 2:3] * 8).to(torch.float32) + lz
+        for axis, sl in enumerate((
+            (slice(1, 9), slice(0, 8), slice(0, 8)),
+            (slice(0, 8), slice(1, 9), slice(0, 8)),
+            (slice(0, 8), slice(0, 8), slice(1, 9)),
+        )):
+            f1 = t[:, sl[0], sl[1], sl[2]].reshape(C, 512)
+            o1 = obs[:, sl[0], sl[1], sl[2]].reshape(C, 512)
+            crossing = o0 & o1 & ((f0 > 0.0) != (f1 > 0.0))
+            d01 = f0 - f1
+            tt = torch.clamp(
+                f0 / torch.where(torch.abs(d01) > 1e-12, d01, 1.0), 0.0, 1.0)
+            wx = (bx + tt * float(axis == 0)) * vs
+            wy = (by + tt * float(axis == 1)) * vs
+            wz = (bz + tt * float(axis == 2)) * vs
+            cx, cy, cz = _to_camera(w2c, wx, wy, wz)
+            # Back-face cull: normal ~ -sign(f0) * e_axis (toward +TSDF);
+            # front-facing iff ray . normal < 0.
+            sgn = torch.where(f0 > 0.0, -1.0, 1.0)
+            ndot = sgn * (R[0, axis] * cx + R[1, axis] * cy + R[2, axis] * cz)
+            zok = (crossing & (cz > config.ray_near) & (cz < config.ray_far)
+                   & (ndot < 0.0))
+            pix, inb = _pixel(camera, cx, cy, cz, zok, height, width)
+            zbuf.scatter_reduce_(
+                0, pix.reshape(-1), torch.where(inb, cz, float("inf")).reshape(-1),
+                "amin",
+            )
+    return zbuf[:npix]
 
 
 def _fill_smooth_steps(d: torch.Tensor, mu: float, rounds: int,
@@ -292,27 +456,51 @@ def render_splat(
     height: int,
     width: int,
     config: Config,
-    with_color: bool = False,
+    normals: str = "cross",
+    with_color: bool = True,
+    cache: RC.RenderCache | None = None,
     color_space: str = "rgb",
 ) -> Render:
-    """Render model maps by surfel splatting (the reference's
-    ``render_splat`` with ``normals="cross"``).  ``with_color`` renders the
-    model colour: ``color_space="luma"`` as a grey intensity image from the
-    packed one-pass scatter, ``"rgb"`` from the two-pass rgb888 scatter.
-    Without it the colour is zeros."""
+    """Render model maps by surfel splatting (see the module docstring).
+
+    The render cache is built (or ``cache`` used) only for trilinear work
+    (polish, gradient normals) and for colour off the surfel path; the
+    surfel path colours its own z-buffer winners, ``color_space="luma"``
+    as a grey intensity image from the packed one-pass scatter, ``"rgb"``
+    from the two-pass rgb888 scatter.  Without ``with_color`` the colour
+    is zeros."""
     inf = float("inf")
+    vs = config.voxel_size
+    surfel_color = (
+        with_color
+        and config.splat_source == "surfels"
+        and config.splat_polish == 0
+        and normals != "gradient"
+        and cache is None
+    )
+    need_cache = (
+        config.splat_polish > 0
+        or normals == "gradient"
+        or (with_color and not surfel_color)
+    )
     cbuf = ibuf = None
-    if with_color and color_space == "luma":
+    if need_cache:
+        if cache is None:
+            cache = RC.build(volume, config)
+        zbuf = _splat_zbuf_cached(volume, cache, camera, pose, height, width, config)
+    elif surfel_color and color_space == "luma":
         wbuf = _splat_zbuf_surfels(
             volume, camera, pose, height, width, config, luma=True
         )
         zbuf, ibuf = _decode_luma_zbuf(wbuf, config)
-    elif with_color:
+    elif surfel_color:
         zbuf, cbuf = _splat_zbuf_surfels(
             volume, camera, pose, height, width, config, with_color=True
         )
-    else:
+    elif config.splat_source == "surfels":
         zbuf = _splat_zbuf_surfels(volume, camera, pose, height, width, config)
+    else:
+        zbuf = _splat_zbuf_direct(volume, camera, pose, height, width, config)
     depth = zbuf.reshape(height, width)
     has = torch.isfinite(depth)
     d = _fill_and_smooth(torch.where(has, depth, inf), config)
@@ -322,12 +510,43 @@ def render_splat(
     rays_world = pose.rotate(camera.rays(height, width, depth.device))
     dx_, dy_, dz_ = rays_world[..., 0], rays_world[..., 1], rays_world[..., 2]
     origin = pose.translation
-    t_surf = depth
-    px = origin[0] + t_surf * dx_
-    py = origin[1] + t_surf * dy_
-    pz = origin[2] + t_surf * dz_
+    ox, oy, oz = origin[0], origin[1], origin[2]
 
-    nx, ny, nz, n_ok = _cross_normals_axes(px, py, pz, hit)
+    # Optional trilinear polish onto the ray's crossing, on the quantized
+    # march texture: a bracket of +-2 voxels, secant rounds inside it.
+    t_surf = depth
+    if config.splat_polish > 0:
+        inv_dn = 1.0 / torch.clamp(torch.sqrt(dx_ * dx_ + dy_ * dy_ + dz_ * dz_),
+                                   min=1e-9)
+        half = 2.0 * vs * inv_dn
+
+        def sample_tri(t):
+            return RC.sample_march_trilinear_axes(
+                cache, ox + t * dx_, oy + t * dy_, oz + t * dz_, config)
+
+        t_lo = t_surf - half
+        t_hi = t_surf + half
+        f_both, ok_both = sample_tri(torch.stack([t_lo, t_hi], dim=0))
+        f_lo, f_hi = f_both[0], f_both[1]
+        bracket = (f_lo > 0.0) & (f_hi <= 0.0) & ok_both[0] & ok_both[1]
+        for _ in range(config.splat_polish - 1):
+            t_mid = _secant(t_lo, t_hi, f_lo, f_hi)
+            f_mid, _ = sample_tri(t_mid)
+            posm = f_mid > 0.0
+            t_lo = torch.where(posm, t_mid, t_lo)
+            f_lo = torch.where(posm, f_mid, f_lo)
+            t_hi = torch.where(posm, t_hi, t_mid)
+            f_hi = torch.where(posm, f_hi, f_mid)
+        t_surf = torch.where(bracket & hit, _secant(t_lo, t_hi, f_lo, f_hi), t_surf)
+
+    px = ox + t_surf * dx_
+    py = oy + t_surf * dy_
+    pz = oz + t_surf * dz_
+
+    if normals == "gradient":
+        nx, ny, nz, n_ok = RC.sample_gradient_axes(cache, px, py, pz, config)
+    else:
+        nx, ny, nz, n_ok = _cross_normals_axes(px, py, pz, hit)
     flip = nx * dx_ + ny * dy_ + nz * dz_ > 0.0
     sign = torch.where(flip, -1.0, 1.0)
     nx, ny, nz = nx * sign, ny * sign, nz * sign
@@ -365,6 +584,8 @@ def render_splat(
             [(cimg >> 16) & 0xFF, (cimg >> 8) & 0xFF, cimg & 0xFF], dim=-1
         ).to(torch.float32) * (1.0 / 255.0)
         color = _diffuse(torch.where(c_ok[..., None], rgb, 0.0), c_ok, rounds)
+    elif with_color:
+        color, _ = RC.sample_color_nearest_axes(cache, volume, px, py, pz, config)
     else:
         color = torch.zeros((height, width, 3), device=depth.device)
 

@@ -222,7 +222,9 @@ class Integrator:
 
 
 class Tracer:
-    """Model renderer of a ``Volume`` (the surfel splat)."""
+    """Model renderer of a ``Volume``: the renderer ``Config.render_mode``
+    names (the surfel splat or the hierarchical march), with cross-product
+    or TSDF-gradient (``normals="gradient"``) normals."""
 
     def __init__(self, volume: Volume):
         self.volume = volume

@@ -1,13 +1,14 @@
 """The online reconstruction step.
 
-Counterpart of ``vulcan_tpu/pipeline/fusion.py`` under the splat renderer,
-in all four tracking modes: preprocess -> track -> fusion gate ->
-allocate + visibility -> integrate -> splat render, plus
+Counterpart of ``vulcan_tpu/pipeline/fusion.py`` in all four tracking
+modes and under either renderer (``Config.render_mode``: the surfel splat
+or the hierarchical march): preprocess -> track -> fusion gate ->
+allocate + visibility -> integrate -> render, plus
 ``step_known_pose`` (fusion with a given pose) and ``Config.ablate``.  The
 reference runs this as one jitted, donated function; here it runs eagerly,
 with the volume updated in place.  The host reads the step makes
-(integrate chunk count, splat tier lengths, the auto-photo countdown) are
-counted by ``utils.sync.read_int``.
+(integrate chunk count, the renderer's loop bounds, the auto-photo
+countdown) are counted by ``utils.sync.read_int``.
 
 Auto-photo (depth mode, ``Config.auto_photo``): a frame whose geometric
 conditioning is weak arms combined tracking for ``auto_photo_hold``
@@ -32,37 +33,25 @@ from ..core import se3
 from ..core.camera import PinholeCamera
 from ..core.frame import Frame
 from ..core.se3 import SE3
-from ..ops import allocate, icp, sparse, splat
+from ..ops import allocate, icp, raycast, sparse
 from ..ops import blocks as B
 from ..ops.preprocess import bilateral_filter, build_pyramid
-from ..ops.raycast import Render
 from ..utils.sync import read_int
 
 MODES = icp.MODES
-_NOT_PORTED = ("is not ported yet (ROADMAP.md queue 1 item 6; vulcan_tpu_torch "
-               "renders with the surfel splat)")
 _TPU_ONLY = "is a TPU layout that vulcan_tpu_torch does not carry"
 
 
 def check_supported(config: Config, mode: str = "depth") -> None:
     """Raise for every setting outside the ported code: ValueError for a
-    mode that does not exist, NotImplementedError for what the reference
-    has and the port does not.  Loud stops, never silent fallbacks."""
+    mode that does not exist, NotImplementedError for the reference's TPU
+    layouts, which the port does not carry.  Loud stops, never silent
+    fallbacks."""
     if mode not in MODES:
         raise ValueError(f"mode={mode!r}: one of {MODES}")
-    bad = {
-        "render_mode": (config.render_mode, "march", "the hierarchical ray march",
-                        _NOT_PORTED),
-        "splat_source": (config.splat_source, "direct", "the direct splat source",
-                         _NOT_PORTED),
-        "integrate_gather": (config.integrate_gather, "onehot",
-                             "the one-hot patch gather", _TPU_ONLY),
-    }
-    for name, (value, unsupported, what, why) in bad.items():
-        if value == unsupported:
-            raise NotImplementedError(f"{name}={value!r}: {what} {why}")
-    if config.splat_polish > 0:
-        raise NotImplementedError(f"splat_polish={config.splat_polish} {_NOT_PORTED}")
+    if config.integrate_gather == "onehot":
+        raise NotImplementedError(
+            f"integrate_gather='onehot': the one-hot patch gather {_TPU_ONLY}")
     if config.assoc_patch in ("on", "geom"):
         raise NotImplementedError(
             f"assoc_patch={config.assoc_patch!r}: the one-hot patch "
@@ -82,7 +71,7 @@ class PipelineState:
     ``model.pose``."""
 
     volume: B.VolumeState
-    model: Render                   # last rendered model maps
+    model: raycast.Render           # last rendered model maps
     prev_pose: SE3                  # pose of the frame before model.pose's
     frame_idx: torch.Tensor         # () int32
     track_error: torch.Tensor       # () f32, last ICP robust rms
@@ -116,7 +105,7 @@ def init_state(
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    empty = Render(
+    empty = raycast.Render(
         depth=zeros(height, width),
         vx=zeros(height, width), vy=zeros(height, width), vz=zeros(height, width),
         nx=zeros(height, width), ny=zeros(height, width), nz=zeros(height, width),
@@ -242,7 +231,7 @@ def _fuse_and_render(volume: B.VolumeState, frame: Frame, filtered: torch.Tensor
     if "render" in skip:
         return volume, None
     with record_function("vulcan.render"):
-        render = splat.render_splat(
+        render = raycast.render(
             volume, frame.camera, frame.pose, h, w, config,
             with_color=with_color, color_space=config.model_color,
         )

@@ -1,7 +1,8 @@
 """Carry state between the JAX package and the port as numpy.
 
-Both packages' ``PipelineState``, ``VolumeState``, ``MeshCache`` and
-``Mesh`` are trees of dataclasses with the same field names, so a state
+Both packages' ``PipelineState``, ``VolumeState``, ``MeshCache``,
+``Mesh``, ``RenderCache`` and ``DenseVolumeState`` are trees of
+dataclasses with the same field names, so a state
 flattens to one dict of numpy arrays keyed by the dotted field path:
 ``volume.tsdf``, ``model.pose.rotation``, ``model.camera.fx``,
 ``prev_pose.translation``, ``frame_idx``, ...  (a ``VolumeState`` alone:
@@ -21,8 +22,10 @@ from ..config import Config
 from ..core.camera import PinholeCamera
 from ..core.se3 import SE3
 from ..ops.blocks import VolumeState
+from ..ops.dense import DenseVolumeState
 from ..ops.mcubes import Mesh, MeshCache
 from ..ops.raycast import Render
+from ..ops.render_cache import RenderCache
 from ..pipeline.fusion import PipelineState
 
 
@@ -76,6 +79,28 @@ def mesh_cache_from_numpy(arrays: dict[str, np.ndarray], device=None) -> MeshCac
 
 def mesh_to_numpy(mesh: Mesh) -> dict[str, np.ndarray]:
     return flatten(mesh)
+
+
+def render_cache_to_numpy(cache: RenderCache) -> dict[str, np.ndarray]:
+    return flatten(cache)
+
+
+def render_cache_from_numpy(arrays: dict[str, np.ndarray], device=None) -> RenderCache:
+    return _dataclass_from_numpy(RenderCache, arrays, device)
+
+
+def dense_volume_to_numpy(state: DenseVolumeState) -> dict[str, np.ndarray]:
+    """{field name: numpy array}; ``shape`` becomes a (3,) array."""
+    return flatten(state)
+
+
+def dense_volume_from_numpy(arrays: dict[str, np.ndarray],
+                            device=None) -> DenseVolumeState:
+    return DenseVolumeState(
+        shape=tuple(int(n) for n in arrays["shape"]),
+        **{f.name: _tensor(arrays, f.name, device)
+           for f in dataclasses.fields(DenseVolumeState) if f.name != "shape"},
+    )
 
 
 def pipeline_state_from_numpy(
