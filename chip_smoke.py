@@ -107,7 +107,28 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      raycast ms (CUDA events), valid pixels, the share of the pixels whose
      true surface lies in the grid that it hits (fails under 90%) and the
      depth error against the true depth.  With --profile also phase 5's
-     breakdown of the march path.  Written to chiprun_out/render.json.
+     breakdown of the march path.  Written to OUT_DIR/render.json;
+  9. entry points at 640x480, each a subprocess of the CLI's ``main``
+     (``python -m vulcan_tpu_torch.tools.cli_counts``, which counts around
+     the loop: the step's host reads, the reads and syncs the CLI's own
+     code makes between two steps, K1/K2 launches, the time it waits on
+     the TUM loader).  Phase 3's frames are written as a TUM sequence
+     (``write_png``: standard-library zlib).  (a) Three runs at once on
+     the card (their times are not measurements): ``run --synthetic 35
+     --mesh-every 5`` with --mesh-out, --snapshot-out, --traj-out,
+     --eval-ate, --profile and --trace-dir in combined (the default) and
+     depth mode, and ``run --dataset --known-poses`` (ATE < 1e-4 m); then
+     ``python -m vulcan_tpu_torch.cli mesh`` on the combined snapshot.
+     (b) Alone, timed: the native decode and the prefetch loader, the same
+     frames through ``Pipeline`` in memory, and ``run --dataset`` tracked
+     (its trajectory against the in-memory run's, within AGREE_TOL).  Each
+     run: exit 0, no failure or overflow, ATE < 0.01 m, K1 and K2 once a
+     frame, the step's host reads a frame and none added by the loop, a
+     PLY header from the native welder;
+  10. the row-sharded step (``parallel/sharding.py``): 2 gloo ranks on the
+     one card over the orbit's first 10 frames, default Config, against
+     the single-process step (tests/test_parallel.py's tolerances), every
+     rank's pose bit-identical.  Phases 9-10 write OUT_DIR/entry.json.
 
 Every failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -978,8 +999,8 @@ def mesh_and_api(P, torch, cfg, cam, poses, frames, pipe, dev, want_profile) -> 
     report["ply_snapshot"] = dict(ply_ms=ply_ms, save_ms=save_ms, faces=faces,
                                   trace_valid_mismatch=valid_mismatch,
                                   trace_depth_off=depth_off)
-    for path in (ply, snap):
-        os.remove(path)
+    os.remove(ply)
+    report["ply_snapshot"]["snapshot"] = snap    # phase 9 meshes it offline
     del card, host, r_card, r_host
 
     # (d) the five-class flow over the first 10 orbit frames
@@ -1209,6 +1230,368 @@ def render_paths(P, torch, cfg, cam, poses, frames, pipe, dev, want_profile) -> 
     return report
 
 
+# --- phase 9: the entry points -------------------------------------------
+
+CLI_TIMEOUT = 600  # s, one CLI subprocess
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """A PNG of a uint16 (H, W) or uint8 (H, W, 3) array, written with the
+    standard library's zlib: every row with the Up filter (its bytes minus
+    the row above's)."""
+    import struct
+    import zlib
+
+    h, w = img.shape[:2]
+    if img.dtype == np.uint16:
+        raw, bit_depth, color_type = img.astype(">u2").view(np.uint8).reshape(h, -1), 16, 0
+    else:
+        raw, bit_depth, color_type = np.ascontiguousarray(img).reshape(h, -1), 8, 2
+    up = np.diff(raw, axis=0, prepend=np.zeros((1, raw.shape[1]), np.uint8))
+    rows = np.concatenate([np.full((h, 1), 2, np.uint8), up], axis=1)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, bit_depth, color_type,
+                                             0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+                + chunk(b"IEND", b""))
+
+
+def write_tum_sequence(root: str, frames, poses) -> None:
+    """The frames as a TUM RGB-D sequence: depth/ and rgb/ PNGs at 30 Hz
+    stamps, depth.txt, rgb.txt and groundtruth.txt (tx ty tz qx qy qz qw)."""
+    from vulcan_tpu_torch.utils.evaluate import rotmat_to_quat
+
+    os.makedirs(os.path.join(root, "depth"))
+    os.makedirs(os.path.join(root, "rgb"))
+    with open(os.path.join(root, "depth.txt"), "w") as fd, \
+            open(os.path.join(root, "rgb.txt"), "w") as fr, \
+            open(os.path.join(root, "groundtruth.txt"), "w") as fg:
+        fg.write("# timestamp tx ty tz qx qy qz qw\n")
+        for i, ((d16, c8), pose) in enumerate(zip(frames, poses)):
+            t = f"{1.0 + i / 30.0:.6f}"
+            write_png(os.path.join(root, "depth", f"{i}.png"), d16)
+            write_png(os.path.join(root, "rgb", f"{i}.png"), c8)
+            fd.write(f"{t} depth/{i}.png\n")
+            fr.write(f"{t} rgb/{i}.png\n")
+            vals = [*pose.translation.numpy().tolist(),
+                    *rotmat_to_quat(pose.rotation.numpy()).tolist()]
+            fg.write(t + " " + " ".join(repr(float(v)) for v in vals) + "\n")
+
+
+def start_cli(argv: list[str], counted: bool = True):
+    """Start one CLI subprocess from the checkout's root: ``python -m
+    vulcan_tpu_torch.tools.cli_counts`` (the CLI's ``main`` with the loop's
+    counters) or, with ``counted=False``, ``python -m vulcan_tpu_torch.cli``.
+    ``finish_cli`` waits for it."""
+    module = "vulcan_tpu_torch.tools.cli_counts" if counted else "vulcan_tpu_torch.cli"
+    proc = subprocess.Popen([sys.executable, "-m", module, *argv], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter(), module, argv, counted
+
+
+def finish_cli(run):
+    """(report, counts or None, seconds) of a ``start_cli`` run; fails
+    unless it exited 0."""
+    proc, t0, module, argv, counted = run
+    try:
+        out, err = proc.communicate(timeout=CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"`{module} {' '.join(argv)}` ran over {CLI_TIMEOUT} s")
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(out[-3000:], err[-3000:], flush=True)
+        fail(f"`{module} {' '.join(argv)}` exited {proc.returncode}")
+    lines = [x for x in out.splitlines() if x.startswith("{")]
+    if counted:
+        return json.loads(lines[-2]), json.loads(lines[-1])["counts"], secs
+    return json.loads(lines[-1]), None, secs
+
+
+def check_cli_run(label, rep, counts, n, reads_per_frame, ate_limit) -> dict:
+    """A CLI run's report and loop counts: every frame, no failure or
+    overflow, the ATE under its limit, K1 and K2 once a frame, the step's
+    host reads a frame and none added by the loop.  Returns its numbers."""
+    fps = rep["fps"]
+    steady = counts["step_ms"][N_WARM:]
+    out = dict(frames=rep["frames"], fps=fps, ms_per_frame=1e3 / fps if fps else None,
+               step_ms_median=float(np.median(steady)),
+               ate_m=rep.get("ate_rmse_m"), track_failures=rep["track_failures"],
+               allocated_blocks=rep["allocated_blocks"],
+               step_reads_per_frame=counts["step_reads"] / max(counts["frames"], 1),
+               loop_transfers=counts["loop_transfers"], loop_syncs=counts["loop_syncs"],
+               loop_windows=counts["loop_windows"], mesh_calls=counts["mesh_calls"],
+               mesh_reads=counts["mesh_reads"], k1_launches=counts["k1_launches"],
+               k2_kernel_launches=counts["k2_launches"])
+    print(f"{label}: {rep['frames']} frames, {fps} fps ({out['ms_per_frame']} ms a frame "
+          f"after the first, unsynchronized; Pipeline.process's host ms median "
+          f"{out['step_ms_median']:.3f} after {N_WARM} frames), ATE {out['ate_m']} m; "
+          f"step host reads/"
+          f"frame {out['step_reads_per_frame']:.2f} (expected {reads_per_frame:.2f}); the "
+          f"loop's own transfers {out['loop_transfers']} and syncs {out['loop_syncs']} "
+          f"over {out['loop_windows']} windows between steps; mesh calls "
+          f"{out['mesh_calls']} ({out['mesh_reads']} reads); K1 {out['k1_launches']}, "
+          f"K2 {out['k2_kernel_launches']} launches", flush=True)
+    if rep["frames"] != n or counts["frames"] != n:
+        fail(f"{label}: {rep['frames']} frames, expected {n}")
+    if rep["track_failures"] or rep["alloc_overflow"] or rep["visible_overflow"]:
+        fail(f"{label}: track failures or overflows in {rep}")
+    if not (rep.get("ate_rmse_m") is not None and rep["ate_rmse_m"] < ate_limit):
+        fail(f"{label}: ATE {rep.get('ate_rmse_m')} m not below {ate_limit} m")
+    if counts["k1_launches"] != n or counts["k2_launches"] != n:
+        fail(f"{label}: K1 launched {counts['k1_launches']} and K2 "
+             f"{counts['k2_launches']} times over {n} frames, expected once a frame")
+    if counts["loop_transfers"] or counts["step_reads"] != round(reads_per_frame * n):
+        fail(f"{label}: host reads beyond the step's ({counts})")
+    return out
+
+
+def entry_points(P, torch, cfg, cam, poses, frames, dev, reads, snap, snap_tris) -> dict:
+    """Phase 9: the CLI at 640x480 on the card, as subprocesses.  Phase 3's
+    frames are first written as a TUM sequence (``write_png``).  Then, three
+    at once on the card (their times are not measurements): (a) ``run
+    --synthetic 35 --mesh-every 5`` with every output flag, ``--profile``
+    and ``--trace-dir``, in combined (the default) and depth mode, ``run
+    --dataset --known-poses`` and the ``mesh`` subcommand on phase 7's
+    snapshot ``snap`` (``snap_tris`` triangles).  Alone, timed: (b) the native decoder and
+    loader, the same frames through ``Pipeline`` in memory, and ``run
+    --dataset`` tracked (its trajectory against the in-memory run).
+    ``reads`` maps a mode to the step's host reads a frame.  Returns the
+    printed numbers."""
+    import shutil
+
+    from vulcan_tpu_torch import native
+    from vulcan_tpu_torch.io.tum import TumDataset
+    from vulcan_tpu_torch.utils.evaluate import ate_rmse
+
+    tmp = os.path.join(ROOT, "build", "chip_smoke_cli")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    n = len(frames)
+    report = {}
+    gt = np.stack([p.translation.numpy() for p in poses])
+    seq = os.path.join(tmp, "seq")
+    t0 = time.perf_counter()
+    write_tum_sequence(seq, frames, poses)
+    write_s = time.perf_counter() - t0
+
+    def dataset_argv(name):
+        return ["run", "--dataset", seq, "--eval-ate", "--mesh-out",
+                os.path.join(tmp, f"{name}.ply"), "--traj-out",
+                os.path.join(tmp, f"{name}.txt")]
+
+    def check_dataset(label, rep, counts, secs, want, tol, ref_name):
+        out = check_cli_run(f"dataset/{label}", rep, counts, n,
+                            reads["known poses" if label == "known poses" else "combined"],
+                            1e-4 if label == "known poses" else 0.01)
+        traj = np.loadtxt(os.path.join(tmp, f"{label.replace(' ', '_')}.txt"),
+                          comments="#", ndmin=2)
+        wait = np.asarray(counts["feed_wait_ms"])
+        diff = float(np.abs(traj[:, 1:4] - want).max())
+        out.update(seconds=secs, feed_wait_ms_total=float(wait.sum()),
+                   feed_wait_ms_median=float(np.median(wait)),
+                   feed_wait_ms_max=float(wait.max()), max_traj_diff_m=diff,
+                   traj_tol_m=tol, mesh_triangles=rep["mesh_triangles"])
+        print(f"dataset/{label}: {secs:.1f} s in all; waited on the loader "
+              f"{wait.sum():.3f} ms over {len(wait)} frames (median {np.median(wait):.3f}, "
+              f"max {wait.max():.3f}); trajectory vs the {ref_name}: max |dt| "
+              f"{diff:.3e} m (tol {tol:g}); {rep['mesh_triangles']} triangles", flush=True)
+        if traj.shape != (n, 8) or not diff <= tol:
+            fail(f"dataset/{label}: the trajectory differs beyond {tol} m")
+        if abs(traj[1, 0] - (1.0 + 1 / 30.0)) > 1e-6:
+            fail(f"dataset/{label}: the trajectory is not at the sensor's stamps")
+        report[f"dataset/{label}"] = out
+
+    # (a) three runs at once: the synthetic orbit in both modes, the
+    # sequence at its true poses; then the mesh subcommand
+    synth = {}
+    for mode in ("combined", "depth"):
+        path = {k: os.path.join(tmp, f"{mode}.{ext}")
+                for k, ext in (("mesh", "ply"), ("snap", "npz"), ("traj", "txt"))}
+        argv = ["run", "--synthetic", str(n), "--mesh-every", "5",
+                "--mesh-out", path["mesh"], "--snapshot-out", path["snap"],
+                "--traj-out", path["traj"], "--eval-ate", "--profile",
+                "--trace-dir", os.path.join(tmp, f"trace_{mode}"), "--mode", mode]
+        synth[mode] = (path, start_cli(argv))
+    known = start_cli(dataset_argv("known_poses") + ["--known-poses"])
+    mesh_run = start_cli(["mesh", snap, "--out", os.path.join(tmp, "offline.ply")],
+                         counted=False)
+    for mode in ("combined", "depth"):
+        path, run = synth[mode]
+        rep, counts, secs = finish_cli(run)
+        out = check_cli_run(f"(a) synthetic/{mode} (3 runs sharing the card)", rep,
+                            counts, n, reads[mode], 0.01)
+        with open(path["mesh"], "rb") as f:
+            head = f.read(80)
+        traj = np.loadtxt(path["traj"], comments="#", ndmin=2)
+        trace_file = os.path.join(tmp, f"trace_{mode}", "trace.json")
+        with open(trace_file, "rb") as f:
+            body = f.read()
+        steps = body.count(b'"name": "vulcan.preprocess"')
+        has_kernels = b'"cat": "kernel"' in body
+        out.update(seconds=secs, stage_ms=rep["stage_ms"],
+                   mesh_extractions=rep["mesh_extractions"],
+                   mesh_triangles_online=rep["mesh_triangles_online"],
+                   mesh_triangles=rep["mesh_triangles"],
+                   trace_mb=len(body) / 2**20, traced_steps=steps)
+        print(f"(a) synthetic/{mode}: {secs:.1f} s in all; stage_ms {rep['stage_ms']} "
+              f"(synchronized); {rep['mesh_extractions']} online meshes, last "
+              f"{rep['mesh_triangles_online']} triangles, final {rep['mesh_triangles']}; "
+              f"PLY header {head.splitlines()[2]!r}; trajectory {traj.shape}; trace "
+              f"{len(body) / 2**20:.1f} MiB, {steps} steps' preprocess ranges, kernel "
+              f"events {has_kernels}", flush=True)
+        if b"comment vulcan-tpu mesh (native)" not in head:
+            fail(f"(a) {mode}: the PLY was not written by the native welder")
+        if traj.shape != (n, 8) or rep["mesh_extractions"] != n // 5:
+            fail(f"(a) {mode}: trajectory {traj.shape} or {rep['mesh_extractions']} meshes")
+        if not has_kernels or steps < 3:
+            fail(f"(a) {mode}: the profiler trace holds no kernel or fewer than 3 steps")
+        report[f"synthetic/{mode}"] = out
+    rep, counts, secs = finish_cli(known)
+    check_dataset("known poses", rep, counts, secs, gt, 1e-6, "ground truth")
+    rep, _, secs = finish_cli(mesh_run)
+    with open(os.path.join(tmp, "offline.ply"), "rb") as f:
+        head = f.read(80)
+    print(f"(a) mesh subcommand on phase 7's snapshot: {rep['mesh_triangles']} "
+          f"triangles (phase 7: {snap_tris}), {rep['allocated_blocks']} blocks, "
+          f"{secs:.1f} s", flush=True)
+    if rep["mesh_triangles"] != snap_tris or b"(native)" not in head:
+        fail("(a) the mesh subcommand's mesh differs from phase 7's extraction")
+    report["mesh_subcommand"] = dict(seconds=secs, triangles=rep["mesh_triangles"])
+
+    # (b) alone: the decoder, the loader, the frames in memory, the CLI
+    ds = TumDataset(seq)
+    d0, c0, _ = ds.load(0)
+    if not (np.array_equal(d0, frames[0][0].astype(np.float32) / np.float32(5000.0))
+            and np.array_equal(c0, frames[0][1].astype(np.float32) / np.float32(255.0))):
+        fail("(b) the decoded frame differs from the frame written")
+    t0 = time.perf_counter()
+    for ref in ds.frames:
+        native.decode_depth(ref.depth_path, 640, 480)
+        native.decode_rgb(ref.rgb_path, 640, 480)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / n
+    t0 = time.perf_counter()
+    got = sum(1 for _ in ds)
+    loader_ms = (time.perf_counter() - t0) * 1e3 / n
+    print(f"(b) TUM sequence of {n} frames written in {write_s:.1f} s; native decode "
+          f"{decode_ms:.3f} ms a 640x480 depth+rgb frame on one thread; the prefetch "
+          f"loader (2 threads, 4 slots) {loader_ms:.3f} ms a frame over {got}", flush=True)
+    # The same frames through Pipeline in memory (uint16/uint8), timed as the
+    # CLI times: frame 0 off the clock, one sync at the end.
+    pipe = P.Pipeline(cfg, cam, 480, 640, init_pose=poses[0], mode="combined", device=dev)
+    est, step_ms = [], []
+    for k, (d16, c8) in enumerate(frames):
+        t1 = time.perf_counter()
+        pipe.process(d16, c8)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        est.append(pipe.pose.translation)
+        if k == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    mem_ms = (time.perf_counter() - t0) * 1e3 / (n - 1)
+    est = torch.stack(est).cpu().numpy()
+    mem_step = float(np.median(step_ms[N_WARM:]))
+    print(f"(b) in memory: Pipeline.process, combined, {mem_ms:.3f} ms a frame after "
+          f"the first (unsynchronized, as the CLI counts); its host ms median "
+          f"{mem_step:.3f} after {N_WARM} frames", flush=True)
+    report["tum"] = dict(frames=n, write_s=write_s, decode_ms=decode_ms,
+                         loader_ms=loader_ms, in_memory_ms_per_frame=mem_ms,
+                         in_memory_step_ms_median=mem_step,
+                         ate_in_memory_m=float(ate_rmse(est, gt)))
+    rep, counts, secs = finish_cli(start_cli(dataset_argv("tracked")))
+    check_dataset("tracked", rep, counts, secs, est, AGREE_TOL, "in-memory run")
+    shutil.rmtree(tmp)
+    return report
+
+
+def sharded_step(P, torch, cfg, cam, poses, frames, dev, k=10) -> dict:
+    """Phase 10: the row-sharded step on 2 gloo ranks sharing the card, on
+    the orbit's first ``k`` frames under the default Config (depth mode),
+    against the single-process step on the same frames
+    (tests/test_parallel.py's tolerances, and the last frame's inliers at
+    each pyramid level within 1%); every rank's pose bit-identical, the
+    same host reads on every rank and K1/K2 once a frame in each.  Also
+    times the all-gather that opens each step, whole and for the frame's
+    rows alone: the rest is the model maps' round trip."""
+    from vulcan_tpu_torch.parallel import sharding
+    from vulcan_tpu_torch.utils.sync import read_int
+
+    t0 = time.perf_counter()
+    ranks = sharding.run_ranks(2, sharding.run_frames,
+                               (cfg, cam, frames[:k], poses[0], "depth"), device="cuda")
+    spawn_s = time.perf_counter() - t0
+    read_int.count = 0
+    pipe, est, ms, _ = run_pipeline(P, cfg, cam, poses[:k], frames[:k], 480, 640, dev,
+                                    torch.cuda.synchronize)
+    reads = read_int.count
+    r0 = ranks[0]
+    same = all(np.array_equal(r["rotation"], r0["rotation"])
+               and np.array_equal(r["translation"], r0["translation"])
+               and np.array_equal(r["tsdf"], r0["tsdf"]) for r in ranks[1:])
+    s = pipe.state
+    nf1, nfn = int(s.volume.free_count), r0["free_count"]
+    dt = float(np.abs(est - r0["translation"]).max())
+    v1, vn = s.model.valid.cpu().numpy(), r0["valid"]
+    both = v1 & vn
+    dq = float(np.quantile(np.abs(s.model.depth.cpu().numpy()[both] - r0["depth"][both]),
+                           0.99))
+    # The ranks return the tsdf rows below their free count (the rest is
+    # untouched in both runs); rows only one run allocated count as off.
+    # The track's inliers at each level after the last frame: a rank that
+    # summed rows it does not own would scale them (2x for two ranks).  The
+    # poses part by up to ~7e-5 m over the 10 frames (the sums' order), and
+    # the counts with them: 0.067% at most on the H100, held to 1%.
+    lv1, lvn = s.track_level_inliers.cpu().numpy(), r0["level_inliers"][-1]
+    t1, m = s.volume.tsdf.cpu().numpy(), min(nf1, nfn)
+    tsdf_off = float(((np.abs(t1[:m] - r0["tsdf"][:m]) > 1e-3).sum()
+                      + abs(nf1 - nfn) * t1.shape[1]) / t1.size)
+    out = dict(ranks=2, frames=k, spawn_and_run_s=spawn_s,
+               rank_ms_median=[float(np.median(r["ms"][1:])) for r in ranks],
+               single_ms_median=float(np.median(ms[1:])),
+               gather_ms=[r["gather_ms"] for r in ranks],
+               frame_gather_ms=[r["frame_gather_ms"] for r in ranks],
+               level_inliers=lvn.tolist(), single_level_inliers=lv1.tolist(),
+               ranks_bit_identical=same, reads=[r["reads"] for r in ranks],
+               single_reads=reads, k1=[r["k1_launches"] for r in ranks],
+               k2=[r["k2_launches"] for r in ranks], max_translation_diff_m=dt,
+               free_count=[nf1, nfn], valid_mismatch=float((v1 != vn).mean()),
+               depth_diff_q99_m=dq, tsdf_off_frac=tsdf_off,
+               failures=[r["track_failures"] for r in ranks],
+               overflow=[r["overflow"] for r in ranks])
+    print(f"2 ranks on one card over gloo, {k} frames: ms/frame median "
+          f"{out['rank_ms_median']} (synchronized; single process "
+          f"{out['single_ms_median']:.3f}); the all-gather that opens a step "
+          f"{out['gather_ms']} ms, of it the frame's rows alone {out['frame_gather_ms']} "
+          f"ms; {spawn_s:.1f} s spawn to results; poses, "
+          f"tsdf bit-identical across ranks {same}; host reads {out['reads']} (single "
+          f"{reads}); K1 {out['k1']}, K2 {out['k2']}; against the single process: "
+          f"level inliers {out['level_inliers']} vs {out['single_level_inliers']} "
+          f"(tol 1%), max "
+          f"|dt| {dt:.3e} m (tol 1e-3), free count {nf1} vs {nfn}, valid mismatch "
+          f"{out['valid_mismatch']:.2e} (tol 0.05), depth q99 {dq:.3e} m (tol "
+          f"{cfg.voxel_size}), tsdf off by > 1e-3 on {tsdf_off:.2e} (tol 0.1)", flush=True)
+    if not same or len(set(out["reads"])) != 1 or out["reads"][0] != reads:
+        fail("the ranks disagree with each other or with the single process's reads")
+    if out["k1"] != [k, k] or out["k2"] != [k, k]:
+        fail(f"K1/K2 launches a rank {out['k1']} / {out['k2']}, expected {k} each")
+    if any(out["failures"]) or any(out["overflow"]):
+        fail("a track failure or overflow in a rank")
+    if not (dt < 1e-3 and abs(nf1 - nfn) <= 0.05 * max(nf1, nfn)
+            and (lv1 > 0).all() and (np.abs(lvn - lv1) <= 1e-2 * lv1).all()
+            and out["valid_mismatch"] < 0.05 and both.sum() > 1000
+            and dq < cfg.voxel_size and tsdf_off < 0.1):
+        fail("the sharded step differs from the single-process step")
+    return out
+
+
 def main() -> None:
     want_profile = "--profile" in sys.argv[1:]
     want_parity = "--parity" in sys.argv[1:]
@@ -1241,11 +1624,25 @@ def main() -> None:
     dev = torch.device("cuda:0")
 
     phase("1 build")
+    import threading
+
+    from vulcan_tpu_torch import native
+
+    # g++ builds the native runtime (PNG decode, loader, PLY welder) while
+    # nvcc builds the kernels.
+    built = {}
+    host = threading.Thread(target=lambda: built.update(path=native.build(),
+                                                        s=time.perf_counter() - t0))
     t0 = time.perf_counter()
+    host.start()
     path = cuda_kernels.build()
     cuda_kernels.load()
-    print(f"built {os.path.relpath(path, ROOT)} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    host.join()
+    if "path" not in built:
+        fail("the native runtime did not build")
+    native.load()
+    print(f"built {os.path.relpath(path, ROOT)} in {time.perf_counter() - t0:.2f} s, "
+          f"{os.path.relpath(built['path'], ROOT)} in {built['s']:.2f} s", flush=True)
     for line in cuda_kernels.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
@@ -1429,9 +1826,30 @@ def main() -> None:
     with open(os.path.join(OUT_DIR, "render.json"), "w") as f:
         json.dump(dict(device=smi, **render_report), f, indent=1)
 
-    if any(m == "jax" or m.startswith(("jax.", "vulcan_tpu.")) or m == "vulcan_tpu"
-           for m in sys.modules):
-        fail("JAX or the JAX package was imported")
+    phase("9 entry points: the CLI at 640x480 (synthetic, mesh, a TUM sequence)")
+    t0 = time.perf_counter()
+    # The step's host reads a frame: phases 3 and 3b; at a given pose, the
+    # integrate chunk count and the splat's tier lengths.
+    cli_report = entry_points(P, torch, cfg, cam, poses, frames, dev,
+                              {"depth": reads / n, "known poses": 2.0,
+                               "combined": cells[1]["host_reads_per_frame"]},
+                              mesh_report["ply_snapshot"]["snapshot"],
+                              mesh_report["full"]["triangles"])
+    os.remove(mesh_report["ply_snapshot"].pop("snapshot"))
+    cli_report["phase_s"] = time.perf_counter() - t0
+    print(f"phase 9 took {cli_report['phase_s']:.1f} s", flush=True)
+
+    phase("10 the row-sharded step: 2 gloo ranks on one card (480x640, 10 frames)")
+    t0 = time.perf_counter()
+    cli_report["sharded"] = sharded_step(P, torch, cfg, cam, poses, frames, dev)
+    cli_report["sharded"]["phase_s"] = time.perf_counter() - t0
+    print(f"phase 10 took {cli_report['sharded']['phase_s']:.1f} s", flush=True)
+    with open(os.path.join(OUT_DIR, "entry.json"), "w") as f:
+        json.dump(dict(device=smi, **cli_report), f, indent=1)
+
+    if any(m.split(".")[0] in ("jax", "vulcan_tpu", "cv2") for m in sys.modules):
+        fail("JAX, the JAX package or OpenCV was imported")
+    print(f"device: {smi}", flush=True)   # again, inside the output's tail
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -233,3 +233,51 @@ def fused_orbit_volumes():
     jv, pose_j = _fused_orbit_reference()
     tv = tB.VolumeState(**{k: t(v) for k, v in jflat(jv).items()})
     return jv, tv, pose_j, se3_t(pose_j)
+
+
+# --- a mini TUM sequence (tests/test_cli.py's) ---
+TUM_H, TUM_W = 120, 160
+
+
+def tum_camera_j():
+    """The camera the TUM reader derives for a 160x120 sequence (the fr1
+    intrinsics scaled to the probed size), as the reference's JAX camera."""
+    sx, sy = TUM_W / 640, TUM_H / 480
+    return JCam.create(517.3 * sx, 516.5 * sy,
+                       (318.6 + 0.5) * sx - 0.5, (255.3 + 0.5) * sy - 0.5)
+
+
+def make_mini_tum(root, n=4):
+    """tests/test_cli.py's mini TUM sequence: n sphere frames on a short
+    orbit, 16-bit depth and 8-bit BGR PNGs written by OpenCV, depth.txt,
+    rgb.txt and a quaternion groundtruth.txt.  Returns ``root``."""
+    import cv2
+
+    from vulcan_tpu.io.synthetic import render_sphere_depth
+
+    camera = tum_camera_j()
+    (root / "depth").mkdir(parents=True)
+    (root / "rgb").mkdir()
+    poses = orbit_poses(n, radius=1.6, height=0.3, span=0.12)
+    with open(root / "depth.txt", "w") as fd, open(root / "rgb.txt", "w") as fr, \
+            open(root / "groundtruth.txt", "w") as fg:
+        fd.write("# ts file\n")
+        fg.write("# ts tx ty tz qx qy qz qw\n")
+        for i, pose in enumerate(poses):
+            depth, color = render_sphere_depth(camera, pose, TUM_H, TUM_W,
+                                               (0.0, 0.0, 0.0), 0.5)
+            d16 = (np.asarray(depth) * 5000).astype(np.uint16)
+            c8 = (np.clip(np.asarray(color), 0, 1) * 255).astype(np.uint8)
+            t = 1.0 + 0.05 * i
+            cv2.imwrite(str(root / "depth" / f"{i}.png"), d16)
+            cv2.imwrite(str(root / "rgb" / f"{i}.png"), c8[..., ::-1])
+            fd.write(f"{t} depth/{i}.png\n")
+            fr.write(f"{t + 0.001 * (i % 2)} rgb/{i}.png\n")
+            R = np.asarray(pose.rotation, np.float64)
+            tr = np.asarray(pose.translation, np.float64)
+            qw = np.sqrt(max(0.0, 1.0 + R[0, 0] + R[1, 1] + R[2, 2])) / 2
+            qx = (R[2, 1] - R[1, 2]) / (4 * qw)
+            qy = (R[0, 2] - R[2, 0]) / (4 * qw)
+            qz = (R[1, 0] - R[0, 1]) / (4 * qw)
+            fg.write(f"{t} {tr[0]} {tr[1]} {tr[2]} {qx} {qy} {qz} {qw}\n")
+    return root

@@ -1,6 +1,7 @@
-"""Guards of the PyTorch port: no JAX, no nvcc or GPU needed to import,
-plain versions only for CPU tensors, and a chip smoke test that refuses
-to run without a card."""
+"""Guards of the PyTorch port: no JAX, no OpenCV, no nvcc or GPU needed
+to import, plain versions only for CPU tensors, the native runtime built
+under build/ and raising when it cannot be built, and a chip smoke test
+that refuses to run without a card."""
 import ast
 import dataclasses
 import os
@@ -36,12 +37,14 @@ def test_import_pulls_in_no_jax():
         "vulcan_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
         for p in sorted(PKG.rglob("*.py")) if p.name != "__init__.py"
     )
-    assert "vulcan_tpu_torch.ops.render_cache" in mods.split(", ")
+    for m in ("ops.render_cache", "cli", "io.tum", "utils.runtime", "utils.timing",
+              "native.build", "parallel.sharding", "tools.cli_counts"):
+        assert f"vulcan_tpu_torch.{m}" in mods.split(", "), m
     proc = _run(
         "import importlib, sys\n"
         f"for m in '{mods}'.split(', '): importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'vulcan_tpu' or m.startswith('vulcan_tpu.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'vulcan_tpu', 'cv2')]\n"
         "print('BAD', bad)\n"
     )
     assert proc.returncode == 0, proc.stderr
@@ -49,7 +52,7 @@ def test_import_pulls_in_no_jax():
 
 
 def test_sources_name_no_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|vulcan_tpu)(\s|\.|$)", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|vulcan_tpu|cv2)(\s|\.|$)", re.M)
     for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
         assert not pat.search(path.read_text()), path
 
@@ -210,3 +213,47 @@ def test_entry_point_without_device_needs_a_card(entry, monkeypatch):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         calls[entry]()
     calls[entry](device="cpu")
+
+
+def test_native_library_builds_only_under_build():
+    from vulcan_tpu_torch import native
+
+    path = native.library_path()
+    assert path.is_relative_to(ROOT / "build" / "vulcan_tpu_torch_native")
+    native.load()
+    assert path.is_file()
+    assert not list(PKG.rglob("*.so"))
+
+
+def test_failed_native_build_raises_with_compiler_output(monkeypatch, tmp_path):
+    """A native build that fails raises with g++'s stderr, and the TUM
+    reader raises with it rather than assuming a 640x480 camera."""
+    import cv2
+
+    from vulcan_tpu_torch import native
+    from vulcan_tpu_torch.io.tum import TumDataset
+
+    broken = tmp_path / "native.cpp"
+    broken.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "SRC", broken)
+    monkeypatch.setattr(native, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(native, "_lib", None)
+    seq = tmp_path / "seq"
+    seq.mkdir()
+    cv2.imwrite(str(seq / "d.png"), np.zeros((12, 16), np.uint16))
+    (seq / "depth.txt").write_text("1.0 d.png\n")
+    with pytest.raises(RuntimeError, match="native build failed(.|\n)*not C"):
+        TumDataset(str(seq))
+    assert not list((tmp_path / "build").rglob("*.so"))
+
+
+def test_cli_without_device_needs_a_card(monkeypatch):
+    """``vulcan-tpu-torch run`` targets the card; with no card it raises,
+    never falling back to the CPU."""
+    from vulcan_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        cli.main(["run", "--synthetic", "2"])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        cli.main(["mesh", "snapshot.npz", "--out", "m.ply"])

@@ -225,10 +225,12 @@ def test_mesh_watertight_on_closed_surface(reference_volume):
 
 @pytest.mark.parametrize("weld", [True, False])
 def test_ply_roundtrip(reference_mesh, tmp_path, weld):
-    """The port's writer and reader on the reference's mesh: every face
-    comes back, welded as the reference's ``weld_vertices`` welds it (one
-    vertex per distinct rounded position), colours as uchar."""
-    from vulcan_tpu.io.ply import weld_vertices as j_weld
+    """The port's writer (the native welder) and reader on the reference's
+    mesh: every face comes back, welded as the native writer welds it (one
+    vertex per distinct position on its 1e-5 grid, first seen first: the
+    plain version below), colours as uchar; the file is the reference's
+    writer's, byte for byte."""
+    from vulcan_tpu.io.ply import write_ply as j_write_ply
 
     n = int(reference_mesh["count"])
     pos, col = reference_mesh["positions"][:n], reference_mesh["colors"][:n]
@@ -236,17 +238,27 @@ def test_ply_roundtrip(reference_mesh, tmp_path, weld):
     write_ply(path, pos, col, weld=weld)
     verts, cols, faces = read_ply(path)
     assert len(faces) == n
+    flat, flat_c = pos.reshape(-1, 3), col.reshape(-1, 3)
     if weld:
-        want_v, want_c, want_f = j_weld(pos, col)
+        keys = np.rint(flat * (np.float32(1) / np.float32(1e-5)))
+        _, first, inv = np.unique(keys, axis=0, return_index=True,
+                                  return_inverse=True)
+        order = np.argsort(first)
+        rank = np.empty_like(order)
+        rank[order] = np.arange(len(order))
+        want_v, want_c = flat[first[order]], flat_c[first[order]]
+        want_f = rank[inv.reshape(-1)].reshape(-1, 3)
         assert len(want_v) < 3 * n
     else:
-        want_v, want_c = pos.reshape(-1, 3), col.reshape(-1, 3)
+        want_v, want_c = flat, flat_c
         want_f = np.arange(3 * n).reshape(-1, 3)
     np.testing.assert_array_equal(verts, want_v)
     np.testing.assert_array_equal(faces, want_f)
     np.testing.assert_array_equal(
         cols, np.clip(want_c * 255.0, 0, 255).astype(np.uint8).astype(np.float32) / 255.0)
-    np.testing.assert_allclose(verts[faces], pos, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(verts[faces], pos, rtol=0, atol=1e-5)
+    j_write_ply(str(tmp_path / "ref.ply"), pos, col, weld=weld)
+    assert (tmp_path / "ref.ply").read_bytes() == (tmp_path / "mesh.ply").read_bytes()
 
 
 def _assert_mesh_equal(inc, full):

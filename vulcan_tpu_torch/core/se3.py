@@ -94,6 +94,21 @@ class SE3:
             torch.zeros(3, dtype=dtype, device=device),
         )
 
+    @staticmethod
+    def from_matrix(T: torch.Tensor) -> "SE3":
+        """(...,4,4) or (...,3,4) homogeneous matrix -> SE3."""
+        return SE3(T[..., :3, :3], T[..., :3, 3])
+
+    def as_matrix(self) -> torch.Tensor:
+        """-> (...,4,4) homogeneous matrix."""
+        batch = self.translation.shape[:-1]
+        bottom = torch.tensor(
+            [0.0, 0.0, 0.0, 1.0], dtype=self.translation.dtype,
+            device=self.translation.device,
+        ).expand(*batch, 1, 4)
+        top = torch.cat([self.rotation, self.translation[..., :, None]], dim=-1)
+        return torch.cat([top, bottom], dim=-2)
+
     def to(self, device) -> "SE3":
         return SE3(self.rotation.to(device), self.translation.to(device))
 

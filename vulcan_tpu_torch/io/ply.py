@@ -3,9 +3,12 @@
 Binary little-endian PLY with per-vertex uchar colours.  The extractor emits
 a fixed-capacity triangle soup; the writer optionally welds duplicate
 vertices (marching cubes shares every edge vertex between adjacent
-triangles) so files are ~6x smaller.  Welding here is numpy's
-``np.unique`` (O(n log n)); the reference's native O(n) hash welder is not
-part of the port yet.
+triangles) so files are ~6x smaller.  A non-empty mesh is written by the
+native runtime's O(n) hash welder (``vulcan_tpu_torch.native.ply_write``,
+header comment ``vulcan-tpu mesh (native)``), built at first use; a
+failed build raises.  An empty mesh is written by the numpy writer
+below.  ``weld_vertices`` (numpy's ``np.unique``, O(n log n)) is a plain
+weld that the tests use.
 
 A minimal reader is included for tests and the snapshot/resume path.
 """
@@ -43,12 +46,15 @@ def write_ply(
     if colors is None:
         colors = np.full_like(positions, 0.7)
     colors = np.asarray(colors, np.float32)
-    if weld and len(positions):
-        verts, vcols, faces = weld_vertices(positions, colors)
-    else:
-        verts = positions.reshape(-1, 3)
-        vcols = colors.reshape(-1, 3)
-        faces = np.arange(len(verts), dtype=np.int64).reshape(-1, 3)
+    if len(positions):
+        from .. import native
+
+        native.ply_write(path, positions, colors, weld=weld)
+        return
+    # An empty mesh: the numpy writer, as the reference writes it.
+    verts = positions.reshape(-1, 3)
+    vcols = colors.reshape(-1, 3)
+    faces = np.zeros((0, 3), np.int64)
 
     vcols_u8 = np.clip(vcols * 255.0, 0, 255).astype(np.uint8)
     with open(path, "wb") as f:

@@ -50,6 +50,23 @@ class ModelMaps:
     world_to_cam: SE3
 
 
+class Reducer:
+    """How a track takes its Gauss-Newton sums: the live rows a process
+    sums (``rows``) and how the stacked sums of its rows become the whole
+    image's (``__call__``).  This one is a single process holding every
+    row, the identity both ways; ``parallel/sharding.py`` gives each rank
+    its rows and adds the sums of every rank."""
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def __call__(self, sums: torch.Tensor) -> torch.Tensor:
+        return sums
+
+
+LOCAL = Reducer()
+
+
 @dataclasses.dataclass(frozen=True)
 class TrackResult:
     pose: SE3                    # live camera-to-world
@@ -265,7 +282,8 @@ def associate_depth(live: FrameMaps, model: ModelMaps, pose: SE3, config: Config
 
 
 def _pp_normal_eqs(live: FrameMaps, v_m, n_m, assoc_ok, pose: SE3,
-                   config: Config, live_normals: bool = False):
+                   config: Config, live_normals: bool = False,
+                   reduce: Reducer = LOCAL):
     """Point-to-plane 6x6 normal equations from planar rows.  Returns
     (H (6,6), b (6,), err, cnt).  ``live_normals=True`` builds J from the
     LIVE normals over the same gated set (the degeneracy detector)."""
@@ -294,7 +312,7 @@ def _pp_normal_eqs(live: FrameMaps, v_m, n_m, assoc_ok, pose: SE3,
         vx * ny - vy * nx,
         nx, ny, nz,                 # [n]
     )
-    return _fused_normal_eqs(j, r, w)
+    return _fused_normal_eqs(j, r, w, reduce)
 
 
 def _sum_positions(n: int = 6):
@@ -315,9 +333,10 @@ def _sum_positions(n: int = 6):
 _HMAP, _BMAP = _sum_positions()
 
 
-def _fused_normal_eqs(j, r, w):
+def _fused_normal_eqs(j, r, w, reduce: Reducer = LOCAL):
     """(H, b, err, cnt) from planar Jacobian components: all 29 scalars
-    from ONE stacked reduction, H assembled by a static gather."""
+    from ONE stacked reduction (``reduce`` adds other processes' rows), H
+    assembled by a static gather."""
     parts = []
     for a in range(6):
         wj = w * j[a]
@@ -326,7 +345,7 @@ def _fused_normal_eqs(j, r, w):
         parts.append(wj * r)
     parts.append(w * r * r)
     parts.append((w > 0.0).to(torch.float32))
-    sums = torch.sum(torch.stack(parts).reshape(len(parts), -1), dim=1)
+    sums = reduce(torch.sum(torch.stack(parts).reshape(len(parts), -1), dim=1))
     # Assembled from views of the sums: a host-built index tensor would be
     # a host->device copy, which PyTorch follows with a stream sync.
     H = torch.stack([sums[i] for i in _HMAP]).reshape(6, 6)
@@ -498,6 +517,7 @@ def track(
     init_pose: SE3,
     config: Config,
     mode: str = "depth",
+    reduce: Reducer = LOCAL,
 ) -> TrackResult:
     """Coarse-to-fine GN over the pyramid, all on the device.
 
@@ -511,6 +531,10 @@ def track(
     correspondences.  ``geo_degen`` is the geometric-only score, taken
     before the photometric rows are added.  Per-level inlier floors
     invalidate a track whose coarse level starved.
+
+    ``reduce`` picks the live rows this process sums at every level and
+    combines the stacked sums before every solve (``Reducer``); the model
+    maps stay whole.
     """
     from . import light as light_ops
 
@@ -533,16 +557,16 @@ def track(
         model = model_pyr[level]
         iters = config.icp_iters[level]
         st = strides[level]
-        if st > 1:
-            live = FrameMaps(
-                depth=live.depth[::st, ::st],
-                vertices=live.vertices[::st, ::st],
-                normals=live.normals[::st, ::st],
-                intensity=(
-                    live.intensity[::st, ::st] if live.intensity is not None else None
-                ),
-                camera=live.camera,
-            )
+        live = FrameMaps(
+            depth=reduce.rows(live.depth[::st, ::st]),
+            vertices=reduce.rows(live.vertices[::st, ::st]),
+            normals=reduce.rows(live.normals[::st, ::st]),
+            intensity=(
+                reduce.rows(live.intensity[::st, ::st])
+                if live.intensity is not None else None
+            ),
+            camera=live.camera,
+        )
         photo_here = _photo_here(mode, level, config)
         grads = intensity_grads(model.intensity) if photo_here else None
         rounds = max(1, min(config.icp_assoc[level], iters))
@@ -557,19 +581,21 @@ def track(
                     # Refit the gain at every round with the pose frozen,
                     # then hold it across the round's GN steps.
                     coeffs = light_ops.estimate_gain(
-                        n_m, samples[0], live.intensity, samples[5] & ok
+                        n_m, samples[0], live.intensity, samples[5] & ok,
+                        reduce=reduce,
                     )
                     samples = light_ops.scale_photo_samples(samples, n_m, coeffs)
             for _ in range(inner):
                 if geometric:
-                    H, b, e, c = _pp_normal_eqs(live, v_m, n_m, ok, pose, config)
+                    H, b, e, c = _pp_normal_eqs(live, v_m, n_m, ok, pose, config,
+                                                reduce=reduce)
                 else:
                     H = torch.zeros((6, 6), device=dev)
                     b = torch.zeros(6, device=dev)
                     e = c = zero
                 if photo_here:
                     jc, rc, wc = color_rows_fixed(live, samples, model, pose, config)
-                    Hc, bc, ec, cc = _fused_normal_eqs(jc, rc, wc)
+                    Hc, bc, ec, cc = _fused_normal_eqs(jc, rc, wc, reduce)
                     H, b = H + Hc, b + bc
                     if mode == "color":
                         e, c = ec, cc
@@ -582,7 +608,7 @@ def track(
             continue
         if geometric:
             H_det, _, _, _ = _pp_normal_eqs(
-                live, v_m, n_m, ok, pose, config, live_normals=True
+                live, v_m, n_m, ok, pose, config, live_normals=True, reduce=reduce
             )
         else:
             H_det = torch.zeros((6, 6), device=dev)
@@ -590,7 +616,7 @@ def track(
             lvl_deg_geo[level] = _min_eig_normalized(H_det)
         if photo_here:
             jc, rc, wc = color_rows_fixed(live, samples, model, pose, config)
-            H_det = H_det + _fused_normal_eqs(jc, rc, wc)[0]
+            H_det = H_det + _fused_normal_eqs(jc, rc, wc, reduce)[0]
         lvl_deg[level] = _min_eig_normalized(H_det)
         if geometric and not photo_here:
             lvl_deg_geo[level] = lvl_deg[level]

@@ -14,7 +14,7 @@ import dataclasses
 
 import torch
 
-from .icp import _sum_positions
+from .icp import LOCAL, Reducer, _sum_positions
 
 #: Gain clip range: a Lambertian gain is non-negative, and above 4x the
 #: correspondence is junk, not lighting.
@@ -55,12 +55,14 @@ def estimate_gain(
     live_i: torch.Tensor,
     weight: torch.Tensor,
     ridge: float = 3e-2,
+    reduce: Reducer = LOCAL,
 ) -> torch.Tensor:
     """Weighted linear least squares for the 9 SH gain coefficients:
     minimizes ``sum w (model_i * b(n_m).ell - live_i)^2 + lam |ell - e0|^2``
     with ``lam = ridge * tr(M) / 9``.  Planar (H, W) inputs, ``n_m``
-    (H, W, 3); returns (9,) float32.  A failed factorization, a non-finite
-    solution or fewer than 64 samples give the unit gain."""
+    (H, W, 3); returns (9,) float32.  ``reduce`` adds the sums of the
+    rows other processes hold (``icp.Reducer``).  A failed factorization,
+    a non-finite solution or fewer than 64 samples give the unit gain."""
     b = sh_basis(n_m[..., 0], n_m[..., 1], n_m[..., 2])
     a = [model_i * bk for bk in b]
     w = weight.to(torch.float32)
@@ -71,7 +73,7 @@ def estimate_gain(
             parts.append(wa * a[k])
         parts.append(wa * live_i)
     parts.append(w)
-    sums = torch.sum(torch.stack(parts).reshape(len(parts), -1), dim=1)
+    sums = reduce(torch.sum(torch.stack(parts).reshape(len(parts), -1), dim=1))
     # Assembled from views of the sums (no host-built index tensor).
     M = torch.stack([sums[i] for i in _MMAP]).reshape(9, 9)
     y = torch.stack([sums[i] for i in _YMAP])

@@ -244,11 +244,14 @@ def step(
     color: torch.Tensor,
     config: Config,
     mode: str = "depth",
+    reduce: icp.Reducer = icp.LOCAL,
 ) -> PipelineState:
     """One online frame: track, gate, fuse, render.
 
     The returned state shares the volume's tensors with ``state``, which
-    this call updates in place (see ``ops/sparse.py``).
+    this call updates in place (see ``ops/sparse.py``).  ``reduce`` is the
+    track's row split and sum (``icp.Reducer``; ``parallel/sharding.py``
+    passes one per rank).
     """
     check_supported(config, mode)
     skip = _ablated(config)
@@ -286,7 +289,8 @@ def step(
                 mode_now = "combined" if state.photo_cnt_host > 0 else "depth"
             else:
                 mode_now = mode
-            result = icp.track(live_pyr, model_pyr, init_pose, config, mode_now)
+            result = icp.track(live_pyr, model_pyr, init_pose, config, mode_now,
+                               reduce)
 
     with record_function("vulcan.gate"):
         pose, trusted, degenerate, fuse_ok, photo_cnt, photo_cnt_host = _gate(
