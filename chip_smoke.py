@@ -24,19 +24,32 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      against its plain version; K2 at fill rounds 0, 1, 2 and 5 (5 is two
      launches) at 480x640 and 121x161 against its plain version, with its
      launches per call, and the device time a launch of an empty kernel
-     takes (the launch floor);
+     takes (the launch floor).  Then the track's kernels H1a-H1c
+     (``csrc/icp.cu``; ``track_kernels``): the orbit's first frame fused
+     at its true pose is the model and its own pyramid the live side; at
+     the true pose and at one moved 2 cm and 1 degree, in depth, color
+     and combined mode, at every level, H1a against ``_associate_plain``
+     (validity masks and correspondences bit-equal, samples within 1e-5),
+     H1b against ``_rows_plain`` (step and detector rows: H, b and the
+     error of each term within 1e-5 of the block's largest sum of
+     magnitudes, counts equal), H1c against ``_solve_plain`` (rtol 1e-4),
+     each twice and bit-identical (chiprun_out/track_kernels.json),
+     and each timed like K1 at the finest level in depth mode;
   3. main path: Pipeline(Config(), tum_default(), 480, 640) in depth mode
      over the 35-frame synthetic orbit (uint16 depth / uint8 colour in),
      5 warm-up + 30 timed frames; the kernels must have launched once per
-     frame (K2: one kernel launch per frame), with zero overflows, zero
-     track failures and ATE < 0.01 m;
+     frame (K2: one kernel launch per frame; H1a-H1c 12, 29 and 29 times a
+     frame, ``track_launches``), with zero overflows, zero track failures
+     and ATE < 0.01 m; then the same run with the track's entry points on
+     their plain versions on the card (``plain_track``): ATE within 1e-4 m;
   3b. the photometric paths at 480x640, each run with the counts set to 0
      just before it: (a) the orbit in mode="combined" under the default
      Config; (b) the orbit in depth mode with auto_photo_enter=0.99, which
      must arm the combined-mode rescue; (c) the 245-frame desk orbit in
      mode="combined".  Each prints ms/frame median and p90, ATE, armed
-     frames, host reads a frame and K1/K2 launches, and fails unless K1
-     and K2 launched once a frame, nothing overflowed, every pose is
+     frames, host reads a frame and K1/K2/H1a-H1c launches, and fails
+     unless K1 and K2 launched once a frame and H1a-H1c as in phase 3,
+     nothing overflowed, every pose is
      finite and ATE < 0.01 m on (a) and (b), < 0.1 m on (c).  With
      --parity also the desk in mode="light" and in depth mode under the
      default Config (armed frames and ATE, recorded, not judged);
@@ -136,6 +149,7 @@ Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -160,6 +174,7 @@ N_WARM, N_TIMED = 5, 30
 K1_TOL = 1e-5    # m: ex2.approx, the folded exponent, the reduction's order
 K2_TOL = 1e-6    # m: fill is min/max (exact); smoothing sums in one order
 AGREE_TOL = 1e-3  # m: card vs CPU per-frame translation (float reassociation)
+PLAIN_ATE_TOL = 1e-4  # m: orbit ATE through H1a-H1c vs their plain versions on the card
 DESK_ATE = 0.1    # m: the desk's wrong-basin slide, which combined tracking
                   # prevents, is 0.73 m; the reference holds 0.02162 m
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -208,13 +223,14 @@ def check_kernel(spec: dict, torch) -> dict:
     from vulcan_tpu_torch.tools.timing import call_ms, device_and_host, max_abs_err
 
     name, tol = spec["name"], spec["tol"]
-    want = spec["plain"]()
+    flat = spec.get("flat", lambda out: out)   # outputs -> one tensor to compare
+    want = flat(spec["plain"]())
     torch.cuda.synchronize()
     n0 = spec["count"]()
-    errs = {"plain": max_abs_err(spec["call"](), want)}
+    errs = {"plain": max_abs_err(flat(spec["call"]()), want)}
     launches_per_call = spec["count"]() - n0
     for ref_name, ref in spec.get("also", ()):
-        errs[ref_name] = max_abs_err(spec["call"](), ref())
+        errs[ref_name] = max_abs_err(flat(spec["call"]()), flat(ref()))
     torch.cuda.synchronize()
     kernel_ms, host_us = device_and_host(spec["call"])
     call = call_ms(spec["call"])
@@ -326,6 +342,212 @@ def k2_rounds_and_shapes(P, splat, torch, dev) -> None:
                 fail(f"K2 at {h}x{w}, rounds {rounds}: max abs error {err} above {K2_TOL}")
             if per_call != len(cuda_kernels.fill_smooth_plan(rounds)):
                 fail(f"K2 at rounds {rounds}: {per_call} kernel launches per call")
+
+
+# The track's GN kernels (csrc/icp.cu) against their plain versions.
+ICP_SUM_TOL = 1e-5      # of a block's largest sum of magnitudes: the sums' order
+ICP_SOLVE_RTOL = 1e-4   # the 6x6 algebra in another order (its inputs are sums)
+# f32 operations a live pixel (the plain version's, counted from ops/icp.py):
+# H1a: two 3x4 transforms 36, projection 7, round/clamp/bounds 10, the
+# vertex and normal decode 12, gates 5; photometric: floor/fraction 4,
+# weights 6, 12 half-word decodes 24, three blends 21.  H1b: transform 18,
+# normal rotation 15, residual and gates 18, Huber 3, J 9, the 29 products
+# and sums 65; photometric: transform and projection 25, residual 5, the
+# chain rule 25, gate and Huber 11, J 15, products and sums 65.
+ICP_OPS = {"associate": (70, 55), "rows": (133, 146)}
+ICP_SOLVE_OPS = 400      # one 6x6 step: the factor, two solves, exp, product
+
+
+def icp_bytes_ops(kind: str, lv, geometric: bool, photo: bool) -> tuple[int, int]:
+    """Bytes in + out and f32 operations of one H1a or H1b call on a level:
+    each input read once, each output written once.  H1a gathers model
+    words for each live pixel, one vpack1/vpack2/npack triple and the four
+    taps of the two photometric words: counted once a live pixel, at most
+    a whole map."""
+    n = lv.depth.numel()
+    model = lv.npack.numel()
+    if kind == "associate":
+        nbytes = 12 * n + (4 * n + min(12 * n, 12 * model) + 25 * n if geometric else 0) \
+            + (min(32 * n, 8 * model) + 21 * n if photo else 0)
+    else:
+        nbytes = 4 * 2 * 29 + (49 * n if geometric else 0) + (29 * n if photo else 0)
+    geo_ops, photo_ops = ICP_OPS[kind]
+    return nbytes + 124, n * (geo_ops * geometric + photo_ops * photo)
+
+
+# The blocks of a 29-vector that H1b's check scales apart: H's upper
+# triangle, b, the error; the count (28) is held exactly.
+ICP_SUM_BLOCKS = {"H": (0, 1, 2, 3, 4, 5, 7, 8, 9, 10, 11, 13, 14, 15, 16, 18, 19, 20, 22, 23, 25),
+                  "b": (6, 12, 17, 21, 24, 26), "error": (27,)}
+
+
+def icp_sums_err(got, want, magnitudes) -> float:
+    """The largest error of H1b's sums, each block of each row (geometric,
+    photometric) over its largest sum of magnitudes: a sum's rounding in
+    another order stays within a few ulps of that, a wrong term does not.
+    An absent term (magnitudes 0) must be 0 exactly."""
+    worst = 0.0
+    for row in range(2):
+        for idx in ICP_SUM_BLOCKS.values():
+            idx = list(idx)
+            diff = float((got[row, idx] - want[row, idx]).abs().max())
+            scale = float(magnitudes[row, idx].max())
+            worst = max(worst, diff / scale if scale > 0.0 else
+                        (float("inf") if diff else 0.0))
+    return worst
+
+
+def track_kernels(P, torch, dev, cam, poses, frames) -> list[dict]:
+    """Phase 2, H1a-H1c: the orbit's first frame fused at its true pose and
+    rendered (the model), its own pyramid (the live side), at the true
+    pose and at one moved 2 cm and 1 degree, in depth, color (no
+    geometric term) and combined mode, every level: H1a against
+    ``_associate_plain`` (validity masks and the decoded correspondences
+    exact, samples within 1e-5), H1b against ``_rows_plain`` on the same
+    correspondences (step and detector rows; ``icp_sums_err`` within
+    ICP_SUM_TOL, the count exact), H1c against
+    ``_solve_plain`` on the same sums (step and scores, ICP_SOLVE_RTOL);
+    each kernel twice, bit-identical.  Returns the kernels line's entries,
+    timed at the finest level in depth mode (the main path's shapes)."""
+    from vulcan_tpu_torch.core.frame import Frame
+    from vulcan_tpu_torch.core.se3 import SE3
+    from vulcan_tpu_torch.ops import cuda_kernels, icp, preprocess
+    from vulcan_tpu_torch.pipeline import fusion
+    from vulcan_tpu_torch.tools.timing import max_abs_err
+
+    cfg = P.Config()
+    pipe = P.Pipeline(cfg, cam, 480, 640, init_pose=poses[0], mode="combined", device=dev)
+    d16, c8 = frames[0]
+    pipe.process(d16, c8, pose=poses[0])
+    depth, color = fusion._to_metric(torch.from_numpy(d16).to(dev),
+                                     torch.from_numpy(c8).to(dev), cfg)
+    live = preprocess.build_pyramid(Frame(depth, color, cam, poses[0]), cfg)
+    model = icp.model_pyramid(pipe.state.model, cfg.pyramid_levels,
+                              flat_thresh=max(0.05, 6.0 * cfg.voxel_size))
+    moved = SE3.exp(torch.tensor([0.0, 0.0174533, 0.0, 0.02, 0.0, 0.0], device=dev))
+    strides = icp._level_strides(cfg)
+    report = []
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    for mode in ("depth", "color", "combined"):
+        geometric = mode != "color"
+        for tag, pose in (("true pose", poses[0].to(dev)),
+                          ("moved 2 cm, 1 deg", moved @ poses[0].to(dev))):
+            pv = icp._pose_vector(pose)
+            for level in range(cfg.pyramid_levels):
+                photo = icp._photo_here(mode, level, cfg)
+                lv = icp.level_inputs(live[level], model[level], strides[level], icp.LOCAL,
+                                      photo)
+                got, want = (icp.icp_associate(lv, pv, cfg, geometric, photo),
+                             icp._associate_plain(lv, pv, cfg, geometric, photo))
+                again = icp.icp_associate(lv, pv, cfg, geometric, photo)
+                want_c, want_s = want
+                # Each term's outputs, validity mask last: (v_m, n_m, ok),
+                # (i_m0, gu, gv, u0, v0, ok).
+                terms = [k for k in range(2) if want[k] is not None]
+                repeat = all(same(got[k], again[k]) for k in terms)
+                ok_flips = sum(int((got[k][-1] != want[k][-1]).sum()) for k in terms)
+                corr_exact = not geometric or same(got[0], want_c)
+                if photo:
+                    s_err = max(max_abs_err(a, b) for a, b in zip(got[1][:5], want_s[:5]))
+                    samples_exact = same(got[1], want_s)
+                else:
+                    s_err, samples_exact = 0.0, True
+                rows = {}
+                for live_normals in (False, True):
+                    args = (lv, pv, want_c, want_s, cfg, geometric, photo, live_normals)
+                    got = icp.icp_rows(*args)
+                    again = icp.icp_rows(*args)
+                    want = icp._rows_plain(*args)
+                    rows[live_normals] = dict(
+                        err=icp_sums_err(got, want, icp._rows_plain(*args, magnitudes=True)),
+                        count_equal=bool(torch.equal(got[:, 28], want[:, 28])),
+                        repeat=bool(torch.equal(got, again)), sums=want)
+                solve = {}
+                for detect in (False, True):
+                    sums = rows[detect]["sums"]
+                    got = icp.icp_solve(sums, pv, cfg, geometric, photo, detect)
+                    again = icp.icp_solve(sums, pv, cfg, geometric, photo, detect)
+                    want = icp._solve_plain(sums, pv, cfg.icp_damping, geometric, photo,
+                                            detect)
+                    solve[detect] = dict(
+                        err=max_abs_err(got, want), repeat=bool(torch.equal(got, again)),
+                        ok=bool(torch.allclose(got, want, rtol=ICP_SOLVE_RTOL, atol=1e-6)))
+                line = dict(mode=mode, pose=tag, level=level, photo=photo,
+                            live=tuple(lv.depth.shape), ok_flips=ok_flips,
+                            correspondences_exact=corr_exact, samples_exact=samples_exact,
+                            samples_max_abs_err=s_err, rows_rel_err=rows[False]["err"],
+                            detector_rows_rel_err=rows[True]["err"],
+                            solve_max_abs_err=solve[False]["err"],
+                            scores_max_abs_err=solve[True]["err"],
+                            inliers=float(rows[False]["sums"][0 if geometric else 1, 28]),
+                            repeats_bit_identical=repeat and all(
+                                r["repeat"] for r in (*rows.values(), *solve.values())))
+                report.append(line)
+                print(f"H1a-H1c {mode}, {tag}, level {level} ({line['live'][0]}x"
+                      f"{line['live'][1]}, photometric {photo}): ok flips {ok_flips}, "
+                      f"correspondences exact {corr_exact}, samples exact {samples_exact} "
+                      f"(max abs err {s_err:.3e}); rows {rows[False]['err']:.3e} / detector "
+                      f"{rows[True]['err']:.3e} of a block's sum of magnitudes (tol {ICP_SUM_TOL:g}), "
+                      f"counts equal {rows[False]['count_equal'] and rows[True]['count_equal']}; "
+                      f"solve max abs err {solve[False]['err']:.3e}, scores "
+                      f"{solve[True]['err']:.3e} (rtol {ICP_SOLVE_RTOL:g}, atol 1e-6); inliers {line['inliers']:.0f}; repeats "
+                      f"bit-identical {line['repeats_bit_identical']}", flush=True)
+                if ok_flips or not corr_exact or not s_err <= 1e-5:
+                    fail(f"H1a differs from its plain version ({mode}, {tag}, level {level})")
+                if not all(r["err"] <= ICP_SUM_TOL and r["count_equal"] for r in rows.values()):
+                    fail(f"H1b differs from its plain version ({mode}, {tag}, level {level})")
+                if not all(v["ok"] for v in solve.values()):
+                    fail(f"H1c differs from its plain version ({mode}, {tag}, level {level})")
+                if not line["repeats_bit_identical"]:
+                    fail(f"a repeat of H1a-H1c differs ({mode}, {tag}, level {level})")
+                if line["inliers"] < 100:
+                    fail(f"under 100 inliers at level {level}: the check saw no rows")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "track_kernels.json"), "w") as f:
+        json.dump(report, f, indent=1)
+
+    # The kernels line: the finest level in depth mode, at the moved pose.
+    lv = icp.level_inputs(live[0], model[0], strides[0], icp.LOCAL, False)
+    pv = icp._pose_vector(moved @ poses[0].to(dev))
+    corr, _ = icp._associate_plain(lv, pv, cfg, True, False)
+    sums = icp._rows_plain(lv, pv, corr, None, cfg, True, False)
+    shape = f"{lv.depth.shape[0]}x{lv.depth.shape[1]} live, {lv.npack.shape[0]}x" \
+            f"{lv.npack.shape[1]} model, depth mode"
+    a_bytes, a_ops = icp_bytes_ops("associate", lv, True, False)
+    r_bytes, r_ops = icp_bytes_ops("rows", lv, True, False)
+    specs = [
+        dict(name="icp_associate", tol=0.0, source="vulcan_tpu_torch/csrc/icp.cu",
+             replaces="vulcan_tpu/ops/icp.py:349",
+             call=lambda: icp.icp_associate(lv, pv, cfg, True, False),
+             count=lambda: icp.icp_associate.launches,
+             plain=lambda: icp._associate_plain(lv, pv, cfg, True, False),
+             flat=lambda out: torch.cat([out[0][0].reshape(-1), out[0][1].reshape(-1),
+                                         out[0][2].reshape(-1).float()]),
+             bytes=a_bytes, ops=a_ops,
+             extra=dict(shape=shape, also_replaces="vulcan_tpu/ops/icp.py:800 color_assoc")),
+        dict(name="icp_rows", tol=ICP_SUM_TOL * float(sums[:, :28].abs().max()),
+             source="vulcan_tpu_torch/csrc/icp.cu", replaces="vulcan_tpu/ops/icp.py:703",
+             call=lambda: icp.icp_rows(lv, pv, corr, None, cfg, True, False),
+             count=lambda: icp.icp_rows.launches,
+             plain=lambda: icp._rows_plain(lv, pv, corr, None, cfg, True, False),
+             bytes=r_bytes, ops=r_ops,
+             extra=dict(shape=shape, blocks=cuda_kernels.icp_rows_blocks(lv.depth.numel()),
+                        also_replaces="vulcan_tpu/ops/icp.py:753 _fused_normal_eqs, "
+                               ":879 color_rows_fixed")),
+        dict(name="icp_solve", tol=ICP_SOLVE_RTOL, source="vulcan_tpu_torch/csrc/icp.cu",
+             replaces="vulcan_tpu/ops/icp.py:983",
+             call=lambda: icp.icp_solve(sums, pv, cfg, True, False),
+             count=lambda: icp.icp_solve.launches,
+             plain=lambda: icp._solve_plain(sums, pv, cfg.icp_damping, True, False),
+             flat=lambda out: out[:12],
+             bytes=(2 * 29 + 2 * 16) * 4, ops=ICP_SOLVE_OPS,
+             extra=dict(shape="one 6x6 step",
+                        also_replaces="vulcan_tpu/ops/icp.py:931 _min_eig_normalized")),
+    ]
+    return [check_kernel(spec, torch) for spec in specs]
 
 
 def probes(P, torch, dev) -> list[dict]:
@@ -607,6 +829,54 @@ def run_pipeline(P, config, camera, poses, frames, h, w, device, sync,
     return pipe, np.stack(est), ms, armed
 
 
+def track_launches(cfg) -> dict[str, int]:
+    """H1a-H1c launches of one track at ``cfg``: an association round each,
+    a rows and a solve launch each GN step and each level score."""
+    from vulcan_tpu_torch.ops import icp
+
+    rounds = [max(1, min(a, i)) for a, i in zip(cfg.icp_assoc, cfg.icp_iters)]
+    steps = sum(r * -(-i // r) for r, i in zip(rounds, cfg.icp_iters))
+    scores = cfg.pyramid_levels if cfg.degen_min_eig > 0.0 else 0
+    return {"icp_associate": sum(rounds), "icp_rows": steps + scores,
+            "icp_solve": steps + scores}
+
+
+def icp_counts(reset: bool = False) -> dict[str, int]:
+    """The H1a-H1c launch counts (set to 0 first with ``reset``)."""
+    from vulcan_tpu_torch.ops import icp
+
+    entries = {"icp_associate": icp.icp_associate, "icp_rows": icp.icp_rows,
+               "icp_solve": icp.icp_solve}
+    if reset:
+        for e in entries.values():
+            e.launches = 0
+    return {k: e.launches for k, e in entries.items()}
+
+
+def check_icp_launches(label, counts, cfg, n) -> None:
+    want = {k: v * n for k, v in track_launches(cfg).items()}
+    if counts != want:
+        fail(f"{label}: H1a-H1c launched {counts} times over {n} frames, expected {want}")
+
+
+@contextlib.contextmanager
+def plain_track():
+    """The track's three entry points swapped for their plain versions, on
+    whatever device the tensors are (the yardstick run of phase 3), and
+    put back after."""
+    from vulcan_tpu_torch.ops import icp
+
+    saved = icp.icp_associate, icp.icp_rows, icp.icp_solve
+    icp.icp_associate = icp._associate_plain
+    icp.icp_rows = icp._rows_plain
+    icp.icp_solve = lambda sums, pose, config, geometric, photo, detect=False: (
+        icp._solve_plain(sums, pose, config.icp_damping, geometric, photo, detect))
+    try:
+        yield
+    finally:
+        icp.icp_associate, icp.icp_rows, icp.icp_solve = saved
+
+
 def run_cell(P, torch, label, config, mode, camera, poses, frames, ate_limit,
              must_arm=False, k2_per_frame=1, no_failures=False):
     """Phases 3b and 8: one path over its frames at 480x640, counts set to 0
@@ -624,11 +894,13 @@ def run_cell(P, torch, label, config, mode, camera, poses, frames, ate_limit,
     preprocess.bilateral_filter.launches = 0
     splat._fill_and_smooth.launches = 0
     splat._fill_and_smooth.kernel_launches = 0
+    icp_counts(reset=True)
     read_int.count = 0
     pipe, est, ms, armed = run_pipeline(
         P, config, camera, poses, frames, 480, 640, torch.device("cuda:0"),
         torch.cuda.synchronize, mode,
     )
+    h1 = icp_counts()
     k1 = preprocess.bilateral_filter.launches
     k2 = splat._fill_and_smooth.kernel_launches
     reads = read_int.count
@@ -640,18 +912,19 @@ def run_cell(P, torch, label, config, mode, camera, poses, frames, ate_limit,
                ms_median=float(np.median(timed)),
                ms_p90=float(np.percentile(timed, 90)), ate_m=float(ate),
                armed_frames=int(armed), host_reads_per_frame=reads / n,
-               k1_launches=k1, k2_kernel_launches=k2,
+               k1_launches=k1, k2_kernel_launches=k2, h1_launches=h1,
                track_failures=diag["track_failures"],
                degen_frames=diag["track_degen_frames"])
     print(f"{label}: ms/frame median {out['ms_median']:.3f} p90 "
           f"{out['ms_p90']:.3f} (warm-up {N_WARM}, timed {len(timed)}, synchronized "
           f"per frame); ATE {ate:.6f} m over {n} frames; armed frames {armed}; "
           f"host reads/frame {reads / n:.2f}; K1 launches {k1}, K2 kernel "
-          f"launches {k2}; track failures {diag['track_failures']}, degenerate "
-          f"frames {diag['track_degen_frames']}", flush=True)
+          f"launches {k2}, H1a-H1c {h1}; track failures {diag['track_failures']}, "
+          f"degenerate frames {diag['track_degen_frames']}", flush=True)
     if k1 != n or k2 != k2_per_frame * n:
         fail(f"{label}: K1 launched {k1} and K2 {k2} times over {n} frames, "
              f"expected once and {k2_per_frame} times a frame")
+    check_icp_launches(label, h1, config, n)
     if diag["alloc_overflow"] or diag["visible_overflow"]:
         fail(f"{label}: allocation or visibility overflow")
     if no_failures and diag["track_failures"]:
@@ -1696,6 +1969,7 @@ def main() -> None:
           "per launch of a kernel that does nothing", flush=True)
     k1_inputs_and_radii(P, preprocess, torch, dev, frames[0][0])
     k2_rounds_and_shapes(P, splat, torch, dev)
+    kernels += track_kernels(P, torch, dev, cam, poses, frames)
 
     phase("3 main path: Pipeline.process, default Config, depth mode, 480x640")
     torch.cuda.synchronize()
@@ -1703,13 +1977,16 @@ def main() -> None:
     preprocess.bilateral_filter.launches = 0
     splat._fill_and_smooth.launches = 0
     splat._fill_and_smooth.kernel_launches = 0
+    icp_counts(reset=True)
     read_int.count = 0
     pipe, est, ms, armed = run_pipeline(
         P, cfg, cam, poses, frames, 480, 640, dev, torch.cuda.synchronize
     )
+    h1 = icp_counts()
     launches = {
         "bilateral": preprocess.bilateral_filter.launches,
         "fill_smooth": splat._fill_and_smooth.launches,
+        **h1,
     }
     k2_kernel_launches = splat._fill_and_smooth.kernel_launches
     reads = read_int.count
@@ -1731,6 +2008,7 @@ def main() -> None:
     print(f"ATE {ate:.6f} m over {n} frames", flush=True)
     if launches["bilateral"] != n or launches["fill_smooth"] != n:
         fail(f"kernel launch counts {launches}, expected {n} each")
+    check_icp_launches("orbit/depth", h1, cfg, n)
     if k2_kernel_launches != n:
         fail(f"K2 launched its kernel {k2_kernel_launches} times over {n} frames, "
              "expected once a frame")
@@ -1744,11 +2022,30 @@ def main() -> None:
         fail("model render covers under 30% of the image")
     if not ate < 0.01:
         fail(f"ATE {ate} m not below 0.01 m")
+    # The same run with the track's entry points on their plain versions
+    # (PyTorch on the card): the kernels must not move the trajectory.
+    with plain_track():
+        _, est_plain, ms_plain, _ = run_pipeline(
+            P, cfg, cam, poses, frames, 480, 640, dev, torch.cuda.synchronize)
+    if icp_counts() != h1:
+        fail("the plain-path run launched a track kernel")
+    ate_plain = ate_rmse(est_plain, gt)
+    plain_dt = float(np.abs(est - est_plain).max())
+    print(f"plain track on the card: ATE {ate_plain:.6f} m (kernels {ate:.6f}, "
+          f"|dATE| {abs(ate - ate_plain):.3e} m, tol {PLAIN_ATE_TOL:g}), max per-frame "
+          f"translation difference {plain_dt:.3e} m, ms/frame median "
+          f"{np.median(ms_plain[N_WARM:]):.3f}", flush=True)
+    if not abs(ate - ate_plain) < PLAIN_ATE_TOL:
+        fail(f"ATE through the kernels {ate} m is not within {PLAIN_ATE_TOL} m of the "
+             f"plain path's {ate_plain} m")
     cells = [dict(cell="orbit/depth", mode="depth", frames=n,
                   ms_median=float(np.median(timed)),
                   ms_p90=float(np.percentile(timed, 90)), ate_m=float(ate),
                   armed_frames=int(armed), host_reads_per_frame=reads / n,
                   k1_launches=launches["bilateral"], k2_kernel_launches=k2_kernel_launches,
+                  h1_launches=h1, ate_plain_track_m=float(ate_plain),
+                  plain_track_max_dt_m=plain_dt,
+                  plain_track_ms_median=float(np.median(ms_plain[N_WARM:])),
                   track_failures=diag["track_failures"],
                   degen_frames=diag["track_degen_frames"])]
 

@@ -281,3 +281,54 @@ def make_mini_tum(root, n=4):
             qz = (R[1, 0] - R[0, 1]) / (4 * qw)
             fg.write(f"{t} {tr[0]} {tr[1]} {tr[2]} {qx} {qy} {qz} {qw}\n")
     return root
+
+
+# --- the photometric track's inputs (the GN loop's entry points) ---
+@functools.lru_cache(maxsize=None)
+def photo_track_inputs():
+    """tests/test_torch_photo.py's scene: the reference's luma model render
+    at orbit pose 2 (two fused frames), its model pyramid on each side, and
+    the live pyramid, with intensity, of the frame at pose 3, carried to the
+    port.  Returns a dict (cached: build once a worker)."""
+    import jax.numpy as jnp
+
+    from vulcan_tpu.core.frame import make_frame as j_make_frame
+    from vulcan_tpu.ops import allocate as jal
+    from vulcan_tpu.ops import blocks as jB
+    from vulcan_tpu.ops import icp as jicp
+    from vulcan_tpu.ops import preprocess as jpp
+    from vulcan_tpu.ops import sparse as jsp
+    from vulcan_tpu.ops import splat as jsplat
+    from vulcan_tpu_torch.core.frame import FrameMaps
+    from vulcan_tpu_torch.ops import icp as ticp
+    from vulcan_tpu_torch.ops.raycast import Render
+
+    flat = max(0.05, 6.0 * CFG_T.voxel_size)
+    poses = orbit(4)
+    jv = jB.create_volume(CFG_J)
+    for pose in poses[1:3]:
+        d, c = scene(pose)
+        frame = j_make_frame(jnp.asarray(d), jnp.asarray(c), CAM_J, pose)
+        jv, band, n_band = jal.allocate_for_frame(jv, frame.depth, CAM_J, pose, CFG_J)
+        jv = jal.update_visibility(jv, CAM_J, pose, H, W, CFG_J)
+        jv = jsp.integrate_sparse(jv, frame, CFG_J, ids=band, count=n_band)
+    rj = jsplat.render_splat(jv, CAM_J, poses[2], H, W, CFG_J,
+                             with_color=True, color_space="luma")
+    rt = Render(
+        **{k: t(getattr(rj, k)) for k in
+           ("depth", "vx", "vy", "vz", "nx", "ny", "nz", "color", "valid")},
+        camera=CAM_T, pose=se3_t(rj.pose),
+    )
+    d, c = scene(poses[3])
+    live_j = jpp.build_pyramid(
+        j_make_frame(jnp.asarray(d), jnp.asarray(c), CAM_J, poses[3]), CFG_J)
+    cams_t = [CAM_T, CAM_T.scaled(0.5), CAM_T.scaled(0.5).scaled(0.5)]
+    live_t = tuple(
+        FrameMaps(t(m.depth), t(m.vertices), t(m.normals), t(m.intensity), cam)
+        for m, cam in zip(live_j, cams_t)
+    )
+    return dict(
+        live_j=live_j, live_t=live_t, poses=poses,
+        mj=jicp.model_pyramid(rj, 3, flat_thresh=flat),
+        mt=ticp.model_pyramid(rt, 3, flat_thresh=flat),
+    )

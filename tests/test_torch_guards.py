@@ -16,7 +16,7 @@ import pytest
 import torch
 
 import vulcan_tpu_torch as P
-from vulcan_tpu_torch.ops import cuda_kernels, preprocess, splat
+from vulcan_tpu_torch.ops import cuda_kernels, icp, preprocess, splat
 from vulcan_tpu_torch.pipeline import fusion
 
 from ._torch_port import CAM_T, CFG_T, H, W, orbit, scene, se3_t
@@ -101,8 +101,20 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         cuda_kernels._nvcc()
 
 
+def _icp_live(x):
+    """A live level for the track kernels' entry points: depth, vertices,
+    normals, intensity."""
+    v = x[..., None].expand(*x.shape, 3).contiguous()
+    return x, v, v, x
+
+
+_ICP_MAPS = tuple(torch.zeros((8, 8), dtype=torch.int32) for _ in range(3))
+_ICP_CAM = (100.0, 100.0, 4.0, 4.0)
+
+
 @pytest.mark.parametrize(
-    "launch", ["bilateral", "fill_smooth", "fill_smooth_fused", "subsample2"])
+    "launch", ["bilateral", "fill_smooth", "fill_smooth_fused", "subsample2",
+               "icp_associate", "icp_rows", "icp_solve"])
 def test_kernel_entry_refuses_cpu_tensors(launch):
     """A CUDA entry point given a CPU tensor raises before anything is
     built or loaded (the wrappers never send it one)."""
@@ -113,6 +125,15 @@ def test_kernel_entry_refuses_cpu_tensors(launch):
             x, cuda_kernels.fill_smooth_plan(2), 0.08, 0.02),
         "fill_smooth_fused": lambda x: cuda_kernels.fill_smooth_fused(x, 2, 0.08, 0.02),
         "subsample2": lambda x: cuda_kernels.subsample2(x.to(torch.int32)),
+        "icp_associate": lambda x: cuda_kernels.icp_associate(
+            *_icp_live(x)[:2], x.new_zeros(16), x.new_zeros(15), _ICP_MAPS, None,
+            _ICP_CAM, 0.1, 5.0, True, False),
+        "icp_rows": lambda x: cuda_kernels.icp_rows(
+            *_icp_live(x), x.new_zeros(16), x.new_zeros(15),
+            (_icp_live(x)[1], _icp_live(x)[1], x > 0), None, _ICP_CAM,
+            (0.1, 5.0, 0.01, 0.8, 0.03, 0.1, 0.1), True, False, False),
+        "icp_solve": lambda x: cuda_kernels.icp_solve(
+            x.new_zeros((2, 29)), x.new_zeros(16), 1e-4, True, False, False),
     }[launch]
     with pytest.raises(ValueError, match="CUDA tensor"):
         fn(torch.ones((8, 8)))
@@ -121,7 +142,8 @@ def test_kernel_entry_refuses_cpu_tensors(launch):
 
 def test_cpu_step_launches_no_kernel():
     """Whole CPU steps go through the plain versions in every tracking
-    mode and in fusion at a given pose: the launch counters stay at 0."""
+    mode and in fusion at a given pose: the launch counters stay at 0,
+    the track's three (H1a-H1c) among them."""
     poses = orbit(2)
     frames = [scene(pose) for pose in poses]
     for mode in fusion.MODES:
@@ -134,6 +156,8 @@ def test_cpu_step_launches_no_kernel():
     assert preprocess.bilateral_filter.launches == 0
     assert splat._fill_and_smooth.launches == 0
     assert splat._fill_and_smooth.kernel_launches == 0
+    for entry in (icp.icp_associate, icp.icp_rows, icp.icp_solve):
+        assert entry.launches == 0
 
 
 @pytest.mark.parametrize(

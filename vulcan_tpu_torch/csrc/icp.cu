@@ -1,0 +1,625 @@
+// H1a-H1c: the Gauss-Newton loop of the frame-to-model track
+// (ops/icp.py track) as three kernels, for Hopper (sm_90a).
+//
+// Replaces the XLA code of the reference's track loop
+// (vulcan_tpu/ops/icp.py track, :993, its inner lax.fori_loop :1170), not a
+// Pallas kernel:
+//   H1a icp_associate  associate_depth (:349) and the flat color_assoc
+//                      (:800), once an association round;
+//   H1b icp_rows       _pp_normal_eqs (:703) and color_rows_fixed (:879)
+//                      through _fused_normal_eqs (:753): the 29 stacked
+//                      sums of each term, once a GN step and once a level
+//                      with the live normals (the degeneracy detector);
+//   H1c icp_solve      solve_gn (:983), the c >= 6 gate, SE3.exp(delta) @
+//                      pose, and _min_eig_normalized (:931).
+// ops/icp.py keeps the plain PyTorch versions (_associate_plain,
+// _rows_plain, _solve_plain); the CPU takes them, the card these kernels.
+//
+// Arithmetic.  The plain versions write every per-pixel operation out
+// element by element (no matmul), and these kernels repeat them in the
+// same order with one rounding each (__fmul_rn, __fadd_rn, __fdiv_rn: no
+// contraction into FMAs), so a pixel's transform, projection, nearest
+// index, validity and decoded model sample are bit-equal to the plain
+// version's, and a row's 29 products too.  Only the sums' order differs.
+// The 6x6 algebra of H1c is ordinary float32 code (its inputs are sums).
+//
+// The pose: a (16,) float32 vector on the device, [R row-major (9), t (3),
+// err, inliers, level score, geometric score].  H1a and H1b read it, H1c
+// writes the next one; no value goes through the host.  The model side is
+// a (15,) vector: the model camera's world-to-camera R (9) and t (3), then
+// the origin of the packed vertices (3).
+//
+// What bounds them on the card.  At 480x640 (live 240x320 at the finest
+// level's stride 2, and at the middle level) one H1b pass reads ~49 B a
+// pixel of geometric inputs and ~29 B of photometric ones: 3.8-6.0 MB,
+// 1.1-1.8 us at 3.35 TB/s, for ~150-300 f32 operations a pixel (~0.2-0.3
+// us at 67 TFLOP/s).  H1a moves ~70 B a pixel (the gathers hit a model map
+// of 1.2-2.0 MB).  Each is about one launch floor (1.74 us) of work: a
+// frame's 70 launches are bound by launch latency and the host, which is
+// why they replace ~9000 PyTorch operations a frame.  H1c is one block of
+// serial 6x6 algebra: latency.
+//
+// Determinism.  H1b reduces a thread's pixels in order, a warp by an xor
+// tree, the warps of a block in order, and the blocks' partial sums in the
+// LAST block to finish (an integer ticket, no float atomics) in a fixed
+// order: two runs on the same inputs agree bit for bit whatever order the
+// blocks ran in.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSums = 29;           // 21 of H, 6 of b, error, count
+constexpr int kSlots = 2 * kSums;   // geometric, then photometric
+constexpr float kVertexStep = 1.0f / 65536.0f;        // ops/icp.py _VERTEX_SCALE
+constexpr float kNormalStep = (float)(1.0 / 511.5);   // _unpack_normals
+constexpr float kPhotoStep = (float)(1.0 / 65535.0);  // _PHOTO_SCALE
+constexpr float kCoordClamp = 1e7f;                   // ops/dense.py COORD_CLAMP
+
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
+
+// Rows of the 3x4 transform at p (rotation row-major, then translation),
+// each row's products summed left to right, as _affine.
+__device__ __forceinline__ void affine(const float* p, float x, float y, float z,
+                                       float& ox, float& oy, float& oz) {
+  ox = add(add(add(mul(p[0], x), mul(p[1], y)), mul(p[2], z)), p[9]);
+  oy = add(add(add(mul(p[3], x), mul(p[4], y)), mul(p[5], z)), p[10]);
+  oz = add(add(add(mul(p[6], x), mul(p[7], y)), mul(p[8], z)), p[11]);
+}
+
+__device__ __forceinline__ void rotate(const float* p, float x, float y, float z,
+                                       float& ox, float& oy, float& oz) {
+  ox = add(add(mul(p[0], x), mul(p[1], y)), mul(p[2], z));
+  oy = add(add(mul(p[3], x), mul(p[4], y)), mul(p[5], z));
+  oz = add(add(mul(p[6], x), mul(p[7], y)), mul(p[8], z));
+}
+
+struct Camera {
+  float fx, fy, cx, cy;
+};
+
+// PinholeCamera.project: z <= 1e-12 projects to -1e9.
+__device__ __forceinline__ void project(const Camera& c, float x, float y, float z,
+                                        float& u, float& v) {
+  const bool bad = z <= 1e-12f;
+  const float sz = bad ? 1.0f : z;
+  u = bad ? -1e9f : add(dvd(mul(c.fx, x), sz), c.cx);
+  v = bad ? -1e9f : add(dvd(mul(c.fy, y), sz), c.cy);
+}
+
+__device__ __forceinline__ float clamp_coord(float x) {
+  return fminf(fmaxf(x, -kCoordClamp), kCoordClamp);
+}
+
+__device__ __forceinline__ float huber(float r, float delta) {
+  const float a = fabsf(r);
+  // delta / max(a, 1e-12) as PyTorch evaluates a scalar over a tensor:
+  // the reciprocal, then the product.
+  return a <= delta ? 1.0f : mul(__frcp_rn(fmaxf(a, 1e-12f)), delta);
+}
+
+__device__ __forceinline__ int sext21(int q) {
+  return static_cast<int>(static_cast<unsigned>(q) << 11) >> 11;
+}
+
+__device__ __forceinline__ float decode16(int word, int shift, float lo) {
+  return add(mul(static_cast<float>((word >> shift) & 0xFFFF), kPhotoStep), lo);
+}
+
+// The per-level scalars of the rows and association kernels.
+struct Scalars {
+  float depth_min, depth_max;
+  float dist2;                // icp_dist_thresh ** 2
+  float normal_thresh, huber_delta, rgb_huber_delta, rgb_weight;
+};
+
+struct AssocArgs {
+  const float* depth;         // (n,) live
+  const float* vertices;      // (n, 3) live camera-space
+  const float* pose;          // (16,)
+  const float* model;         // (15,)
+  const int* vpack1;          // (hm, wm) model maps
+  const int* vpack2;
+  const int* npack;
+  const int* wa;              // (hm, wm) photometric words
+  const int* wb;
+  int n, hm, wm;
+  Camera cam;
+  Scalars s;
+  float* v_m;                 // (n, 3)
+  float* n_m;                 // (n, 3)
+  uint8_t* ok;                // (n,)
+  float* samples;             // (5, n): i_m0, gu, gv, u0, v0
+  uint8_t* ok_c;              // (n,)
+};
+
+template <bool kGeo, bool kPhoto>
+__global__ void __launch_bounds__(kThreads) associate_kernel(AssocArgs a) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= a.n) return;
+  float pose[12], model[15];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) pose[k] = __ldg(a.pose + k);
+#pragma unroll
+  for (int k = 0; k < 15; ++k) model[k] = __ldg(a.model + k);
+  const float x = __ldg(a.vertices + 3 * i), y = __ldg(a.vertices + 3 * i + 1),
+              z = __ldg(a.vertices + 3 * i + 2);
+  float wx, wy, wz, mx, my, mz, u, v;
+  affine(pose, x, y, z, wx, wy, wz);
+  affine(model, wx, wy, wz, mx, my, mz);
+  project(a.cam, mx, my, mz, u, v);
+  const bool front = mz > 0.0f;
+
+  if (kGeo) {
+    // associate_depth: the nearest model pixel, round half to even.
+    const int ui = static_cast<int>(rintf(clamp_coord(u)));
+    const int vi = static_cast<int>(rintf(clamp_coord(v)));
+    const bool inb = ui >= 0 && ui < a.wm && vi >= 0 && vi < a.hm;
+    const int idx = min(max(vi, 0), a.hm - 1) * a.wm + min(max(ui, 0), a.wm - 1);
+    const int p1 = __ldg(a.vpack1 + idx), p2 = __ldg(a.vpack2 + idx);
+    const int qx = p1 >> 11;
+    const int qy = sext21(((p1 & 0x7FF) << 10) | ((p2 >> 22) & 0x3FF));
+    const int qz = sext21((p2 >> 1) & 0x1FFFFF);
+    a.v_m[3 * i] = add(mul(static_cast<float>(qx), kVertexStep), model[12]);
+    a.v_m[3 * i + 1] = add(mul(static_cast<float>(qy), kVertexStep), model[13]);
+    a.v_m[3 * i + 2] = add(mul(static_cast<float>(qz), kVertexStep), model[14]);
+    const int np = __ldg(a.npack + idx);
+    a.n_m[3 * i] = sub(mul(static_cast<float>((np >> 20) & 0x3FF), kNormalStep), 1.0f);
+    a.n_m[3 * i + 1] = sub(mul(static_cast<float>((np >> 10) & 0x3FF), kNormalStep), 1.0f);
+    a.n_m[3 * i + 2] = sub(mul(static_cast<float>(np & 0x3FF), kNormalStep), 1.0f);
+    const float d = __ldg(a.depth + i);
+    a.ok[i] = d > a.s.depth_min && d < a.s.depth_max && inb && (np >> 30) > 0 && front;
+  }
+
+  if (kPhoto) {
+    // color_assoc: the 2x2 footprint of the two packed words, their
+    // 16-bit halves blended, validity from the tap nearest the warp point.
+    const float u0f = floorf(u), v0f = floorf(v);
+    const int u0 = static_cast<int>(clamp_coord(u0f));
+    const int v0 = static_cast<int>(clamp_coord(v0f));
+    const bool inb = u0 >= 0 && u0 + 1 < a.wm && v0 >= 0 && v0 + 1 < a.hm;
+    const int uc = min(max(u0, 0), a.wm - 2), vc = min(max(v0, 0), a.hm - 2);
+    const float fu = sub(u, u0f), fv = sub(v, v0f);
+    const int i00 = vc * a.wm + uc, i10 = i00 + a.wm;
+    const int a00 = __ldg(a.wa + i00), a01 = __ldg(a.wa + i00 + 1);
+    const int a10 = __ldg(a.wa + i10), a11 = __ldg(a.wa + i10 + 1);
+    const int b00 = __ldg(a.wb + i00), b01 = __ldg(a.wb + i00 + 1);
+    const int b10 = __ldg(a.wb + i10), b11 = __ldg(a.wb + i10 + 1);
+    const float gu_ = sub(1.0f, fu), gv_ = sub(1.0f, fv);
+    const float w00 = mul(gu_, gv_), w01 = mul(fu, gv_);
+    const float w10 = mul(gu_, fv), w11 = mul(fu, fv);
+    auto blend = [&](int x00, int x01, int x10, int x11, int shift, float lo) {
+      return add(add(add(mul(w00, decode16(x00, shift, lo)), mul(w01, decode16(x01, shift, lo))),
+                     mul(w10, decode16(x10, shift, lo))),
+                 mul(w11, decode16(x11, shift, lo)));
+    };
+    a.samples[i] = blend(a00, a01, a10, a11, 16, 0.0f);
+    a.samples[a.n + i] = blend(a00, a01, a10, a11, 0, -0.5f);
+    a.samples[2 * a.n + i] = blend(b00, b01, b10, b11, 16, -0.5f);
+    a.samples[3 * a.n + i] = u;
+    a.samples[4 * a.n + i] = v;
+    const int vb = fv >= 0.5f ? (fu >= 0.5f ? b11 : b10) : (fu >= 0.5f ? b01 : b00);
+    a.ok_c[i] = inb && (vb & 1) > 0 && front;
+  }
+}
+
+struct RowsArgs {
+  const float* depth;         // (n,) live
+  const float* vertices;      // (n, 3)
+  const float* normals;       // (n, 3)
+  const float* intensity;     // (n,)
+  const float* pose;          // (16,)
+  const float* model;         // (15,)
+  const float* v_m;           // (n, 3) correspondences (H1a)
+  const float* n_m;
+  const uint8_t* ok;
+  const float* i_m0;          // (n,) photometric samples (H1a, or light-scaled)
+  const float* gu;
+  const float* gv;
+  const float* u0;
+  const float* v0;
+  const uint8_t* ok_c;
+  int n;
+  Camera cam;
+  Scalars s;
+  float* partials;            // (gridDim.x, kSlots)
+  unsigned* ticket;           // one counter, 0 between launches
+  float* out;                 // (2, kSums)
+};
+
+// The 29 stacked products of one row in _sum_positions' layout: row a's
+// triangle w j_a j_c (c >= a), then w j_a r; then w r r and the count.
+__device__ __forceinline__ void accumulate(float* acc, const float* j, float r, float w) {
+  int k = 0;
+#pragma unroll
+  for (int p = 0; p < 6; ++p) {
+    const float wj = mul(w, j[p]);
+#pragma unroll
+    for (int c = p; c < 6; ++c, ++k) acc[k] = add(acc[k], mul(wj, j[c]));
+    acc[k] = add(acc[k], mul(wj, r));
+    ++k;
+  }
+  acc[k] = add(acc[k], mul(mul(w, r), r));
+  acc[k + 1] = add(acc[k + 1], w > 0.0f ? 1.0f : 0.0f);
+}
+
+template <bool kGeo, bool kPhoto, bool kLiveNormals>
+__global__ void __launch_bounds__(kThreads) rows_kernel(RowsArgs a) {
+  __shared__ float warp_sums[kWarps][kSlots];
+  __shared__ bool last;
+  float acc[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) acc[k] = 0.0f;
+  float pose[12], model[15];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) pose[k] = __ldg(a.pose + k);
+#pragma unroll
+  for (int k = 0; k < 15; ++k) model[k] = __ldg(a.model + k);
+
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < a.n; i += gridDim.x * kThreads) {
+    const float x = __ldg(a.vertices + 3 * i), y = __ldg(a.vertices + 3 * i + 1),
+                z = __ldg(a.vertices + 3 * i + 2);
+    float vx, vy, vz;
+    affine(pose, x, y, z, vx, vy, vz);
+    if (kGeo) {
+      // _pp_normal_eqs.
+      float nwx, nwy, nwz;
+      rotate(pose, __ldg(a.normals + 3 * i), __ldg(a.normals + 3 * i + 1),
+             __ldg(a.normals + 3 * i + 2), nwx, nwy, nwz);
+      const float dx = sub(vx, __ldg(a.v_m + 3 * i));
+      const float dy = sub(vy, __ldg(a.v_m + 3 * i + 1));
+      const float dz = sub(vz, __ldg(a.v_m + 3 * i + 2));
+      float nx = __ldg(a.n_m + 3 * i), ny = __ldg(a.n_m + 3 * i + 1),
+            nz = __ldg(a.n_m + 3 * i + 2);
+      const float dist2 = add(add(mul(dx, dx), mul(dy, dy)), mul(dz, dz));
+      const float n_dot = add(add(mul(nwx, nx), mul(nwy, ny)), mul(nwz, nz));
+      const bool gate = __ldg(a.ok + i) && dist2 < a.s.dist2 && n_dot > a.s.normal_thresh;
+      if (kLiveNormals) {
+        nx = nwx;
+        ny = nwy;
+        nz = nwz;
+      }
+      const float r = add(add(mul(nx, dx), mul(ny, dy)), mul(nz, dz));
+      const float w = gate ? huber(r, a.s.huber_delta) : 0.0f;
+      const float j[6] = {sub(mul(vy, nz), mul(vz, ny)), sub(mul(vz, nx), mul(vx, nz)),
+                          sub(mul(vx, ny), mul(vy, nx)), nx, ny, nz};
+      accumulate(acc, j, r, w);
+    }
+    if (kPhoto) {
+      // color_rows_fixed: the first-order image model around the sample.
+      float px, py, pz, u, v;
+      affine(model, vx, vy, vz, px, py, pz);
+      project(a.cam, px, py, pz, u, v);
+      const float du = sub(u, __ldg(a.u0 + i)), dv = sub(v, __ldg(a.v0 + i));
+      const float gu = __ldg(a.gu + i), gv = __ldg(a.gv + i);
+      const float r = sub(add(add(__ldg(a.i_m0 + i), mul(gu, du)), mul(gv, dv)),
+                          __ldg(a.intensity + i));
+      const float zc = fmaxf(pz, 1e-6f);
+      const float gufx = mul(gu, a.cam.fx), gvfy = mul(gv, a.cam.fy);
+      const float gpx = dvd(gufx, zc), gpy = dvd(gvfy, zc);
+      const float gpz = dvd(-add(mul(gufx, px), mul(gvfy, py)), mul(zc, zc));
+      // R_m^T of the model camera's world-to-camera rotation.
+      const float gwx = add(add(mul(model[0], gpx), mul(model[3], gpy)), mul(model[6], gpz));
+      const float gwy = add(add(mul(model[1], gpx), mul(model[4], gpy)), mul(model[7], gpz));
+      const float gwz = add(add(mul(model[2], gpx), mul(model[5], gpy)), mul(model[8], gpz));
+      const float drift2 = add(mul(du, du), mul(dv, dv));
+      const float d = __ldg(a.depth + i);
+      const bool gate = d > a.s.depth_min && d < a.s.depth_max && __ldg(a.ok_c + i) &&
+                        pz > 0.0f && drift2 < 16.0f;
+      const float w = gate ? huber(r, a.s.rgb_huber_delta) : 0.0f;
+      const float s = a.s.rgb_weight;
+      const float j[6] = {mul(s, sub(mul(vy, gwz), mul(vz, gwy))),
+                          mul(s, sub(mul(vz, gwx), mul(vx, gwz))),
+                          mul(s, sub(mul(vx, gwy), mul(vy, gwx))),
+                          mul(s, gwx), mul(s, gwy), mul(s, gwz)};
+      accumulate(acc + kSums, j, mul(s, r), w);
+    }
+  }
+
+  // The block's sums: an xor tree in each warp, then the warps in order.
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    if ((k < kSums && !kGeo) || (k >= kSums && !kPhoto)) continue;
+    float v = acc[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0) warp_sums[warp][k] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < kSlots) {
+    const int k = threadIdx.x;
+    float v = 0.0f;
+    if ((k < kSums && kGeo) || (k >= kSums && kPhoto)) {
+      for (int w = 0; w < kWarps; ++w) v += warp_sums[w][k];
+    }
+    a.partials[blockIdx.x * kSlots + k] = v;
+  }
+
+  // The last block to finish adds the blocks' sums in block order.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // Warp w owns the columns w, w + 8, ...; a lane adds the blocks lane,
+  // lane + 32, ... in order (the loads of all its columns issued together),
+  // then an xor tree adds the lanes.
+  constexpr int kPerWarp = (kSlots + kWarps - 1) / kWarps;
+  float v[kPerWarp];
+#pragma unroll
+  for (int m = 0; m < kPerWarp; ++m) v[m] = 0.0f;
+  for (int b = lane; b < static_cast<int>(gridDim.x); b += 32) {
+    const float* row = a.partials + b * kSlots;
+#pragma unroll
+    for (int m = 0; m < kPerWarp; ++m) {
+      const int k = warp + kWarps * m;
+      if (k < kSlots && (k < kSums ? kGeo : kPhoto)) v[m] += __ldcg(row + k);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kPerWarp; ++m) {
+    const int k = warp + kWarps * m;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v[m] += __shfl_xor_sync(0xffffffffu, v[m], off);
+    if (lane == 0 && k < kSlots) a.out[k] = v[m];
+  }
+  if (threadIdx.x == 0) *a.ticket = 0u;
+}
+
+// --- H1c: 6x6 algebra in one block ---------------------------------------
+
+// Position of H[r][c] (r <= c) and of b[r] in the stacked sums.
+__device__ __forceinline__ int row_start(int r) { return 7 * r - r * (r - 1) / 2; }
+__device__ __forceinline__ int h_pos(int r, int c) {
+  return r <= c ? row_start(r) + c - r : row_start(c) + r - c;
+}
+__device__ __forceinline__ int b_pos(int r) { return row_start(r) + 6 - r; }
+
+// Lower Cholesky factor of A in place; false when a pivot is not positive
+// (or not a number), as LAPACK's potrf reports it.
+__device__ bool cholesky6(float (&A)[6][6]) {
+  for (int j = 0; j < 6; ++j) {
+    float s = A[j][j];
+    for (int k = 0; k < j; ++k) s -= A[j][k] * A[j][k];
+    if (!(s > 0.0f)) return false;
+    const float d = sqrtf(s);
+    A[j][j] = d;
+    for (int i = j + 1; i < 6; ++i) {
+      float t = A[i][j];
+      for (int k = 0; k < j; ++k) t -= A[i][k] * A[j][k];
+      A[i][j] = t / d;
+    }
+  }
+  return true;
+}
+
+// Solve L L^T x = b with the factor from cholesky6.
+__device__ void cho_solve6(const float (&L)[6][6], const float* b, float* x) {
+  float y[6];
+  for (int i = 0; i < 6; ++i) {
+    float s = b[i];
+    for (int k = 0; k < i; ++k) s -= L[i][k] * y[k];
+    y[i] = s / L[i][i];
+  }
+  for (int i = 5; i >= 0; --i) {
+    float s = y[i];
+    for (int k = i + 1; k < 6; ++k) s -= L[k][i] * x[k];
+    x[i] = s / L[i][i];
+  }
+}
+
+// _min_eig_normalized: the smallest eigenvalue of D^-1/2 H D^-1/2 by eight
+// steps of inverse power iteration with a 1e-6 ridge; 0 when the factor
+// fails or the estimate is not finite.
+__device__ float min_eig_normalized(const float (&H)[6][6]) {
+  float d[6], A[6][6];
+  for (int i = 0; i < 6; ++i) d[i] = sqrtf(fmaxf(H[i][i], 1e-20f));
+  for (int i = 0; i < 6; ++i)
+    for (int j = 0; j < 6; ++j) A[i][j] = H[i][j] / (d[i] * d[j]);
+  const float ridge = 1e-6f;
+  for (int i = 0; i < 6; ++i) A[i][i] += ridge;
+  const bool ok = cholesky6(A);
+  float x[6], y[6];
+  for (int i = 0; i < 6; ++i) x[i] = (float)0.40824829046386296;  // 6 ** -0.5
+  for (int it = 0; it < 8; ++it) {
+    cho_solve6(A, x, y);
+    float ss = 0.0f;
+    for (int i = 0; i < 6; ++i) ss += y[i] * y[i];
+    const float inv = 1.0f / sqrtf(fmaxf(ss, 1e-38f));
+    for (int i = 0; i < 6; ++i) x[i] = y[i] * inv;
+  }
+  cho_solve6(A, x, y);
+  float inv_lam = 0.0f;
+  for (int i = 0; i < 6; ++i) inv_lam += x[i] * y[i];
+  const float lam = 1.0f / fmaxf(inv_lam, 1e-30f) - ridge;
+  return ok && isfinite(lam) ? fmaxf(lam, 0.0f) : 0.0f;
+}
+
+// SE3.exp(xi) @ (R, t) of core/se3.py, with its small-angle series.
+__device__ void exp_compose(const float* xi, const float* pose, float* out) {
+  const float w0 = xi[0], w1 = xi[1], w2 = xi[2];
+  const float theta2 = w0 * w0 + w1 * w1 + w2 * w2;
+  const float theta = sqrtf(theta2 + 1e-16f);
+  const bool series = theta2 < 1e-4f;
+  const float s = sinf(theta), c = cosf(theta);
+  const float a = series ? 1.0f - theta2 / 6.0f : s / theta;
+  const float b = series ? 0.5f - theta2 / 24.0f : (1.0f - c) / theta2;
+  const float cc = series ? 1.0f / 6.0f - theta2 / 120.0f : (theta - s) / (theta2 * theta);
+  const float K[3][3] = {{0.0f, -w2, w1}, {w2, 0.0f, -w0}, {-w1, w0, 0.0f}};
+  float R[3][3], V[3][3];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) {
+      float kk = 0.0f;
+      for (int k = 0; k < 3; ++k) kk += K[i][k] * K[k][j];
+      const float eye = i == j ? 1.0f : 0.0f;
+      R[i][j] = eye + a * K[i][j] + b * kk;
+      V[i][j] = eye + b * K[i][j] + cc * kk;
+    }
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) {
+      float r = 0.0f;
+      for (int k = 0; k < 3; ++k) r += R[i][k] * pose[3 * k + j];
+      out[3 * i + j] = r;
+    }
+    float t = 0.0f, te = 0.0f;
+    for (int k = 0; k < 3; ++k) {
+      t += R[i][k] * pose[9 + k];
+      te += V[i][k] * xi[3 + k];
+    }
+    out[9 + i] = t + te;
+  }
+}
+
+// sums (2, 29): geometric, photometric (zeros where a term is absent).
+// Step: pose' = exp(solve_gn(Hg + Hc, bg + bc)) @ pose (a zero step under
+// 6 inliers or when the factor fails or the step is not finite), err =
+// e / max(c, 1), inliers = c, from the geometric term when there is one.
+// Detect: out[14] = the score of the summed matrix, out[15] the geometric
+// one (1 without a geometric term); the rest passes through.
+__global__ void __launch_bounds__(32) solve_kernel(const float* __restrict__ sums,
+                                                  const float* __restrict__ pose,
+                                                  float damping, int geometric, int photo,
+                                                  int detect, float* __restrict__ out) {
+  __shared__ float s[kSlots];
+  __shared__ float p[16];
+  for (int k = threadIdx.x; k < kSlots; k += 32) s[k] = sums[k];
+  if (threadIdx.x < 16) p[threadIdx.x] = pose[threadIdx.x];
+  __syncthreads();
+  const float* g = s;
+  const float* c = s + kSums;
+  float H[6][6];
+  for (int i = 0; i < 6; ++i)
+    for (int j = 0; j < 6; ++j) H[i][j] = g[h_pos(i, j)] + c[h_pos(i, j)];
+
+  if (detect) {
+    if (threadIdx.x == 0) {
+      out[14] = min_eig_normalized(H);
+      for (int k = 0; k < 14; ++k) out[k] = p[k];
+    } else if (threadIdx.x == 1) {
+      float score = 1.0f;
+      if (geometric && photo) {
+        float Hg[6][6];
+        for (int i = 0; i < 6; ++i)
+          for (int j = 0; j < 6; ++j) Hg[i][j] = g[h_pos(i, j)];
+        score = min_eig_normalized(Hg);
+      } else if (geometric) {
+        score = min_eig_normalized(H);
+      }
+      out[15] = score;
+    }
+    return;
+  }
+  if (threadIdx.x != 0) return;
+  const float e = geometric ? g[27] : c[27];
+  const float cnt = geometric ? g[28] : c[28];
+  float A[6][6], rhs[6], delta[6];
+  for (int i = 0; i < 6; ++i) {
+    for (int j = 0; j < 6; ++j) A[i][j] = H[i][j];
+    A[i][i] = (H[i][i] + damping * fmaxf(H[i][i], 1e-12f)) + 1e-12f;
+    rhs[i] = -(g[b_pos(i)] + c[b_pos(i)]);
+  }
+  bool ok = cholesky6(A);
+  if (ok) {
+    cho_solve6(A, rhs, delta);
+    for (int i = 0; i < 6; ++i) ok = ok && isfinite(delta[i]);
+  }
+  if (!ok || !(cnt >= 6.0f))
+    for (int i = 0; i < 6; ++i) delta[i] = 0.0f;
+  exp_compose(delta, p, out);
+  out[12] = e / fmaxf(cnt, 1.0f);
+  out[13] = cnt;
+  out[14] = p[14];
+  out[15] = p[15];
+}
+
+cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
+
+}  // namespace
+
+// H1a.  Pointers of absent inputs/outputs may be null (wa, wb, samples,
+// ok_c without the photometric term; vpack*, v_m, n_m, ok without the
+// geometric one).  Returns cudaGetLastError().
+extern "C" int vulcan_icp_associate(
+    const void* depth, const void* vertices, const void* pose, const void* model,
+    const void* vpack1, const void* vpack2, const void* npack, const void* wa,
+    const void* wb, int n, int hm, int wm, float fx, float fy, float cx, float cy,
+    float depth_min, float depth_max, int geometric, int photo, void* v_m, void* n_m,
+    void* ok, void* samples, void* ok_c, void* stream) {
+  if (n < 0 || hm < 2 || wm < 2 || !(geometric || photo))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  AssocArgs a{static_cast<const float*>(depth), static_cast<const float*>(vertices),
+              static_cast<const float*>(pose), static_cast<const float*>(model),
+              static_cast<const int*>(vpack1), static_cast<const int*>(vpack2),
+              static_cast<const int*>(npack), static_cast<const int*>(wa),
+              static_cast<const int*>(wb), n, hm, wm, Camera{fx, fy, cx, cy},
+              Scalars{depth_min, depth_max, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f},
+              static_cast<float*>(v_m), static_cast<float*>(n_m),
+              static_cast<uint8_t*>(ok), static_cast<float*>(samples),
+              static_cast<uint8_t*>(ok_c)};
+  const int blocks = (n + kThreads - 1) / kThreads;
+  if (geometric && photo)
+    associate_kernel<true, true><<<blocks, kThreads, 0, as_stream(stream)>>>(a);
+  else if (geometric)
+    associate_kernel<true, false><<<blocks, kThreads, 0, as_stream(stream)>>>(a);
+  else
+    associate_kernel<false, true><<<blocks, kThreads, 0, as_stream(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// H1b.  partials holds blocks * 58 floats, ticket one zeroed counter
+// (the last block resets it).  out: (2, 29).  Returns cudaGetLastError().
+extern "C" int vulcan_icp_rows(
+    const void* depth, const void* vertices, const void* normals, const void* intensity,
+    const void* pose, const void* model, const void* v_m, const void* n_m,
+    const void* ok, const void* i_m0, const void* gu, const void* gv, const void* u0,
+    const void* v0, const void* ok_c, int n, float fx, float fy, float cx, float cy,
+    float depth_min, float depth_max, float dist2, float normal_thresh,
+    float huber_delta, float rgb_huber_delta, float rgb_weight, int geometric,
+    int photo, int live_normals, int blocks, void* partials, void* ticket, void* out,
+    void* stream) {
+  if (n < 0 || blocks < 1 || !(geometric || photo))
+    return static_cast<int>(cudaErrorInvalidValue);
+  RowsArgs a{static_cast<const float*>(depth), static_cast<const float*>(vertices),
+             static_cast<const float*>(normals), static_cast<const float*>(intensity),
+             static_cast<const float*>(pose), static_cast<const float*>(model),
+             static_cast<const float*>(v_m), static_cast<const float*>(n_m),
+             static_cast<const uint8_t*>(ok), static_cast<const float*>(i_m0),
+             static_cast<const float*>(gu), static_cast<const float*>(gv),
+             static_cast<const float*>(u0), static_cast<const float*>(v0),
+             static_cast<const uint8_t*>(ok_c), n, Camera{fx, fy, cx, cy},
+             Scalars{depth_min, depth_max, dist2, normal_thresh, huber_delta,
+                     rgb_huber_delta, rgb_weight},
+             static_cast<float*>(partials), static_cast<unsigned*>(ticket),
+             static_cast<float*>(out)};
+  cudaStream_t s = as_stream(stream);
+  if (geometric && photo) {
+    if (live_normals) rows_kernel<true, true, true><<<blocks, kThreads, 0, s>>>(a);
+    else rows_kernel<true, true, false><<<blocks, kThreads, 0, s>>>(a);
+  } else if (geometric) {
+    if (live_normals) rows_kernel<true, false, true><<<blocks, kThreads, 0, s>>>(a);
+    else rows_kernel<true, false, false><<<blocks, kThreads, 0, s>>>(a);
+  } else {
+    rows_kernel<false, true, false><<<blocks, kThreads, 0, s>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// H1c.  sums (2, 29), pose (16,) in, out (16,).  Returns cudaGetLastError().
+extern "C" int vulcan_icp_solve(const void* sums, const void* pose, float damping,
+                                int geometric, int photo, int detect, void* out,
+                                void* stream) {
+  if (!(geometric || photo)) return static_cast<int>(cudaErrorInvalidValue);
+  solve_kernel<<<1, 32, 0, as_stream(stream)>>>(
+      static_cast<const float*>(sums), static_cast<const float*>(pose), damping,
+      geometric, photo, detect, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -142,6 +142,9 @@ _SIGNATURES = {
     "vulcan_chained_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "vulcan_gather_max_clusters": [_I, _I, _I, _I, _I, _I, _I],
     "vulcan_subsample2": [_P, _P, _I, _I, _P],
+    "vulcan_icp_associate": [_P] * 9 + [_I] * 3 + [_F] * 6 + [_I] * 2 + [_P] * 6,
+    "vulcan_icp_rows": [_P] * 15 + [_I] + [_F] * 11 + [_I] * 4 + [_P] * 4,
+    "vulcan_icp_solve": [_P, _P, _F, _I, _I, _I, _P, _P],
 }
 
 
@@ -650,4 +653,164 @@ def subsample2(x: torch.Tensor) -> torch.Tensor:
     out = x.new_empty(((h + 1) // 2, (w + 1) // 2))
     err = _launch(lib.vulcan_subsample2, x, x.data_ptr(), out.data_ptr(), h, w)
     _raise_on(err, "subsample2")
+    return out
+
+
+# The track's Gauss-Newton kernels H1a-H1c (csrc/icp.cu).  A pose is a (16,)
+# float32 vector on the card, [R row-major (9), t (3), err, inliers, level
+# score, geometric score]; the model side a (15,) one, [world-to-camera R
+# (9), t (3), vertex origin (3)].  H1b sums ICP_PIXELS_PER_THREAD pixels a
+# thread in blocks of ICP_THREADS, at most ICP_MAX_BLOCKS blocks, and its
+# last block adds the blocks' partial sums in block order.
+ICP_THREADS = 256                   # csrc/icp.cu kThreads
+ICP_SUMS = 29                       # csrc/icp.cu kSums: 21 of H, 6 of b, error, count
+ICP_PIXELS_PER_THREAD = 2
+ICP_MAX_BLOCKS = 1024
+ICP_POSE = 16
+ICP_MODEL = 15
+
+
+def icp_rows_blocks(n: int) -> int:
+    """H1b's grid for ``n`` live pixels, a pure function of ``n``: the
+    blocks' sums meet in the same order in every run on the same rows."""
+    per_block = ICP_THREADS * ICP_PIXELS_PER_THREAD
+    return max(1, min(ICP_MAX_BLOCKS, -(-n // per_block)))
+
+
+_icp_scratch: dict = {}
+
+
+def _rows_scratch(x: torch.Tensor, blocks: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """H1b's partial sums (``blocks`` x 58 floats) and its ticket (one
+    counter the last block resets to 0), made once a device and grid and
+    reused by every launch on the stream."""
+    key = (x.get_device(), blocks)
+    got = _icp_scratch.get(key)
+    if got is None:
+        got = (x.new_empty(blocks * 2 * ICP_SUMS),
+               torch.zeros(1, dtype=torch.int32, device=x.device))
+        _icp_scratch[key] = got
+    return got
+
+
+def _check_vector(x: torch.Tensor, what: str, size: int) -> None:
+    _check(x, what, ndim=1)
+    if x.shape[0] != size:
+        raise ValueError(f"{what}: expected ({size},), got {tuple(x.shape)}")
+
+
+def _check_live(depth: torch.Tensor, what: str, *planes, vectors=()) -> None:
+    """The live maps of one level: (h, w) planes and (h, w, 3) vectors,
+    all float32, contiguous and on the card."""
+    for k, x in enumerate((depth, *planes)):
+        _check(x, f"{what} plane {k}")
+        if x.shape != depth.shape:
+            raise ValueError(f"{what}: plane {k} is {tuple(x.shape)}, not {tuple(depth.shape)}")
+    for k, x in enumerate(vectors):
+        _check(x, f"{what} vector map {k}", ndim=3)
+        if x.shape != (*depth.shape, 3):
+            raise ValueError(f"{what}: vector map {k} is {tuple(x.shape)}")
+
+
+def _ptr(x: torch.Tensor | None) -> int | None:
+    return None if x is None else x.data_ptr()
+
+
+def icp_associate(depth: torch.Tensor, vertices: torch.Tensor, pose: torch.Tensor,
+                  model: torch.Tensor, maps: tuple[torch.Tensor, ...],
+                  words: tuple[torch.Tensor, torch.Tensor] | None,
+                  camera: tuple[float, float, float, float], depth_min: float,
+                  depth_max: float, geometric: bool, photo: bool):
+    """Launch H1a: the live (h, w) level at ``pose`` against the model maps
+    ``(vpack1, vpack2, npack)`` (and the photometric ``words``).  Returns
+    ``((v_m, n_m, ok) or None, (i_m0, gu, gv, u0, v0, ok_c) or None)``."""
+    if not (geometric or photo) or (photo and words is None):
+        raise ValueError("icp_associate: needs a term, and the words for the photometric one")
+    _check_live(depth, "icp_associate live", vectors=(vertices,))
+    _check_vector(pose, "icp_associate pose", ICP_POSE)
+    _check_vector(model, "icp_associate model", ICP_MODEL)
+    hm, wm = maps[0].shape
+    for k, m in enumerate((*maps, *(words or ()))):
+        _check(m, f"icp_associate model map {k}", (torch.int32,))
+        if m.shape != (hm, wm):
+            raise ValueError(f"icp_associate: model map {k} is {tuple(m.shape)}")
+    lib = load()
+    h, w = depth.shape
+    corr = samples = None
+    if geometric:
+        corr = (vertices.new_empty((h, w, 3)), vertices.new_empty((h, w, 3)),
+                torch.empty((h, w), dtype=torch.bool, device=depth.device))
+    if photo:
+        samples = (*depth.new_empty((5, h, w)).unbind(0),
+                   torch.empty((h, w), dtype=torch.bool, device=depth.device))
+    wa, wb = words if photo else (None, None)
+    err = _launch(
+        lib.vulcan_icp_associate, depth, depth.data_ptr(), vertices.data_ptr(),
+        pose.data_ptr(), model.data_ptr(), *(m.data_ptr() for m in maps), _ptr(wa),
+        _ptr(wb), h * w, hm, wm, *camera, depth_min, depth_max, int(geometric),
+        int(photo), *((c.data_ptr() for c in corr) if geometric else (None,) * 3),
+        _ptr(samples[0]) if photo else None, _ptr(samples[5]) if photo else None,
+    )
+    _raise_on(err, "icp_associate")
+    return corr, samples
+
+
+def icp_rows(depth: torch.Tensor, vertices: torch.Tensor, normals: torch.Tensor,
+             intensity: torch.Tensor | None, pose: torch.Tensor, model: torch.Tensor,
+             corr, samples, camera: tuple[float, float, float, float],
+             scalars: tuple[float, ...], geometric: bool, photo: bool,
+             live_normals: bool) -> torch.Tensor:
+    """Launch H1b: the (2, 29) stacked sums, geometric then photometric
+    (zeros for an absent term), of the live level's rows at ``pose``.
+    ``scalars``: depth_min, depth_max, icp_dist_thresh ** 2,
+    icp_normal_thresh, icp_huber_delta, rgb_huber_delta, rgb_weight."""
+    if not (geometric or photo) or (geometric and corr is None) or (
+            photo and (samples is None or intensity is None)):
+        raise ValueError("icp_rows: a term lacks its correspondences or samples")
+    _check_live(depth, "icp_rows live", *((intensity,) if photo else ()),
+                vectors=(vertices, normals))
+    _check_vector(pose, "icp_rows pose", ICP_POSE)
+    _check_vector(model, "icp_rows model", ICP_MODEL)
+    if geometric:
+        _check_live(depth, "icp_rows correspondences", vectors=corr[:2])
+        _check(corr[2], "icp_rows ok", (torch.bool,))
+    if photo:
+        _check_live(depth, "icp_rows samples", *samples[:5])
+        _check(samples[5], "icp_rows sample ok", (torch.bool,))
+    for ok in (corr[2] if geometric else None, samples[5] if photo else None):
+        if ok is not None and ok.shape != depth.shape:
+            raise ValueError(f"icp_rows: a validity mask is {tuple(ok.shape)}")
+    lib = load()
+    n = depth.numel()
+    blocks = icp_rows_blocks(n)
+    partials, ticket = _rows_scratch(depth, blocks)
+    out = depth.new_empty((2, ICP_SUMS))
+    err = _launch(
+        lib.vulcan_icp_rows, depth, depth.data_ptr(), vertices.data_ptr(),
+        normals.data_ptr(), _ptr(intensity), pose.data_ptr(), model.data_ptr(),
+        *((c.data_ptr() for c in corr) if geometric else (None,) * 3),
+        *((s.data_ptr() for s in samples) if photo else (None,) * 6),
+        n, *camera, *scalars, int(geometric), int(photo), int(live_normals), blocks,
+        partials.data_ptr(), ticket.data_ptr(), out.data_ptr(),
+    )
+    _raise_on(err, "icp_rows")
+    return out
+
+
+def icp_solve(sums: torch.Tensor, pose: torch.Tensor, damping: float,
+              geometric: bool, photo: bool, detect: bool) -> torch.Tensor:
+    """Launch H1c on the (2, 29) sums: the next (16,) pose vector (a GN
+    step), or with ``detect`` the level's two observability scores in its
+    last two entries."""
+    if not (geometric or photo):
+        raise ValueError("icp_solve: needs a term")
+    _check(sums, "icp_solve sums")
+    if sums.shape != (2, ICP_SUMS):
+        raise ValueError(f"icp_solve: expected sums of (2, {ICP_SUMS}), got {tuple(sums.shape)}")
+    _check_vector(pose, "icp_solve pose", ICP_POSE)
+    lib = load()
+    out = pose.new_empty(ICP_POSE)
+    err = _launch(lib.vulcan_icp_solve, sums, sums.data_ptr(), pose.data_ptr(), damping,
+                  int(geometric), int(photo), int(detect), out.data_ptr())
+    _raise_on(err, "icp_solve")
     return out

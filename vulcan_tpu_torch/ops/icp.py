@@ -5,8 +5,12 @@ coarse-to-fine point-to-plane Gauss-Newton with Huber weights ("depth"),
 photometric rows on the model intensity ("color"), both summed
 ("combined"), and both with the model intensity scaled by a spherical-
 harmonics gain field refitted every association round ("light",
-``ops/light.py``).  Each 6x6 system comes from one fused reduction and is
-solved on the device by Cholesky, so a whole track needs no host read.
+``ops/light.py``).  The Gauss-Newton loop runs on three entry points,
+``icp_associate`` (H1a), ``icp_rows`` (H1b) and ``icp_solve`` (H1c): on
+the card the hand kernels of ``csrc/icp.cu`` (one launch a round, one a
+GN step's rows, one a solve and pose update), on the CPU their plain
+versions; the pose stays on the device, so a whole track needs no host
+read.
 
 Update convention: left-multiplicative, ``T <- exp(xi) @ T`` with twist
 ``xi = (omega, v)``; point-to-plane rows have ``J = [v x n, n]``.
@@ -28,6 +32,7 @@ from ..config import Config
 from ..core.camera import PinholeCamera
 from ..core.frame import FrameMaps
 from ..core.se3 import SE3
+from . import cuda_kernels
 from .dense import COORD_CLAMP, round_to_int
 from .preprocess import _shift2d, intensity_from_color
 from .raycast import Render
@@ -220,11 +225,10 @@ def model_from_frame_maps(maps: FrameMaps, pose: SE3) -> ModelMaps:
     )
 
 
-def _bilinear_taps(uv: torch.Tensor, h: int, w: int):
-    """The 2x2 bilinear footprint of each point of ``uv`` in an (h, w)
+def _bilinear_taps(u: torch.Tensor, v: torch.Tensor, h: int, w: int):
+    """The 2x2 bilinear footprint of each point (u, v) in an (h, w)
     image: its top-left tap (int64, clamped into the image), the
     fractional offsets (fu, fv) and whether all four taps lie inside."""
-    u, v = uv[..., 0], uv[..., 1]
     u0f, v0f = torch.floor(u), torch.floor(v)
     u0 = torch.clamp(u0f, -COORD_CLAMP, COORD_CLAMP).to(torch.int64)
     v0 = torch.clamp(v0f, -COORD_CLAMP, COORD_CLAMP).to(torch.int64)
@@ -236,7 +240,7 @@ def _bilinear_taps(uv: torch.Tensor, h: int, w: int):
 
 def _sample_bilinear(img: torch.Tensor, uv: torch.Tensor):
     """Bilinear sample of an (H, W) image; returns (value, in_bounds)."""
-    uc, vc, fu, fv, inb = _bilinear_taps(uv, *img.shape)
+    uc, vc, fu, fv, inb = _bilinear_taps(uv[..., 0], uv[..., 1], *img.shape)
     val = (
         img[vc, uc] * (1 - fu) * (1 - fv)
         + img[vc, uc + 1] * fu * (1 - fv)
@@ -254,31 +258,11 @@ def _huber_weight(r, delta):
 def associate_depth(live: FrameMaps, model: ModelMaps, pose: SE3, config: Config):
     """Projective association: warp each live pixel into the model frame
     at ``pose`` and sample the model maps (nearest).  Returns fixed
-    correspondences (v_m, n_m, ok) for the GN iterations that follow."""
-    v_w = pose.apply(live.vertices)
-    p_m = model.world_to_cam.apply(v_w)
-    uv = model.camera.project(p_m)
-
-    h, w = model.npack.shape
-    u = round_to_int(uv[..., 0])
-    vv = round_to_int(uv[..., 1])
-    inb = (u >= 0) & (u < w) & (vv >= 0) & (vv < h)
-    uc = torch.clamp(u, 0, w - 1)
-    vc = torch.clamp(vv, 0, h - 1)
-    mvx, mvy, mvz = _unpack_vertices(
-        model.vpack1[vc, uc], model.vpack2[vc, uc], model.origin
-    )
-    v_m = torch.stack([mvx, mvy, mvz], dim=-1)
-    nx, ny, nz, okn = _unpack_normals(model.npack[vc, uc])
-    n_m = torch.stack([nx, ny, nz], dim=-1)
-    ok = (
-        (live.depth > config.depth_min)
-        & (live.depth < config.depth_max)
-        & inb
-        & okn
-        & (p_m[..., 2] > 0.0)
-    )
-    return v_m, n_m, ok
+    correspondences (v_m, n_m, ok) for the GN iterations that follow.
+    H1a's plain version (``_associate_plain``) at stride 1."""
+    lv = level_inputs(live, model, 1, LOCAL, photo=False)
+    corr, _ = _associate_plain(lv, _pose_vector(pose), config, True, False)
+    return corr
 
 
 def _pp_normal_eqs(live: FrameMaps, v_m, n_m, assoc_ok, pose: SE3,
@@ -287,31 +271,9 @@ def _pp_normal_eqs(live: FrameMaps, v_m, n_m, assoc_ok, pose: SE3,
     """Point-to-plane 6x6 normal equations from planar rows.  Returns
     (H (6,6), b (6,), err, cnt).  ``live_normals=True`` builds J from the
     LIVE normals over the same gated set (the degeneracy detector)."""
-    v_w = pose.apply(live.vertices)
-    n_w = pose.rotate(live.normals)
-    dx = v_w[..., 0] - v_m[..., 0]
-    dy = v_w[..., 1] - v_m[..., 1]
-    dz = v_w[..., 2] - v_m[..., 2]
-    nx, ny, nz = n_m[..., 0], n_m[..., 1], n_m[..., 2]
-    dist2 = dx * dx + dy * dy + dz * dz
-    n_dot = n_w[..., 0] * nx + n_w[..., 1] * ny + n_w[..., 2] * nz
-    gate = (
-        assoc_ok
-        & (dist2 < config.icp_dist_thresh**2)
-        & (n_dot > config.icp_normal_thresh)
-    )
-    if live_normals:
-        nx, ny, nz = n_w[..., 0], n_w[..., 1], n_w[..., 2]
-    r = nx * dx + ny * dy + nz * dz
-    w = torch.where(gate, _huber_weight(r, config.icp_huber_delta), 0.0)
-
-    vx, vy, vz = v_w[..., 0], v_w[..., 1], v_w[..., 2]
-    j = (
-        vy * nz - vz * ny,          # [v x n]
-        vz * nx - vx * nz,
-        vx * ny - vy * nx,
-        nx, ny, nz,                 # [n]
-    )
+    p = _pose_vector(pose)
+    v_w = _affine(p, *live.vertices.unbind(-1))
+    j, r, w = _geo_rows(p, v_w, live.normals, (v_m, n_m, assoc_ok), config, live_normals)
     return _fused_normal_eqs(j, r, w, reduce)
 
 
@@ -333,10 +295,14 @@ def _sum_positions(n: int = 6):
 _HMAP, _BMAP = _sum_positions()
 
 
-def _fused_normal_eqs(j, r, w, reduce: Reducer = LOCAL):
-    """(H, b, err, cnt) from planar Jacobian components: all 29 scalars
-    from ONE stacked reduction (``reduce`` adds other processes' rows), H
-    assembled by a static gather."""
+def _stacked_sums(j, r, w, magnitudes: bool = False) -> torch.Tensor:
+    """The 29 stacked sums of planar rows (``_sum_positions``' layout: row
+    a's triangle ``w j_a j_c``, then ``w j_a r``; then ``w r r`` and the
+    count of weighted rows), one reduction over the pixels.  ``magnitudes``
+    sums the products' absolute values instead: the scale of the sums'
+    rounding error, which a check of another summation order divides by."""
+    if magnitudes:
+        j, r = tuple(torch.abs(x) for x in j), torch.abs(r)
     parts = []
     for a in range(6):
         wj = w * j[a]
@@ -345,11 +311,24 @@ def _fused_normal_eqs(j, r, w, reduce: Reducer = LOCAL):
         parts.append(wj * r)
     parts.append(w * r * r)
     parts.append((w > 0.0).to(torch.float32))
-    sums = reduce(torch.sum(torch.stack(parts).reshape(len(parts), -1), dim=1))
-    # Assembled from views of the sums: a host-built index tensor would be
-    # a host->device copy, which PyTorch follows with a stream sync.
+    return torch.sum(torch.stack(parts).reshape(len(parts), -1), dim=1)
+
+
+def _assemble(sums: torch.Tensor):
+    """(H (6, 6), b (6,)) from 29 stacked sums.  Assembled from views of
+    the sums: a host-built index tensor would be a host->device copy, which
+    PyTorch follows with a stream sync."""
     H = torch.stack([sums[i] for i in _HMAP]).reshape(6, 6)
     b = torch.stack([sums[i] for i in _BMAP])
+    return H, b
+
+
+def _fused_normal_eqs(j, r, w, reduce: Reducer = LOCAL):
+    """(H, b, err, cnt) from planar Jacobian components: all 29 scalars
+    from ONE stacked reduction (``reduce`` adds other processes' rows), H
+    assembled by a static gather."""
+    sums = reduce(_stacked_sums(j, r, w))
+    H, b = _assemble(sums)
     return H, b, sums[-2], sums[-1]
 
 
@@ -364,28 +343,24 @@ def intensity_grads(intensity: torch.Tensor):
 _PHOTO_SCALE = 65535.0  # 16-bit fixed point of the packed photometric words
 
 
-def color_assoc(live: FrameMaps, model: ModelMaps, grads, pose: SE3,
-                config: Config):
-    """The gather half of photometric tracking: sample the model intensity
-    and its gradients bilinearly at the current warp, once a round.
-
-    (I, gx, gy, valid) ride two packed int32 words, ``iq<<16 | gxq`` and
-    ``gyq<<16 | valid`` at 1/65535, built and decoded as the reference
-    does.  Returns fixed samples (i_m0, gu, gv, u0, v0, ok) for
-    ``color_rows_fixed``; validity is the tap nearest the warp point."""
+def _photo_words(intensity: torch.Tensor, valid: torch.Tensor, grads):
+    """The two packed photometric words of a level, ``iq<<16 | gxq`` and
+    ``gyq<<16 | valid`` at 1/65535 (pose-independent: once a level)."""
     gx_img, gy_img = grads
-    s = _PHOTO_SCALE
 
     def q(x):
-        return torch.clamp(torch.round(x * s), 0, 65535).to(torch.int32)
+        return torch.clamp(torch.round(x * _PHOTO_SCALE), 0, 65535).to(torch.int32)
 
-    wa = (q(model.intensity) << 16) | q(gx_img + 0.5)  # may wrap negative
-    wb = (q(gy_img + 0.5) << 16) | model.valid.to(torch.int32)
+    wa = (q(intensity) << 16) | q(gx_img + 0.5)  # may wrap negative
+    wb = (q(gy_img + 0.5) << 16) | valid.to(torch.int32)
+    return wa.contiguous(), wb.contiguous()
 
-    v_w = pose.apply(live.vertices)
-    p_m = model.world_to_cam.apply(v_w)
-    uv = model.camera.project(p_m)
-    uc, vc, fu, fv, inb = _bilinear_taps(uv, *model.intensity.shape)
+
+def _photo_samples(wa, wb, u, v, z):
+    """The flat bilinear decode of the two packed words at the warp points
+    (u, v) of camera depth z: (i_m0, gu, gv, u0, v0, ok), validity from the
+    tap nearest the warp point."""
+    uc, vc, fu, fv, inb = _bilinear_taps(u, v, *wa.shape)
     a00, a01 = wa[vc, uc], wa[vc, uc + 1]
     a10, a11 = wa[vc + 1, uc], wa[vc + 1, uc + 1]
     b00, b01 = wb[vc, uc], wb[vc, uc + 1]
@@ -395,7 +370,7 @@ def color_assoc(live: FrameMaps, model: ModelMaps, grads, pose: SE3,
     w01 = fu * (1.0 - fv)
     w10 = (1.0 - fu) * fv
     w11 = fu * fv
-    inv = 1.0 / s
+    inv = 1.0 / _PHOTO_SCALE
 
     def blend(x00, x01, x10, x11, shift, lo):
         def d(x):
@@ -411,8 +386,27 @@ def color_assoc(live: FrameMaps, model: ModelMaps, grads, pose: SE3,
         torch.where(fu >= 0.5, b11, b10),
         torch.where(fu >= 0.5, b01, b00),
     )
-    ok = inb & ((vb & 1) > 0) & (p_m[..., 2] > 0.0)
-    return i_m0, gu, gv, uv[..., 0], uv[..., 1], ok
+    ok = inb & ((vb & 1) > 0) & (z > 0.0)
+    return i_m0, gu, gv, u, v, ok
+
+
+def color_assoc(live: FrameMaps, model: ModelMaps, grads, pose: SE3,
+                config: Config):
+    """The gather half of photometric tracking: sample the model intensity
+    and its gradients bilinearly at the current warp, once a round.
+
+    (I, gx, gy, valid) ride two packed int32 words, ``iq<<16 | gxq`` and
+    ``gyq<<16 | valid`` at 1/65535, built and decoded as the reference
+    does.  Returns fixed samples (i_m0, gu, gv, u0, v0, ok) for
+    ``color_rows_fixed``; validity is the tap nearest the warp point.
+    The decode is H1a's (``_photo_samples``); the warp is ``SE3.apply``'s,
+    whose rounding stays within an ulp of the reference's fused one (the
+    kernels' unfused warp, ``_affine``, parts from it by a few ulps)."""
+    wa, wb = _photo_words(model.intensity, model.valid, grads)
+    v_w = pose.apply(live.vertices)
+    p_m = model.world_to_cam.apply(v_w)
+    uv = model.camera.project(p_m)
+    return _photo_samples(wa, wb, uv[..., 0], uv[..., 1], p_m[..., 2])
 
 
 def color_rows_fixed(live: FrameMaps, samples, model: ModelMaps, pose: SE3,
@@ -422,40 +416,9 @@ def color_rows_fixed(live: FrameMaps, samples, model: ModelMaps, pose: SE3,
     the projection and its Jacobian re-evaluated at the current pose.  A
     warp that drifted over 4 pixels from its sample is gated out until the
     next round.  Returns (j 6-tuple, r, w), scaled by ``rgb_weight``."""
-    i_m0, gu, gv, u0, v0, ok0 = samples
-    live_ok = (live.depth > config.depth_min) & (live.depth < config.depth_max)
-    v_w = pose.apply(live.vertices)
-    p_m = model.world_to_cam.apply(v_w)
-    uv = model.camera.project(p_m)
-    u, v = uv[..., 0], uv[..., 1]
-
-    r = i_m0 + gu * (u - u0) + gv * (v - v0) - live.intensity
-
-    x, y, z = p_m[..., 0], p_m[..., 1], p_m[..., 2]
-    zc = torch.clamp(z, min=1e-6)
-    fx, fy = model.camera.fx, model.camera.fy
-    # dI/dp_m through the pinhole Jacobian, rotated back to world by R_m^T.
-    gpx = gu * fx / zc
-    gpy = gv * fy / zc
-    gpz = -(gu * fx * x + gv * fy * y) / (zc * zc)
-    Rm = model.world_to_cam.rotation
-    gwx = Rm[0, 0] * gpx + Rm[1, 0] * gpy + Rm[2, 0] * gpz
-    gwy = Rm[0, 1] * gpx + Rm[1, 1] * gpy + Rm[2, 1] * gpz
-    gwz = Rm[0, 2] * gpx + Rm[1, 2] * gpy + Rm[2, 2] * gpz
-
-    drift2 = (u - u0) ** 2 + (v - v0) ** 2
-    gate = live_ok & ok0 & (z > 0.0) & (drift2 < 16.0)
-    w = torch.where(gate, _huber_weight(r, config.rgb_huber_delta), 0.0)
-
-    s = config.rgb_weight
-    vx, vy, vz = v_w[..., 0], v_w[..., 1], v_w[..., 2]
-    j = (
-        s * (vy * gwz - vz * gwy),           # [v x g]
-        s * (vz * gwx - vx * gwz),
-        s * (vx * gwy - vy * gwx),
-        s * gwx, s * gwy, s * gwz,           # [g]
-    )
-    return j, s * r, w
+    v_w = _affine(_pose_vector(pose), *live.vertices.unbind(-1))
+    return _photo_rows(v_w, live.depth, live.intensity, _model_vector(model),
+                       model.camera, samples, config)
 
 
 def _min_eig_normalized(H: torch.Tensor) -> torch.Tensor:
@@ -511,6 +474,293 @@ def _photo_here(mode: str, level: int, config: Config) -> bool:
     )
 
 
+# --- the Gauss-Newton loop's three entry points (H1a-H1c) -----------------
+#
+# ``track`` runs every association round through ``icp_associate`` (H1a),
+# every GN step's rows through ``icp_rows`` (H1b) and its solve through
+# ``icp_solve`` (H1c), on either device: a CPU tensor takes the plain
+# PyTorch version beside each, a CUDA tensor launches the kernel of
+# ``csrc/icp.cu`` (counted in ``<entry>.launches``) or raises.  The pose
+# travels as a (16,) vector, ``[R row-major (9), t (3), err, inliers, level
+# score, geometric score]``, that H1c writes and H1a/H1b read on the device.
+# The plain versions write each per-pixel operation out element by element
+# in the order the kernels repeat it, one rounding each, so that the card
+# checks kernel against plain version bit for bit up to the sums' order.
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelInputs:
+    """What the three entry points read at one pyramid level, built once a
+    level: this process's live rows at the level's stride and the model
+    maps, all contiguous, the photometric words where the level has the
+    photometric term, and the model side as one (15,) vector."""
+
+    depth: torch.Tensor               # (h, w) live
+    vertices: torch.Tensor            # (h, w, 3) live, camera space
+    normals: torch.Tensor             # (h, w, 3)
+    intensity: torch.Tensor | None    # (h, w), with the photometric term
+    vpack1: torch.Tensor              # (hm, wm) int32 model maps
+    vpack2: torch.Tensor
+    npack: torch.Tensor
+    words: tuple[torch.Tensor, torch.Tensor] | None  # (hm, wm) int32 x2
+    model: torch.Tensor               # (15,) world-to-camera R, t; origin
+    camera: PinholeCamera             # the model camera
+
+
+def _model_vector(model: ModelMaps) -> torch.Tensor:
+    """(15,) model side: world-to-camera R row-major and t, then the origin
+    of the packed vertices."""
+    w2c = model.world_to_cam
+    return torch.cat([w2c.rotation.reshape(9), w2c.translation, model.origin])
+
+
+def level_inputs(live: FrameMaps, model: ModelMaps, stride: int,
+                 reduce: Reducer, photo: bool) -> LevelInputs:
+    def rows(x):
+        return reduce.rows(x[::stride, ::stride]).contiguous()
+
+    return LevelInputs(
+        depth=rows(live.depth),
+        vertices=rows(live.vertices),
+        normals=rows(live.normals),
+        intensity=rows(live.intensity) if photo else None,
+        vpack1=model.vpack1.contiguous(),
+        vpack2=model.vpack2.contiguous(),
+        npack=model.npack.contiguous(),
+        words=(_photo_words(model.intensity, model.valid,
+                            intensity_grads(model.intensity)) if photo else None),
+        model=_model_vector(model),
+        camera=model.camera,
+    )
+
+
+def _pose_vector(pose: SE3) -> torch.Tensor:
+    """(16,) pose vector of ``pose``: R, t, then err, inliers and the two
+    scores at 0."""
+    t = pose.translation
+    return torch.cat([pose.rotation.reshape(9), t, t.new_zeros(4)])
+
+
+def _pose_of(vec: torch.Tensor) -> SE3:
+    return SE3(vec[:9].reshape(3, 3), vec[9:12])
+
+
+def _affine(p: torch.Tensor, x, y, z, translate: bool = True):
+    """The 3x4 transform at ``p[:12]`` (rotation row-major, translation)
+    on planar channels, each row's products summed left to right."""
+    out = []
+    for k in range(3):
+        row = p[3 * k] * x + p[3 * k + 1] * y + p[3 * k + 2] * z
+        out.append(row + p[9 + k] if translate else row)
+    return out
+
+
+def _project(cam: PinholeCamera, x, y, z):
+    """``PinholeCamera.project`` on planar channels (contiguous u, v, as
+    the kernels write them)."""
+    bad = z <= 1e-12
+    sz = torch.where(bad, 1.0, z)
+    u = torch.where(bad, -1e9, cam.fx * x / sz + cam.cx)
+    v = torch.where(bad, -1e9, cam.fy * y / sz + cam.cy)
+    return u, v
+
+
+def _associate_plain(lv: LevelInputs, pose: torch.Tensor, config: Config,
+                     geometric: bool, photo: bool):
+    """H1a's plain version: ``associate_depth``'s correspondences (v_m,
+    n_m, ok) and ``color_assoc``'s samples (i_m0, gu, gv, u0, v0, ok), each
+    None without its term."""
+    wx, wy, wz = _affine(pose, *lv.vertices.unbind(-1))
+    mx, my, mz = _affine(lv.model, wx, wy, wz)
+    u, v = _project(lv.camera, mx, my, mz)
+    corr = samples = None
+    if geometric:
+        hm, wm = lv.npack.shape
+        ui, vi = round_to_int(u), round_to_int(v)
+        inb = (ui >= 0) & (ui < wm) & (vi >= 0) & (vi < hm)
+        idx = torch.clamp(vi, 0, hm - 1) * wm + torch.clamp(ui, 0, wm - 1)
+        v_m = torch.stack(_unpack_vertices(
+            lv.vpack1.reshape(-1)[idx], lv.vpack2.reshape(-1)[idx], lv.model[12:15]), dim=-1)
+        nx, ny, nz, okn = _unpack_normals(lv.npack.reshape(-1)[idx])
+        ok = (
+            (lv.depth > config.depth_min)
+            & (lv.depth < config.depth_max)
+            & inb
+            & okn
+            & (mz > 0.0)
+        )
+        corr = (v_m, torch.stack([nx, ny, nz], dim=-1), ok)
+    if photo:
+        samples = _photo_samples(*lv.words, u, v, mz)
+    return corr, samples
+
+
+def _camera4(cam: PinholeCamera) -> tuple[float, float, float, float]:
+    return cam.fx, cam.fy, cam.cx, cam.cy
+
+
+def icp_associate(lv: LevelInputs, pose: torch.Tensor, config: Config,
+                  geometric: bool, photo: bool):
+    """H1a, one association round: ``(corr, samples)`` as
+    ``_associate_plain`` returns them; kernel ``icp_associate`` of
+    ``csrc/icp.cu`` on a CUDA tensor."""
+    if lv.depth.is_cpu:
+        return _associate_plain(lv, pose, config, geometric, photo)
+    out = cuda_kernels.icp_associate(
+        lv.depth, lv.vertices, pose, lv.model, (lv.vpack1, lv.vpack2, lv.npack),
+        lv.words, _camera4(lv.camera), config.depth_min, config.depth_max,
+        geometric, photo)
+    icp_associate.launches += 1
+    return out
+
+
+icp_associate.launches = 0
+
+
+def _geo_rows(pose: torch.Tensor, v_w, normals: torch.Tensor, corr, config: Config,
+              live_normals: bool = False):
+    """Point-to-plane planar rows (j 6-tuple, r, w) at the world points
+    ``v_w`` (planar channels) of live pixels with camera-space ``normals``,
+    on fixed correspondences ``corr``; ``live_normals``: J and r from the
+    live normals (the degeneracy detector)."""
+    vx, vy, vz = v_w
+    v_m, n_m, ok = corr
+    nwx, nwy, nwz = _affine(pose, *normals.unbind(-1), translate=False)
+    mx, my, mz = v_m.unbind(-1)
+    dx, dy, dz = vx - mx, vy - my, vz - mz
+    nx, ny, nz = n_m.unbind(-1)
+    dist2 = dx * dx + dy * dy + dz * dz
+    n_dot = nwx * nx + nwy * ny + nwz * nz
+    gate = (
+        ok
+        & (dist2 < config.icp_dist_thresh**2)
+        & (n_dot > config.icp_normal_thresh)
+    )
+    if live_normals:
+        nx, ny, nz = nwx, nwy, nwz
+    r = nx * dx + ny * dy + nz * dz
+    w = torch.where(gate, _huber_weight(r, config.icp_huber_delta), 0.0)
+    j = (vy * nz - vz * ny, vz * nx - vx * nz, vx * ny - vy * nx, nx, ny, nz)
+    return j, r, w
+
+
+def _photo_rows(v_w, depth: torch.Tensor, intensity: torch.Tensor,
+                model: torch.Tensor, cam: PinholeCamera, samples, config: Config):
+    """Photometric planar rows (j 6-tuple, r, w), scaled by ``rgb_weight``,
+    at the world points ``v_w`` of live pixels with ``depth`` and
+    ``intensity``, from fixed ``samples``; ``model`` is the (15,) model
+    side (``_model_vector``), ``cam`` the model camera."""
+    vx, vy, vz = v_w
+    i_m0, gu, gv, u0, v0, ok0 = samples
+    px, py, pz = _affine(model, vx, vy, vz)
+    u, v = _project(cam, px, py, pz)
+    du, dv = u - u0, v - v0
+    r = i_m0 + gu * du + gv * dv - intensity
+    zc = torch.clamp(pz, min=1e-6)
+    # dI/dp_m through the pinhole Jacobian, rotated back to world by R_m^T.
+    gufx, gvfy = gu * cam.fx, gv * cam.fy
+    gpx, gpy = gufx / zc, gvfy / zc
+    gpz = -(gufx * px + gvfy * py) / (zc * zc)
+    m = model
+    gwx = m[0] * gpx + m[3] * gpy + m[6] * gpz
+    gwy = m[1] * gpx + m[4] * gpy + m[7] * gpz
+    gwz = m[2] * gpx + m[5] * gpy + m[8] * gpz
+    drift2 = du * du + dv * dv
+    gate = (
+        (depth > config.depth_min)
+        & (depth < config.depth_max)
+        & ok0
+        & (pz > 0.0)
+        & (drift2 < 16.0)
+    )
+    w = torch.where(gate, _huber_weight(r, config.rgb_huber_delta), 0.0)
+    s = config.rgb_weight
+    j = (s * (vy * gwz - vz * gwy), s * (vz * gwx - vx * gwz),
+         s * (vx * gwy - vy * gwx), s * gwx, s * gwy, s * gwz)
+    return j, s * r, w
+
+
+def _rows_plain(lv: LevelInputs, pose: torch.Tensor, corr, samples,
+                config: Config, geometric: bool, photo: bool,
+                live_normals: bool = False, magnitudes: bool = False) -> torch.Tensor:
+    """H1b's plain version: the (2, 29) stacked sums of ``_pp_normal_eqs``'
+    rows (``live_normals``: the detector's) and of ``color_rows_fixed``'s,
+    zeros for an absent term; ``magnitudes``: the sums of the products'
+    absolute values (``_stacked_sums``)."""
+    v_w = _affine(pose, *lv.vertices.unbind(-1))
+    geo = pho = lv.depth.new_zeros(29)
+    if geometric:
+        geo = _stacked_sums(*_geo_rows(pose, v_w, lv.normals, corr, config, live_normals),
+                            magnitudes)
+    if photo:
+        pho = _stacked_sums(*_photo_rows(v_w, lv.depth, lv.intensity, lv.model, lv.camera,
+                                         samples, config), magnitudes)
+    return torch.stack([geo, pho])
+
+
+def icp_rows(lv: LevelInputs, pose: torch.Tensor, corr, samples, config: Config,
+             geometric: bool, photo: bool, live_normals: bool = False) -> torch.Tensor:
+    """H1b, one GN step's rows (or the detector's, ``live_normals``): the
+    (2, 29) stacked sums of this process's rows, geometric then
+    photometric; kernel ``icp_rows`` of ``csrc/icp.cu`` on a CUDA tensor."""
+    if lv.depth.is_cpu:
+        return _rows_plain(lv, pose, corr, samples, config, geometric, photo,
+                           live_normals)
+    scalars = (config.depth_min, config.depth_max, config.icp_dist_thresh**2,
+               config.icp_normal_thresh, config.icp_huber_delta,
+               config.rgb_huber_delta, config.rgb_weight)
+    out = cuda_kernels.icp_rows(
+        lv.depth, lv.vertices, lv.normals, lv.intensity, pose, lv.model, corr,
+        samples, _camera4(lv.camera), scalars, geometric, photo, live_normals)
+    icp_rows.launches += 1
+    return out
+
+
+icp_rows.launches = 0
+
+
+def _solve_plain(sums: torch.Tensor, pose: torch.Tensor, damping: float,
+                 geometric: bool, photo: bool, detect: bool = False) -> torch.Tensor:
+    """H1c's plain version on the (2, 29) sums after ``reduce``: the next
+    pose vector, ``SE3.exp(solve_gn(Hg + Hc, bg + bc)) @ pose`` with a
+    zero step under 6 inliers, err = e / max(c, 1) and inliers = c from
+    the geometric term when there is one; with ``detect`` the pose vector
+    with the level's score (the summed matrix) and geometric score (1
+    without a geometric term) in its last two entries."""
+    Hg, bg = _assemble(sums[0])
+    Hc, bc = _assemble(sums[1])
+    H = Hg + Hc
+    if detect:
+        deg = _min_eig_normalized(H)
+        deg_geo = (
+            (_min_eig_normalized(Hg) if photo else deg) if geometric
+            else torch.ones_like(deg)
+        )
+        return torch.cat([pose[:14], deg.reshape(1), deg_geo.reshape(1)])
+    e, c = sums[0 if geometric else 1, 27:29]
+    delta = solve_gn(H, bg + bc, damping)
+    delta = torch.where(c >= 6.0, delta, 0.0)
+    new = SE3.exp(delta) @ _pose_of(pose)
+    return torch.cat([new.rotation.reshape(9), new.translation,
+                      (e / torch.clamp(c, min=1.0)).reshape(1), c.reshape(1), pose[14:]])
+
+
+def icp_solve(sums: torch.Tensor, pose: torch.Tensor, config: Config,
+              geometric: bool, photo: bool, detect: bool = False) -> torch.Tensor:
+    """H1c, one GN step's solve and pose update (or the level's scores,
+    ``detect``) in one thread block: kernel ``icp_solve`` of
+    ``csrc/icp.cu`` on a CUDA tensor."""
+    if sums.is_cpu:
+        return _solve_plain(sums, pose, config.icp_damping, geometric, photo, detect)
+    out = cuda_kernels.icp_solve(sums, pose, config.icp_damping, geometric, photo,
+                                 detect)
+    icp_solve.launches += 1
+    return out
+
+
+icp_solve.launches = 0
+
+
 def track(
     live_pyramid: tuple[FrameMaps, ...],
     model_pyr: tuple[ModelMaps, ...],
@@ -524,13 +774,14 @@ def track(
     ``mode``: "depth" (point-to-plane), "color" (photometric), "combined"
     (both normal equations summed) or "light" (combined, with the model
     intensity scaled by an SH gain field refitted every round).  Per level:
-    ``icp_assoc[level]`` association rounds, each followed by
-    ``ceil(iters / rounds)`` GN steps on the fixed correspondences and
-    samples; then the level's observability score from the LIVE normals
-    (plus the photometric rows where present) over the last round's
-    correspondences.  ``geo_degen`` is the geometric-only score, taken
-    before the photometric rows are added.  Per-level inlier floors
-    invalidate a track whose coarse level starved.
+    ``icp_assoc[level]`` association rounds (``icp_associate``), each
+    followed by ``ceil(iters / rounds)`` GN steps on the fixed
+    correspondences and samples (``icp_rows``, then ``icp_solve``); then
+    the level's observability score from the LIVE normals (plus the
+    photometric rows where present) over the last round's correspondences.
+    ``geo_degen`` is the geometric-only score, taken before the
+    photometric rows are added.  Per-level inlier floors invalidate a
+    track whose coarse level starved.
 
     ``reduce`` picks the live rows this process sums at every level and
     combines the stacked sums before every solve (``Reducer``); the model
@@ -540,87 +791,43 @@ def track(
 
     if mode not in MODES:
         raise ValueError(f"mode={mode!r}: one of {MODES}")
-    dev = init_pose.translation.device
-    pose = init_pose
     levels = config.pyramid_levels
     strides = _level_strides(config)
     geometric = mode != "color"
-    zero = torch.zeros((), device=dev)
-    one = torch.ones((), device=dev)
-    err, inl = zero, zero
-    lvl_err = [zero] * levels
-    lvl_inl = [zero] * levels
-    lvl_deg = [one] * levels
-    lvl_deg_geo = [one] * levels
+    state = _pose_vector(init_pose)
+    one = torch.ones((), device=state.device)
+    lvl_err, lvl_inl = [one] * levels, [one] * levels
+    lvl_deg, lvl_deg_geo = [one] * levels, [one] * levels
     for level in range(levels - 1, -1, -1):
-        live = live_pyramid[level]
-        model = model_pyr[level]
-        iters = config.icp_iters[level]
-        st = strides[level]
-        live = FrameMaps(
-            depth=reduce.rows(live.depth[::st, ::st]),
-            vertices=reduce.rows(live.vertices[::st, ::st]),
-            normals=reduce.rows(live.normals[::st, ::st]),
-            intensity=(
-                reduce.rows(live.intensity[::st, ::st])
-                if live.intensity is not None else None
-            ),
-            camera=live.camera,
-        )
         photo_here = _photo_here(mode, level, config)
-        grads = intensity_grads(model.intensity) if photo_here else None
+        lv = level_inputs(live_pyramid[level], model_pyr[level], strides[level],
+                          reduce, photo_here)
+        iters = config.icp_iters[level]
         rounds = max(1, min(config.icp_assoc[level], iters))
         inner = -(-iters // rounds)  # ceil
         for _round in range(rounds):
-            v_m = n_m = ok = samples = None
-            if geometric:
-                v_m, n_m, ok = associate_depth(live, model, pose, config)
-            if photo_here:
-                samples = color_assoc(live, model, grads, pose, config)
-                if mode == "light":
-                    # Refit the gain at every round with the pose frozen,
-                    # then hold it across the round's GN steps.
-                    coeffs = light_ops.estimate_gain(
-                        n_m, samples[0], live.intensity, samples[5] & ok,
-                        reduce=reduce,
-                    )
-                    samples = light_ops.scale_photo_samples(samples, n_m, coeffs)
+            corr, samples = icp_associate(lv, state, config, geometric, photo_here)
+            if photo_here and mode == "light":
+                # Refit the gain at every round with the pose frozen,
+                # then hold it across the round's GN steps.
+                _, n_m, ok = corr
+                coeffs = light_ops.estimate_gain(
+                    n_m, samples[0], lv.intensity, samples[5] & ok, reduce=reduce
+                )
+                samples = light_ops.scale_photo_samples(samples, n_m, coeffs)
             for _ in range(inner):
-                if geometric:
-                    H, b, e, c = _pp_normal_eqs(live, v_m, n_m, ok, pose, config,
-                                                reduce=reduce)
-                else:
-                    H = torch.zeros((6, 6), device=dev)
-                    b = torch.zeros(6, device=dev)
-                    e = c = zero
-                if photo_here:
-                    jc, rc, wc = color_rows_fixed(live, samples, model, pose, config)
-                    Hc, bc, ec, cc = _fused_normal_eqs(jc, rc, wc, reduce)
-                    H, b = H + Hc, b + bc
-                    if mode == "color":
-                        e, c = ec, cc
-                delta = solve_gn(H, b, config.icp_damping)
-                delta = torch.where(c >= 6.0, delta, 0.0)
-                pose = SE3.exp(delta) @ pose
-                err, inl = e / torch.clamp(c, min=1.0), c
-        lvl_err[level], lvl_inl[level] = torch.sqrt(err), inl
+                sums = reduce(icp_rows(lv, state, corr, samples, config, geometric,
+                                       photo_here))
+                state = icp_solve(sums, state, config, geometric, photo_here)
+        lvl_err[level], lvl_inl[level] = torch.sqrt(state[12]), state[13]
         if config.degen_min_eig <= 0.0:
             continue
-        if geometric:
-            H_det, _, _, _ = _pp_normal_eqs(
-                live, v_m, n_m, ok, pose, config, live_normals=True, reduce=reduce
-            )
-        else:
-            H_det = torch.zeros((6, 6), device=dev)
-        if geometric and photo_here:
-            lvl_deg_geo[level] = _min_eig_normalized(H_det)
-        if photo_here:
-            jc, rc, wc = color_rows_fixed(live, samples, model, pose, config)
-            H_det = H_det + _fused_normal_eqs(jc, rc, wc, reduce)[0]
-        lvl_deg[level] = _min_eig_normalized(H_det)
-        if geometric and not photo_here:
-            lvl_deg_geo[level] = lvl_deg[level]
+        sums = reduce(icp_rows(lv, state, corr, samples, config, geometric, photo_here,
+                               live_normals=True))
+        state = icp_solve(sums, state, config, geometric, photo_here, detect=True)
+        lvl_deg[level], lvl_deg_geo[level] = state[14], state[15]
 
+    err, inl = state[12], state[13]
     level_inliers = torch.stack(lvl_inl).to(torch.int32)
     level_degen = torch.stack(lvl_deg)
     # Gate score: the levels that carry every configured term (all in
@@ -638,7 +845,7 @@ def track(
         torch.stack([level_inliers[i] >= f for i, f in enumerate(floors)])
     )
     return TrackResult(
-        pose=pose,
+        pose=_pose_of(state),
         error=torch.sqrt(err),
         inliers=inl.to(torch.int32),
         valid=(inl >= float(config.icp_min_inliers)) & levels_ok,
