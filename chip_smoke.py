@@ -34,12 +34,21 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      error of each term within 1e-5 of the block's largest sum of
      magnitudes, counts equal), H1c against ``_solve_plain`` (rtol 1e-4),
      each twice and bit-identical (chiprun_out/track_kernels.json),
-     and each timed like K1 at the finest level in depth mode;
+     and each timed like K1 at the finest level in depth mode (H1b: one
+     thread-block cluster of 16 CTAs, ``cluster_ctas``);
   3. main path: Pipeline(Config(), tum_default(), 480, 640) in depth mode
      over the 35-frame synthetic orbit (uint16 depth / uint8 colour in),
-     5 warm-up + 30 timed frames; the kernels must have launched once per
-     frame (K2: one kernel launch per frame; H1a-H1c 12, 29 and 29 times a
-     frame, ``track_launches``), with zero overflows, zero track failures
+     5 warm-up + 30 timed frames.  The pipeline runs its first two frames
+     eagerly and then replays a captured CUDA graph
+     (``vulcan_tpu_torch/pipeline/graphs.py``).  Every counted kernel adds
+     one to its own counter on the card at each launch, eager or replayed
+     (``cuda_kernels.launch_counts``; a capture launches nothing), read
+     after each frame: ``check_graph_run`` holds that the pipeline ran as
+     a graph, that no replayed frame read on the host or launched
+     anything eagerly, and that every replayed frame launched K1 and K2
+     once and H1a-H1c 12 / 29 / 29 times (``want_per_frame``); the run's
+     counts are the kernels line's ``launches`` and a replayed frame's its
+     ``launches_per_replayed_frame``; zero overflows, zero track failures
      and ATE < 0.01 m; then the same run with the track's entry points on
      their plain versions on the card (``plain_track``): ATE within 1e-4 m;
   3b. the photometric paths at 480x640, each run with the counts set to 0
@@ -48,17 +57,33 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      must arm the combined-mode rescue; (c) the 245-frame desk orbit in
      mode="combined".  Each prints ms/frame median and p90, ATE, armed
      frames, host reads a frame and K1/K2/H1a-H1c launches, and fails
-     unless K1 and K2 launched once a frame and H1a-H1c as in phase 3,
-     nothing overflowed, every pose is
-     finite and ATE < 0.01 m on (a) and (b), < 0.1 m on (c).  With
-     --parity also the desk in mode="light" and in depth mode under the
-     default Config (armed frames and ATE, recorded, not judged);
+     unless ``check_graph_run`` holds (an eager path: ``check_eager_run``,
+     K1 and K2 once and H1a-H1c as ``track_launches`` every frame, on the
+     card), nothing overflowed, every pose is finite and ATE < 0.01 m on
+     (a) and (b), < 0.1 m on (c).  With --parity also the desk in
+     mode="light" and in depth mode under the default Config (armed frames
+     and ATE, recorded, not judged);
+  3c. the captured graph against the eager step (``graph_against_eager``),
+     each cell with the counts set to 0 just before it: the orbit in depth
+     and combined mode, armed (auto_photo_enter=0.99) and the desk in
+     combined mode (with --parity also light and depth mode).  The eager
+     step runs twice (whether it repeats bit for bit), then ``Pipeline``:
+     poses a frame and every array of the final state must equal the
+     eager ones wherever the eager runs agree (GRAPH_TOL); the replayed
+     frames read nothing; every frame of each run launches exactly K1 and
+     K2 once and H1a-H1c 12 / 29 / 29 times on the card; the last 10
+     frames run under torch.profiler: device busy ms (the union of the
+     trace's kernel, copy and fill intervals; discarded where the trace
+     holds fewer hand kernels than the card launched or more busy time
+     than wall time), operations and the idle share of each path; the
+     graph's capture ms and memory pool MiB.  Written to OUT_DIR/graph.json;
   4. agreement: the same port on the card and on the CPU (plain kernel
      versions) over a small orbit must track the same trajectory, in depth
      and in combined mode;
   5. (only with --profile) where a steady frame's time goes, for the
      orbit in depth mode, in combined mode (a) and with auto-photo armed
-     (b): stage wall times with a device sync at each stage boundary,
+     (b), all on the eager step (the graph has no stage ranges): stage
+     wall times with a device sync at each stage boundary,
      kernel time per stage and the top kernels from torch.profiler (the
      step's ``vulcan.<stage>`` ranges), and the device's idle share;
      printed and written to chiprun_out/profile_stages.json.
@@ -397,6 +422,86 @@ def icp_sums_err(got, want, magnitudes) -> float:
     return worst
 
 
+def graph_if_kernel(torch, dev) -> dict:
+    """Phase 2, the IF nodes' kernel (``csrc/graph.cu``): a graph with a
+    guarded chunk (``sync.run_if``), a nested one and a ``sync.cond``,
+    replayed at predicates 0, 1 and 2 against the same work run eagerly
+    (its plain version: the branch the host reads); timed as one replay of
+    a graph of one IF node around one add, beside that add under a host
+    read of its predicate.  Returns its kernels-line entry."""
+    from vulcan_tpu_torch.tools.timing import call_ms, device_and_host
+    from vulcan_tpu_torch.utils import sync
+
+    x = torch.zeros(4, device=dev)
+    flag = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def work(x):
+        sync.run_if(flag > 0, lambda: x.add_(1.0))
+
+        def nested():
+            x[1:2].add_(10.0)
+            sync.run_if(flag > 1, lambda: x[2:3].add_(100.0))
+
+        sync.run_if(flag >= 0, nested)
+        return sync.cond(flag, lambda: x * 2.0, lambda: x * 3.0)
+
+    def plain(v):
+        want = torch.zeros(4, device=dev)
+        if v > 0:
+            want += 1.0
+        want[1] += 10.0
+        if v > 1:
+            want[2] += 100.0
+        return want, want * (2.0 if v else 3.0)
+
+    x.add_(0.0)
+    g = torch.cuda.CUDAGraph()
+    with sync.capture(g, dev) as _pool:
+        out = torch.zeros(4, device=dev)
+        out.copy_(work(x))
+    err = 0.0
+    ifs = []
+    for v in (0, 1, 2, 0):
+        flag.fill_(v)
+        x.zero_()
+        before = launch_counts()["graph_if"]
+        g.replay()
+        torch.cuda.synchronize()
+        ifs.append(launch_counts()["graph_if"] - before)
+        want_x, want_out = plain(v)
+        err = max(err, float((x - want_x).abs().max()), float((out - want_out).abs().max()))
+    # A replay sets 5 IF nodes: two guarded chunks, the one nested in the
+    # second (whose body always runs), the cond's two.
+    if ifs != [5] * 4:
+        fail(f"graph_if: the card counted {ifs} IF-node launches a replay, expected 5")
+    one = torch.cuda.CUDAGraph()
+    with sync.capture(one, dev) as _pool1:
+        sync.run_if(flag > 0, lambda: x.add_(1.0))
+    flag.fill_(1)
+    kernel_ms, host_us = device_and_host(one.replay)
+
+    def eager_add():
+        if sync.read_int(flag) > 0:
+            x.add_(1.0)
+
+    entry = dict(name="graph_if", route="cuda", source="vulcan_tpu_torch/csrc/graph.cu",
+                 replaces="vulcan_tpu/pipeline/fusion.py:308 lax.cond, "
+                          "vulcan_tpu/ops/sparse.py:377 lax.while_loop",
+                 launches=0, max_abs_err=err, ms=call_ms(one.replay),
+                 kernel_ms=kernel_ms, call_ms=call_ms(one.replay), host_us=host_us,
+                 launches_per_call=1, plain_ms=call_ms(eager_add),
+                 bound_ms=bound(1.0, 0.0)[0], bound_by="bytes", library_ms=None,
+                 library_kernel_ms=None, library_host_us=None,
+                 shape="one IF node around one 4-float add")
+    print(f"graph_if: IF nodes (guarded, nested, cond) against the eager branches "
+          f"max_abs_err {err:.3e} (tol 0); a replay of one IF node around an add "
+          f"{kernel_ms:.4f} ms device, host {host_us:.2f} us, call {entry['ms']:.4f} ms; "
+          f"the add under a host read {entry['plain_ms']:.4f} ms", flush=True)
+    if err != 0.0:
+        fail("the IF nodes ran other branches than the eager form")
+    return entry
+
+
 def track_kernels(P, torch, dev, cam, poses, frames) -> list[dict]:
     """Phase 2, H1a-H1c: the orbit's first frame fused at its true pose and
     rendered (the model), its own pyramid (the live side), at the true
@@ -534,7 +639,7 @@ def track_kernels(P, torch, dev, cam, poses, frames) -> list[dict]:
              count=lambda: icp.icp_rows.launches,
              plain=lambda: icp._rows_plain(lv, pv, corr, None, cfg, True, False),
              bytes=r_bytes, ops=r_ops,
-             extra=dict(shape=shape, blocks=cuda_kernels.icp_rows_blocks(lv.depth.numel()),
+             extra=dict(shape=shape, cluster_ctas=cuda_kernels.ICP_ROWS_CLUSTER,
                         also_replaces="vulcan_tpu/ops/icp.py:753 _fused_normal_eqs, "
                                ":879 color_rows_fixed")),
         dict(name="icp_solve", tol=ICP_SOLVE_RTOL, source="vulcan_tpu_torch/csrc/icp.cu",
@@ -810,23 +915,170 @@ def make_desk_frames(P, camera, poses, h, w, device):
     return frames
 
 
+_EAGER = {}
+
+
+def eager_pipeline(P):
+    """``Pipeline`` with every frame through the eager step, on the card
+    too: the graph's yardstick (phase 3c), the ground of the stage profile
+    (phase 5) and of the sharded step's comparison (phase 10)."""
+    if P not in _EAGER:
+        class EagerPipeline(P.Pipeline):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                self.captured, self._graphs = False, None
+
+        _EAGER[P] = EagerPipeline
+    return _EAGER[P]
+
+
+def launch_counts() -> dict[str, int]:
+    """The main path's kernels' launches on the card: K1, K2's kernel
+    launches, H1a-H1c and the IF nodes' kernel, each counted by the kernel
+    itself at every launch, eager or replayed from a CUDA graph
+    (``cuda_kernels.launch_counts``; a capture launches nothing)."""
+    from vulcan_tpu_torch.ops import cuda_kernels
+
+    return cuda_kernels.launch_counts()
+
+
+def host_counts() -> dict[str, int]:
+    """The wrappers' own counts of their eager launches (K1, K2's kernel
+    launches, H1a-H1c): on the eager path they must equal the card's."""
+    from vulcan_tpu_torch.ops import preprocess, splat
+
+    return {"bilateral": preprocess.bilateral_filter.launches,
+            "fill_smooth": splat._fill_and_smooth.kernel_launches, **icp_counts()}
+
+
+def reset_counts() -> None:
+    """Every count a main-path run reads set to 0: the launches on the card
+    and on the host, and the host reads."""
+    from vulcan_tpu_torch.ops import cuda_kernels, preprocess, splat
+    from vulcan_tpu_torch.utils import sync
+
+    cuda_kernels.reset_launch_counts()
+    preprocess.bilateral_filter.launches = 0
+    splat._fill_and_smooth.launches = 0
+    splat._fill_and_smooth.kernel_launches = 0
+    icp_counts(reset=True)
+    sync.read_int.count = 0
+
+
+def per_frame(counts: list[dict]) -> list[dict]:
+    """Each frame's launches from the counts read after each frame (the
+    first frame's from 0)."""
+    prev = dict.fromkeys(counts[0], 0) if counts else {}
+    out = []
+    for c in counts:
+        out.append({k: c[k] - prev[k] for k in c})
+        prev = c
+    return out
+
+
+def want_per_frame(config, known=False, k2_per_frame=1) -> dict[str, int]:
+    """The launches a frame of the main path takes: K1 once, K2
+    ``k2_per_frame`` times, H1a-H1c as ``track_launches`` (none at a known
+    pose)."""
+    h1 = {k: 0 if known else v for k, v in track_launches(config).items()}
+    return {"bilateral": 1, "fill_smooth": k2_per_frame, **h1}
+
+
+def check_launches(label, frames, want, captured) -> dict:
+    """Each frame's launches on the card (``per_frame``) against ``want``.
+    Eager, every frame takes exactly ``want``.  Captured, the warm-up
+    frames run eagerly with both sides of every ``sync.cond`` (at least
+    ``want``), and every later frame is a replay that
+    takes exactly ``want`` and at least one IF node.  Returns the mean
+    launches of the frames held to exactly ``want``."""
+    from vulcan_tpu_torch.pipeline.graphs import WARMUP_FRAMES
+
+    first = WARMUP_FRAMES if captured else 0
+    for i, got in enumerate(frames):
+        if i < first:
+            kind = "warm-up"
+            ok = all(got[k] >= v for k, v in want.items())
+        else:
+            kind = "replayed" if captured else "eager"
+            ok = all(got[k] == v for k, v in want.items()) and (
+                got["graph_if"] > 0 if captured else got["graph_if"] == 0)
+        if not ok:
+            fail(f"{label}: {kind} frame {i} launched {got} on the card, expected "
+                 f"{want} a frame")
+    held = frames[first:]
+    return {k: sum(f[k] for f in held) / len(held) for k in frames[0]} if held else {}
+
+
 def run_pipeline(P, config, camera, poses, frames, h, w, device, sync,
-                 mode="depth"):
-    """Returns (pipe, translations, ms per frame, armed frames): a frame
-    is armed when auto-photo tracked it in combined mode (the countdown
-    carried into it was positive)."""
-    pipe = P.Pipeline(config, camera, h, w, init_pose=poses[0], mode=mode,
-                      device=device)
-    est, ms, armed = [], [], 0
-    for d16, c8 in frames:
-        armed += pipe.state.photo_cnt_host > 0
+                 mode="depth", eager=False, known=False):
+    """Returns (pipe, translations, ms per frame, armed frames, run): a
+    frame is armed when auto-photo tracked it in combined mode (the
+    countdown carried into it was positive); ``run`` holds each frame's
+    host reads, the launch counts after each frame and the (n, 12) poses
+    (R row-major, t).  ``eager`` runs the eager step on the card too
+    (``eager_pipeline``); otherwise ``Pipeline`` decides (a captured graph
+    on the card where ``fusion.capturable`` says so).  ``known`` fuses each
+    frame at its true pose (``process(..., pose=...)``).  The launch
+    counts after each frame are the card's (``launch_counts``) in
+    ``run["counts"]`` and the wrappers' own (``host_counts``) in
+    ``run["host"]``."""
+    from vulcan_tpu_torch.utils.sync import read_int
+
+    cls = eager_pipeline(P) if eager else P.Pipeline
+    pipe = cls(config, camera, h, w, init_pose=poses[0], mode=mode, device=device)
+    est, ms, armed, reads, counts, host, full = [], [], 0, [], [], [], []
+    for i, (d16, c8) in enumerate(frames):
+        armed += int(pipe.state.photo_cnt) > 0
+        r0 = read_int.count
         t0 = time.perf_counter()
-        pipe.process(d16, c8)
+        pipe.process(d16, c8, pose=poses[i] if known else None)
         if sync:
             sync()
         ms.append((time.perf_counter() - t0) * 1e3)
+        reads.append(read_int.count - r0)
+        counts.append(launch_counts())
+        host.append(host_counts())
+        full.append(torch_cat_pose(pipe.pose))
         est.append(pipe.pose.translation.cpu().numpy())
-    return pipe, np.stack(est), ms, armed
+    run = dict(reads=reads, counts=counts, host=host, poses=np.stack(full))
+    return pipe, np.stack(est), ms, armed, run
+
+
+def torch_cat_pose(pose) -> np.ndarray:
+    """(12,) R row-major and t of an SE3, on the host."""
+    return np.concatenate([pose.rotation.reshape(9).cpu().numpy(),
+                           pose.translation.cpu().numpy()])
+
+
+def check_graph_run(label, pipe, run, config, known=False, k2_per_frame=1) -> dict:
+    """A captured run: every frame after the warm-up read nothing on the
+    host and launched nothing eagerly (the wrappers' own counts stand
+    still: the capture frame records, the replays launch on the card), and
+    ``check_launches`` holds each frame's launches on the card.  Returns
+    the launches a replayed frame."""
+    from vulcan_tpu_torch.pipeline.graphs import WARMUP_FRAMES
+
+    if not pipe.captured or not pipe.graph_stats:
+        fail(f"{label}: the pipeline did not run as a captured graph")
+    later = sum(run["reads"][WARMUP_FRAMES:])
+    if later:
+        fail(f"{label}: {later} host reads in the replayed frames")
+    warm, end = run["host"][WARMUP_FRAMES - 1], run["host"][-1]
+    if warm != end:
+        fail(f"{label}: a wrapper launched eagerly after the warm-up ({warm} -> {end})")
+    return check_launches(label, per_frame(run["counts"]),
+                          want_per_frame(config, known, k2_per_frame), True)
+
+
+def check_eager_run(label, run, config, known=False, k2_per_frame=1) -> None:
+    """An eager run on the card: each frame launched exactly the path's
+    kernels (``check_launches``), and the wrappers counted every launch the
+    card counted."""
+    check_launches(label, per_frame(run["counts"]),
+                   want_per_frame(config, known, k2_per_frame), False)
+    card = {k: v for k, v in run["counts"][-1].items() if k != "graph_if"}
+    if card != run["host"][-1]:
+        fail(f"{label}: the card counted {card} launches, the wrappers {run['host'][-1]}")
 
 
 def track_launches(cfg) -> dict[str, int]:
@@ -850,13 +1102,8 @@ def icp_counts(reset: bool = False) -> dict[str, int]:
     if reset:
         for e in entries.values():
             e.launches = 0
-    return {k: e.launches for k, e in entries.items()}
-
-
-def check_icp_launches(label, counts, cfg, n) -> None:
-    want = {k: v * n for k, v in track_launches(cfg).items()}
-    if counts != want:
-        fail(f"{label}: H1a-H1c launched {counts} times over {n} frames, expected {want}")
+    # (an entry swapped for its plain version by ``plain_track`` counts 0)
+    return {k: getattr(e, "launches", 0) for k, e in entries.items()}
 
 
 @contextlib.contextmanager
@@ -879,52 +1126,55 @@ def plain_track():
 
 def run_cell(P, torch, label, config, mode, camera, poses, frames, ate_limit,
              must_arm=False, k2_per_frame=1, no_failures=False):
-    """Phases 3b and 8: one path over its frames at 480x640, counts set to 0
-    just before it and read just after.  ``ate_limit`` None records the
-    ATE without judging it.  K1 must launch once a frame and K2
-    ``k2_per_frame`` times a frame (0 on the ray march, which has no
-    fill/smooth step); ``no_failures`` fails on a track failure.  Returns
-    the printed numbers as a dict."""
-    from vulcan_tpu_torch.ops import preprocess, splat
+    """Phases 3b and 8: one path over its frames at 480x640 through
+    ``Pipeline``, counts set to 0 just before it and read just after.
+    ``ate_limit`` None records the ATE without judging it.  On the eager
+    path every frame must launch K1 once, K2 ``k2_per_frame`` times (0 on
+    the ray march, which has no fill/smooth step) and H1a-H1c as
+    ``track_launches`` (``check_eager_run``); a captured path must pass
+    ``check_graph_run``.  ``no_failures`` fails on a track failure.
+    Returns the printed numbers as a dict."""
+    from vulcan_tpu_torch.pipeline.graphs import WARMUP_FRAMES
     from vulcan_tpu_torch.utils.evaluate import ate_rmse
-    from vulcan_tpu_torch.utils.sync import read_int
 
     n = len(frames)
     torch.cuda.synchronize()
-    preprocess.bilateral_filter.launches = 0
-    splat._fill_and_smooth.launches = 0
-    splat._fill_and_smooth.kernel_launches = 0
-    icp_counts(reset=True)
-    read_int.count = 0
-    pipe, est, ms, armed = run_pipeline(
+    reset_counts()
+    pipe, est, ms, armed, run = run_pipeline(
         P, config, camera, poses, frames, 480, 640, torch.device("cuda:0"),
         torch.cuda.synchronize, mode,
     )
-    h1 = icp_counts()
-    k1 = preprocess.bilateral_filter.launches
-    k2 = splat._fill_and_smooth.kernel_launches
-    reads = read_int.count
+    counts = run["counts"][-1]
+    h1 = {k: counts[k] for k in ("icp_associate", "icp_rows", "icp_solve")}
+    k1, k2 = counts["bilateral"], counts["fill_smooth"]
+    reads = sum(run["reads"])
+    path = "graph" if pipe.captured else "eager"
+    replay_reads = sum(run["reads"][WARMUP_FRAMES:]) / (n - WARMUP_FRAMES)
     gt = np.stack([p.translation.numpy() for p in poses])
     ate = ate_rmse(est, gt)
     diag = pipe.diagnostics()
     timed = np.asarray(ms[N_WARM:])
-    out = dict(cell=label, mode=mode, frames=n,
+    out = dict(cell=label, mode=mode, frames=n, path=path,
                ms_median=float(np.median(timed)),
                ms_p90=float(np.percentile(timed, 90)), ate_m=float(ate),
                armed_frames=int(armed), host_reads_per_frame=reads / n,
+               host_reads_per_frame_after_warmup=replay_reads,
                k1_launches=k1, k2_kernel_launches=k2, h1_launches=h1,
+               graph=pipe.graph_stats,
                track_failures=diag["track_failures"],
                degen_frames=diag["track_degen_frames"])
-    print(f"{label}: ms/frame median {out['ms_median']:.3f} p90 "
+    print(f"{label} ({path}): ms/frame median {out['ms_median']:.3f} p90 "
           f"{out['ms_p90']:.3f} (warm-up {N_WARM}, timed {len(timed)}, synchronized "
           f"per frame); ATE {ate:.6f} m over {n} frames; armed frames {armed}; "
-          f"host reads/frame {reads / n:.2f}; K1 launches {k1}, K2 kernel "
-          f"launches {k2}, H1a-H1c {h1}; track failures {diag['track_failures']}, "
+          f"host reads/frame {reads / n:.2f} ({replay_reads:.2f} after the first "
+          f"{WARMUP_FRAMES}); K1 launches {k1}, K2 kernel launches {k2}, H1a-H1c {h1}; "
+          f"graph {pipe.graph_stats}; track failures {diag['track_failures']}, "
           f"degenerate frames {diag['track_degen_frames']}", flush=True)
-    if k1 != n or k2 != k2_per_frame * n:
-        fail(f"{label}: K1 launched {k1} and K2 {k2} times over {n} frames, "
-             f"expected once and {k2_per_frame} times a frame")
-    check_icp_launches(label, h1, config, n)
+    if pipe.captured:
+        out["launches_per_replayed_frame"] = check_graph_run(
+            label, pipe, run, config, k2_per_frame=k2_per_frame)
+    else:
+        check_eager_run(label, run, config, k2_per_frame=k2_per_frame)
     if diag["alloc_overflow"] or diag["visible_overflow"]:
         fail(f"{label}: allocation or visibility overflow")
     if no_failures and diag["track_failures"]:
@@ -935,6 +1185,190 @@ def run_cell(P, torch, label, config, mode, camera, poses, frames, ate_limit,
         fail(f"{label}: auto-photo never armed")
     if ate_limit is not None and not ate < ate_limit:
         fail(f"{label}: ATE {ate} m not below {ate_limit} m")
+    return out
+
+
+# Kernel names in a profiler trace: the main path's hand kernels and the IF
+# nodes' one-thread kernel (csrc/graph.cu).
+KERNEL_NAMES = {"bilateral": "bilateral_kernel", "fill_smooth": "fill_smooth_kernel",
+                "icp_associate": "associate_kernel", "icp_rows": "rows_kernel",
+                "icp_solve": "solve_kernel", "graph_if": "set_if_kernel"}
+
+
+def replay_profile(pipe, frames, torch, poses=None) -> dict:
+    """``frames`` more through ``pipe`` under torch.profiler, synchronized
+    per frame: each hand kernel's launches a frame on the card
+    (``launch_counts``, read before and after) and as the trace shows them
+    by name; the device's busy ms a frame, the union of the trace's
+    kernel, copy and fill intervals (``timing.busy_ms``), and its
+    operations a frame; the host reads a frame and the frame ms.  Where the
+    trace holds fewer of a hand kernel than the card launched (CUPTI has
+    dropped the events of IF bodies in a process that had profiled several
+    graphs; it has also reported more IF-node kernels than ran), or its
+    busy time exceeds the same frames' wall time, the busy reading is
+    discarded (``busy_valid`` False, busy None) and both counts are kept.
+    With ``poses``, each frame is fused at its pose."""
+    from torch.profiler import ProfilerActivity, profile
+    from vulcan_tpu_torch.tools.timing import busy_ms, device_spans
+    from vulcan_tpu_torch.utils.sync import read_int
+
+    torch.cuda.synchronize()
+    before = launch_counts()
+    r0, ms = read_int.count, []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i, (d16, c8) in enumerate(frames):
+            t0 = time.perf_counter()
+            pipe.process(d16, c8, pose=None if poses is None else poses[i])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    after = launch_counts()
+    k = len(frames)
+    card = {name: (after[name] - before[name]) / k for name in after}
+    spans = device_spans(prof)
+    traced = {name: sum(pat in s[0] for s in spans) / k
+              for name, pat in KERNEL_NAMES.items()}
+    busy = busy_ms(spans) / k
+    complete = all(traced[name] >= card[name] for name in card)
+    valid = complete and busy <= float(np.mean(ms))
+    return dict(frames=k, launches_per_frame=card, traced_launches_per_frame=traced,
+                trace_complete=complete, busy_valid=valid,
+                device_busy_ms=busy if valid else None,
+                device_busy_ms_read=busy, device_ops_per_frame=len(spans) / k,
+                host_reads_per_frame=(read_int.count - r0) / k,
+                profiled_ms_median=float(np.median(ms)),
+                profiled_ms_mean=float(np.mean(ms)))
+
+
+def idle_share(prof, wall_ms):
+    """1 - busy / ``wall_ms`` of a ``replay_profile``, None where its busy
+    reading was discarded."""
+    busy = prof["device_busy_ms"]
+    return None if busy is None else 1.0 - busy / wall_ms
+
+
+def fmt(x, spec=".3f") -> str:
+    return "discarded" if x is None else format(x, spec)
+
+
+def named_tensors(tree, prefix=""):
+    """{dotted path: tensor} of a dataclass tree (the state's arrays)."""
+    if dataclasses.is_dataclass(tree):
+        out = {}
+        for f in dataclasses.fields(tree):
+            out.update(named_tensors(getattr(tree, f.name), f"{prefix}{f.name}."))
+        return out
+    return {prefix[:-1]: tree} if hasattr(tree, "dtype") else {}
+
+
+# Phase 3c: what the graph may differ from the eager step in, by array, when
+# two eager runs agree bit for bit: nothing (the same kernels on the same
+# inputs in the same order).
+GRAPH_TOL = 0.0
+
+
+def graph_against_eager(P, torch, label, config, mode, cam, poses, frames, dev,
+                        ate_limit, known=False, k_profile=10) -> dict:
+    """Phase 3c, one cell: the eager step twice on the card (whether it
+    repeats bit for bit), then ``Pipeline`` (the captured graph) on the
+    same frames.  Wherever the two eager runs agree, the graph's per-frame
+    poses and final state must equal the eager ones (GRAPH_TOL); the
+    arrays that differ are named.  Each run's launches a frame on the card
+    are held as ``check_eager_run`` / ``check_graph_run`` hold them, the
+    graph's replayed frames read nothing, and the last ``k_profile``
+    frames of each run go under the profiler (``replay_profile``: busy ms
+    and operations; its launches a frame, read on the card, again exactly
+    ``want_per_frame``); ``known`` fuses at the true poses (the known-pose
+    step: no track).  Returns the printed numbers."""
+    from vulcan_tpu_torch.utils.evaluate import ate_rmse
+
+    n = len(frames)
+    timed = frames[:n - k_profile]
+    gt = np.stack([p.translation.numpy() for p in poses])
+    runs = {}
+    for tag, eager in (("eager", True), ("eager again", True), ("graph", False)):
+        torch.cuda.synchronize()
+        reset_counts()
+        pipe, est, ms, armed, run = run_pipeline(
+            P, config, cam, poses[:len(timed)], timed, 480, 640, dev,
+            torch.cuda.synchronize, mode, eager=eager, known=known)
+        if eager:
+            check_eager_run(f"{label} ({tag})", run, config, known)
+        else:
+            check_graph_run(label, pipe, run, config, known)
+        rest = poses[len(timed):] if known else None
+        prof = replay_profile(pipe, frames[len(timed):], torch, rest)
+        poses_all = np.concatenate([run["poses"], np.stack(
+            [torch_cat_pose(pipe.pose)])])  # the last profiled frame's pose too
+        runs[tag] = dict(pipe=pipe, ms=np.asarray(ms[N_WARM:]), armed=armed, run=run,
+                         prof=prof, poses=poses_all,
+                         state={k: v.clone() for k, v in named_tensors(pipe.state).items()})
+        del pipe
+    e1, e2, g = runs["eager"], runs["eager again"], runs["graph"]
+    differ, eager_differ = {}, []
+    for name, a in e1["state"].items():
+        if not torch.equal(a, e2["state"][name]):
+            eager_differ.append(name)
+        elif not torch.equal(a, g["state"][name]):
+            b = g["state"][name]
+            differ[name] = (float((a.double() - b.double()).abs().max())
+                            if a.is_floating_point() else int((a != b).sum()))
+    poses_eager_same = bool(np.array_equal(e1["poses"], e2["poses"]))
+    poses_same = bool(np.array_equal(e1["poses"], g["poses"]))
+    pose_diff = float(np.abs(e1["poses"] - g["poses"]).max())
+    ate = {t: float(ate_rmse(r["poses"][:len(timed), 9:], gt[:len(timed)]))
+           for t, r in runs.items()}
+    want = want_per_frame(config, known)
+    got = g["prof"]["launches_per_frame"]
+    out = dict(cell=label, mode=mode, frames=n, path="graph",
+               graph=g["pipe"].graph_stats,
+               eager_ms_median=float(np.median(e1["ms"])),
+               eager_ms_p90=float(np.percentile(e1["ms"], 90)),
+               graph_ms_median=float(np.median(g["ms"])),
+               graph_ms_p90=float(np.percentile(g["ms"], 90)),
+               eager_profile=e1["prof"], graph_profile=g["prof"],
+               graph_idle_share=idle_share(g["prof"], float(np.median(g["ms"]))),
+               eager_idle_share=idle_share(e1["prof"], float(np.median(e1["ms"]))),
+               eager_reads_per_frame=float(np.mean(e1["run"]["reads"])),
+               ate_m=ate, armed_frames={t: r["armed"] for t, r in runs.items()},
+               eager_repeats_bit_identical=poses_eager_same and not eager_differ,
+               eager_differs_from_itself=eager_differ,
+               poses_bit_identical=poses_same, max_pose_diff=pose_diff,
+               arrays_differing=differ)
+    print(f"{label}: graph {out['graph_ms_median']:.3f} / p90 {out['graph_ms_p90']:.3f} "
+          f"ms a frame, eager {out['eager_ms_median']:.3f} / {out['eager_ms_p90']:.3f} "
+          f"(synchronized per frame); device busy graph "
+          f"{fmt(g['prof']['device_busy_ms'])} ms (idle share "
+          f"{fmt(out['graph_idle_share'])}, {g['prof']['device_ops_per_frame']:.0f} ops a "
+          f"frame), eager {fmt(e1['prof']['device_busy_ms'])} ms (idle "
+          f"{fmt(out['eager_idle_share'])}, {e1['prof']['device_ops_per_frame']:.0f} ops); "
+          f"host reads a frame graph "
+          f"{g['prof']['host_reads_per_frame']:.2f}, eager "
+          f"{out['eager_reads_per_frame']:.2f}; capture {out['graph']}; launches a "
+          f"replayed frame on the card {got}, in the trace "
+          f"{g['prof']['traced_launches_per_frame']}; ATE {ate}; armed "
+          f"{out['armed_frames']}; eager repeats "
+          f"bit-identical {out['eager_repeats_bit_identical']} (differ: {eager_differ}); "
+          f"graph vs eager poses bit-identical {poses_same} (max diff {pose_diff:.3e}), "
+          f"arrays differing {differ}", flush=True)
+    for tag, r in runs.items():
+        if not r["prof"]["busy_valid"]:
+            print(f"{label} ({tag}): the profile's busy reading is discarded (trace "
+                  f"complete {r['prof']['trace_complete']}, busy read "
+                  f"{r['prof']['device_busy_ms_read']:.3f} ms against "
+                  f"{r['prof']['profiled_ms_mean']:.3f} ms a frame)", flush=True)
+        got_r = r["prof"]["launches_per_frame"]
+        if any(got_r[k] != v for k, v in want.items()) or (
+                (got_r["graph_if"] > 0) != (tag == "graph")):
+            fail(f"{label} ({tag}): a profiled frame launched {got_r} on the card, "
+                 f"expected {want}")
+    if g["prof"]["host_reads_per_frame"]:
+        fail(f"{label}: the replays read on the host")
+    if poses_eager_same and not poses_same:
+        fail(f"{label}: the graph's poses differ from the eager step's by {pose_diff}")
+    if any(v > GRAPH_TOL for v in differ.values()):
+        fail(f"{label}: the graph's state differs from the eager step's: {differ}")
+    if ate_limit is not None and not ate["graph"] < ate_limit:
+        fail(f"{label}: ATE {ate['graph']} m not below {ate_limit} m")
     return out
 
 
@@ -953,12 +1387,17 @@ def profile_stages(P, torch, config, camera, poses, frames, dev, wall_ms,
                    mode="depth"):
     """Phase 5: where a steady frame's time goes, over 10 frames each of
     (a) stage wall times with a device sync at every stage boundary (no
-    profiler), and (b) torch.profiler kernel times per stage range.
+    profiler), and (b) torch.profiler kernel times per stage range,
+    synchronized per frame.
     ``wall_ms`` is the path's unprofiled median (phase 3 or 3b), the base
-    of the idle share.  Returns the report."""
+    of the idle share; the busy ms is the union of the trace's kernel,
+    copy and fill intervals (``timing.busy_ms``), and a reading above the
+    profiled frames' own wall time is discarded (None).  Returns the
+    report."""
     from torch.profiler import ProfilerActivity, profile
     from vulcan_tpu_torch.ops import allocate, icp, raycast, sparse
     from vulcan_tpu_torch.pipeline import fusion
+    from vulcan_tpu_torch.tools import timing
 
     n_warm, n_run = 15, 10
     sync_ms: dict[str, float] = {}
@@ -980,11 +1419,11 @@ def profile_stages(P, torch, config, camera, poses, frames, dev, wall_ms,
         (allocate, "update_visibility", "visibility"),
         (sparse, "integrate_sparse", "integrate"), (raycast, "render", "render"),
     ]
-    pipe = P.Pipeline(config, camera, 480, 640, init_pose=poses[0], mode=mode,
-                      device=dev)
+    eager = eager_pipeline(P)
+    pipe = eager(config, camera, 480, 640, init_pose=poses[0], mode=mode, device=dev)
     for d16, c8 in frames[:n_warm]:
         pipe.process(d16, c8)
-    armed = pipe.state.photo_cnt_host > 0
+    armed = int(pipe.state.photo_cnt) > 0
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in stage_fns]
     try:
         for mod, attr, name in stage_fns:
@@ -998,15 +1437,16 @@ def profile_stages(P, torch, config, camera, poses, frames, dev, wall_ms,
         for mod, attr, fn in originals:
             setattr(mod, attr, fn)
 
-    pipe = P.Pipeline(config, camera, 480, 640, init_pose=poses[0], mode=mode,
-                      device=dev)
+    pipe = eager(config, camera, 480, 640, init_pose=poses[0], mode=mode, device=dev)
     for d16, c8 in frames[:n_warm]:
         pipe.process(d16, c8)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for d16, c8 in frames[n_warm:n_warm + n_run]:
             pipe.process(d16, c8)
             torch.cuda.synchronize()
+    profiled_ms = (time.perf_counter() - t0) * 1e3 / n_run
 
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.key_averages()
@@ -1024,7 +1464,9 @@ def profile_stages(P, torch, config, camera, poses, frames, dev, wall_ms,
          and dev_us(e, True) > 0),
         key=lambda k: -k[1],
     )
-    busy_ms = sum(k[1] for k in kernels)
+    spans = timing.device_spans(prof)
+    busy_read = timing.busy_ms(spans) / n_run
+    busy_ms = busy_read if busy_read <= profiled_ms else None
     report = {
         "mode": mode,
         "armed_when_profiled": bool(armed),
@@ -1032,8 +1474,10 @@ def profile_stages(P, torch, config, camera, poses, frames, dev, wall_ms,
         "wall_ms_per_frame_unprofiled_median": wall_ms,
         "wall_ms_per_frame_stage_synced": synced_frame_ms,
         "device_busy_ms_per_frame": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "device_ops_per_frame": sum(k[2] for k in kernels),
+        "device_busy_ms_read": busy_read,
+        "wall_ms_per_frame_profiled": profiled_ms,
+        "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+        "device_ops_per_frame": len(spans) / n_run,
         "stages": {
             name: {"synced_wall_ms": sync_ms.get(name, 0.0) / n_run,
                    "kernel_ms": kernel_ms.get(name, 0.0)}
@@ -1046,7 +1490,8 @@ def profile_stages(P, torch, config, camera, poses, frames, dev, wall_ms,
     }
     print(f"profile ({mode}{', armed' if armed else ''}): wall {wall_ms:.3f} ms/frame unprofiled, "
           f"{synced_frame_ms:.3f} ms with stage syncs; device busy "
-          f"{busy_ms:.3f} ms (idle share {report['device_idle_share']:.3f}); "
+          f"{fmt(busy_ms)} ms (read {busy_read:.3f}; idle share "
+          f"{fmt(report['device_idle_share'])}); "
           f"{report['device_ops_per_frame']:.0f} device ops/frame", flush=True)
     for name, v in report["stages"].items():
         print(f"  {name:11s} synced wall {v['synced_wall_ms']:8.3f} ms  "
@@ -1077,18 +1522,18 @@ def events_ms(fn, torch):
 
 
 def profile_call(fn, torch) -> tuple[float, float]:
-    """(device busy ms, device operations) of one call of ``fn()``, from
-    torch.profiler's kernel and memory-operation events."""
+    """(device busy ms, device operations) of one call of ``fn()``: the
+    union of the trace's kernel, copy and fill intervals
+    (``timing.busy_ms``) and their number."""
     from torch.profiler import ProfilerActivity, profile
+    from vulcan_tpu_torch.tools import timing
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    events = [e for e in prof.key_averages() if e.device_type == cuda]
-    return (sum(dev_us(e, True) for e in events) / 1e3,
-            float(sum(e.count for e in events)))
+    spans = timing.device_spans(prof)
+    return timing.busy_ms(spans), float(len(spans))
 
 
 def compare_meshes(label, got, want, pos_tol, color_tol):
@@ -1171,13 +1616,14 @@ def mesh_and_api(P, torch, cfg, cam, poses, frames, pipe, dev, want_profile) -> 
     cfg0 = dc.replace(cfg, mesh_dirty_eps=0.0, mesh_slots=MESH_SLOTS)
     pipe0 = P.Pipeline(cfg0, cam, h, w, init_pose=poses[0], device=dev)
     cache = mcubes.create_mesh_cache(cfg0, dev)
-    preprocess.bilateral_filter.launches = 0
-    splat._fill_and_smooth.kernel_launches = 0
-    step_reads, cadences = 0, []
+    reset_counts()
+    run0, cadences = dict(reads=[], counts=[], host=[]), []
     for k, (d16, c8) in enumerate(frames):
         read_int.count = 0
         pipe0.process(d16, c8)
-        step_reads += read_int.count
+        run0["reads"].append(read_int.count)
+        run0["counts"].append(launch_counts())
+        run0["host"].append(host_counts())
         if (k + 1) % MESH_EVERY and k + 1 < len(frames):
             continue
         dirty = int(pipe0.state.volume.mesh_dirty.sum())
@@ -1200,14 +1646,18 @@ def mesh_and_api(P, torch, cfg, cam, poses, frames, pipe, dev, want_profile) -> 
               f"{cfg.mesh_slots} slots)", flush=True)
         if most >= MESH_SLOTS:
             fail(f"(b) a block filled all {MESH_SLOTS} cache slots")
-    k1, k2 = preprocess.bilateral_filter.launches, splat._fill_and_smooth.kernel_launches
-    n = len(frames)
-    print(f"(b) step host reads/frame {step_reads / n:.2f}; K1 launches {k1}, "
-          f"K2 kernel launches {k2} over {n} frames", flush=True)
-    if k1 != n or k2 != n:
-        fail(f"(b) K1 launched {k1} and K2 {k2} times over {n} frames")
-    if step_reads != 3 * n:
-        fail(f"(b) the step made {step_reads} host reads over {n} frames, not 3 a frame")
+    k1, k2 = run0["counts"][-1]["bilateral"], run0["counts"][-1]["fill_smooth"]
+    n, step_reads = len(frames), sum(run0["reads"])
+    print(f"(b) {'graph' if pipe0.captured else 'eager'}: step host reads a frame "
+          f"{run0['reads']}; K1 launches {k1}, K2 kernel launches {k2} over {n} frames "
+          "on the card", flush=True)
+    if pipe0.captured:
+        check_graph_run("(b)", pipe0, run0, cfg0)
+    else:
+        check_eager_run("(b)", run0, cfg0)
+        if step_reads != 3 * n:
+            fail(f"(b) the step read {step_reads} times over {n} frames, expected 3 "
+                 "a frame")
     if want_profile:
         # One more frame, then its update and decode under the profiler.
         pipe0.process(*frames[-1])
@@ -1590,8 +2040,13 @@ def finish_cli(run):
 
 def check_cli_run(label, rep, counts, n, reads_per_frame, ate_limit) -> dict:
     """A CLI run's report and loop counts: every frame, no failure or
-    overflow, the ATE under its limit, K1 and K2 once a frame, the step's
-    host reads a frame and none added by the loop.  Returns its numbers."""
+    overflow, the ATE under its limit, none of the host reads added by the
+    loop; K1 and K2 once a frame on the card (``check_launches`` over the
+    run's ``launches_by_frame``); on a captured pipeline no step read after
+    the warm-up frames, on the eager path the step's ``reads_per_frame``.
+    Returns its numbers."""
+    from vulcan_tpu_torch.pipeline.graphs import WARMUP_FRAMES
+
     fps = rep["fps"]
     steady = counts["step_ms"][N_WARM:]
     out = dict(frames=rep["frames"], fps=fps, ms_per_frame=1e3 / fps if fps else None,
@@ -1606,8 +2061,8 @@ def check_cli_run(label, rep, counts, n, reads_per_frame, ate_limit) -> dict:
     print(f"{label}: {rep['frames']} frames, {fps} fps ({out['ms_per_frame']} ms a frame "
           f"after the first, unsynchronized; Pipeline.process's host ms median "
           f"{out['step_ms_median']:.3f} after {N_WARM} frames), ATE {out['ate_m']} m; "
-          f"step host reads/"
-          f"frame {out['step_reads_per_frame']:.2f} (expected {reads_per_frame:.2f}); the "
+          f"step host reads a frame {counts['step_reads_by_frame'][:4]}... "
+          f"({'captured' if counts['captured'] else 'eager'}); the "
           f"loop's own transfers {out['loop_transfers']} and syncs {out['loop_syncs']} "
           f"over {out['loop_windows']} windows between steps; mesh calls "
           f"{out['mesh_calls']} ({out['mesh_reads']} reads); K1 {out['k1_launches']}, "
@@ -1618,11 +2073,17 @@ def check_cli_run(label, rep, counts, n, reads_per_frame, ate_limit) -> dict:
         fail(f"{label}: track failures or overflows in {rep}")
     if not (rep.get("ate_rmse_m") is not None and rep["ate_rmse_m"] < ate_limit):
         fail(f"{label}: ATE {rep.get('ate_rmse_m')} m not below {ate_limit} m")
-    if counts["k1_launches"] != n or counts["k2_launches"] != n:
-        fail(f"{label}: K1 launched {counts['k1_launches']} and K2 "
-             f"{counts['k2_launches']} times over {n} frames, expected once a frame")
-    if counts["loop_transfers"] or counts["step_reads"] != round(reads_per_frame * n):
-        fail(f"{label}: host reads beyond the step's ({counts})")
+    if counts["loop_transfers"]:
+        fail(f"{label}: the loop read on the host ({counts})")
+    check_launches(label, counts["launches_by_frame"], {"bilateral": 1, "fill_smooth": 1},
+                   counts["captured"])
+    if counts["captured"]:
+        if sum(counts["step_reads_by_frame"][WARMUP_FRAMES:]):
+            fail(f"{label}: a replayed step read on the host ({counts})")
+    elif counts["step_reads"] != round(reads_per_frame * n):
+        fail(f"{label}: the step read {counts['step_reads']} times over {n} frames, "
+             f"expected {reads_per_frame} a frame")
+    out["captured"] = counts["captured"]
     return out
 
 
@@ -1707,19 +2168,25 @@ def entry_points(P, torch, cfg, cam, poses, frames, dev, reads, snap, snap_tris)
         trace_file = os.path.join(tmp, f"trace_{mode}", "trace.json")
         with open(trace_file, "rb") as f:
             body = f.read()
-        steps = body.count(b'"name": "vulcan.preprocess"')
-        has_kernels = b'"cat": "kernel"' in body
+        # A traced step is a launch of K1 (a replayed graph's steps carry no
+        # stage ranges; the eager steps' preprocess ranges are counted too).
+        kernels_in_trace = [e["name"] for e in json.loads(body).get("traceEvents", [])
+                            if e.get("cat") == "kernel"]
+        steps = sum(KERNEL_NAMES["bilateral"] in k for k in kernels_in_trace)
+        ranges = body.count(b'"name": "vulcan.preprocess"')
+        has_kernels = bool(kernels_in_trace)
         out.update(seconds=secs, stage_ms=rep["stage_ms"],
                    mesh_extractions=rep["mesh_extractions"],
                    mesh_triangles_online=rep["mesh_triangles_online"],
                    mesh_triangles=rep["mesh_triangles"],
-                   trace_mb=len(body) / 2**20, traced_steps=steps)
+                   trace_mb=len(body) / 2**20, traced_steps=steps,
+                   traced_preprocess_ranges=ranges)
         print(f"(a) synthetic/{mode}: {secs:.1f} s in all; stage_ms {rep['stage_ms']} "
               f"(synchronized); {rep['mesh_extractions']} online meshes, last "
               f"{rep['mesh_triangles_online']} triangles, final {rep['mesh_triangles']}; "
               f"PLY header {head.splitlines()[2]!r}; trajectory {traj.shape}; trace "
-              f"{len(body) / 2**20:.1f} MiB, {steps} steps' preprocess ranges, kernel "
-              f"events {has_kernels}", flush=True)
+              f"{len(body) / 2**20:.1f} MiB, {steps} steps (K1 launches), {ranges} "
+              f"preprocess ranges, kernel events {has_kernels}", flush=True)
         if b"comment vulcan-tpu mesh (native)" not in head:
             fail(f"(a) {mode}: the PLY was not written by the native welder")
         if traj.shape != (n, 8) or rep["mesh_extractions"] != n // 5:
@@ -1764,7 +2231,7 @@ def entry_points(P, torch, cfg, cam, poses, frames, dev, reads, snap, snap_tris)
         t1 = time.perf_counter()
         pipe.process(d16, c8)
         step_ms.append((time.perf_counter() - t1) * 1e3)
-        est.append(pipe.pose.translation)
+        est.append(pipe.pose.translation.clone())   # the graph's buffer: a copy
         if k == 0:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1802,8 +2269,8 @@ def sharded_step(P, torch, cfg, cam, poses, frames, dev, k=10) -> dict:
                                (cfg, cam, frames[:k], poses[0], "depth"), device="cuda")
     spawn_s = time.perf_counter() - t0
     read_int.count = 0
-    pipe, est, ms, _ = run_pipeline(P, cfg, cam, poses[:k], frames[:k], 480, 640, dev,
-                                    torch.cuda.synchronize)
+    pipe, est, ms, _, _ = run_pipeline(P, cfg, cam, poses[:k], frames[:k], 480, 640,
+                                       dev, torch.cuda.synchronize, eager=True)
     reads = read_int.count
     r0 = ranks[0]
     same = all(np.array_equal(r["rotation"], r0["rotation"])
@@ -1970,28 +2437,19 @@ def main() -> None:
     k1_inputs_and_radii(P, preprocess, torch, dev, frames[0][0])
     k2_rounds_and_shapes(P, splat, torch, dev)
     kernels += track_kernels(P, torch, dev, cam, poses, frames)
+    kernels.append(graph_if_kernel(torch, dev))
 
     phase("3 main path: Pipeline.process, default Config, depth mode, 480x640")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    preprocess.bilateral_filter.launches = 0
-    splat._fill_and_smooth.launches = 0
-    splat._fill_and_smooth.kernel_launches = 0
-    icp_counts(reset=True)
-    read_int.count = 0
-    pipe, est, ms, armed = run_pipeline(
+    reset_counts()
+    pipe, est, ms, armed, run = run_pipeline(
         P, cfg, cam, poses, frames, 480, 640, dev, torch.cuda.synchronize
     )
-    h1 = icp_counts()
-    launches = {
-        "bilateral": preprocess.bilateral_filter.launches,
-        "fill_smooth": splat._fill_and_smooth.launches,
-        **h1,
-    }
-    k2_kernel_launches = splat._fill_and_smooth.kernel_launches
-    reads = read_int.count
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    launches = run["counts"][-1]
+    h1 = {k: launches[k] for k in ("icp_associate", "icp_rows", "icp_solve")}
+    k2_kernel_launches = launches["fill_smooth"]
+    reads = sum(run["reads"])
     gt = np.stack([p.translation.numpy() for p in poses])
     ate = ate_rmse(est, gt)
     diag = pipe.diagnostics()
@@ -2000,18 +2458,18 @@ def main() -> None:
     print(f"ms/frame median {np.median(timed):.3f} p90 {np.percentile(timed, 90):.3f} "
           f"(first frame {ms[0]:.1f} ms, warm-up {N_WARM}, timed {N_TIMED}, "
           "synchronized per frame)", flush=True)
-    print(f"host reads/frame {reads / n:.2f}; kernel launches {launches}; "
-          f"K2 kernel launches {k2_kernel_launches} over {n} frames", flush=True)
+    print(f"path {'graph' if pipe.captured else 'eager'} {pipe.graph_stats}; host reads "
+          f"a frame {run['reads']}; launches on the card {launches} over {n} frames, "
+          f"by frame {per_frame(run['counts'])}", flush=True)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
           flush=True)
     print("diagnostics", json.dumps(diag), flush=True)
     print(f"ATE {ate:.6f} m over {n} frames", flush=True)
-    if launches["bilateral"] != n or launches["fill_smooth"] != n:
-        fail(f"kernel launch counts {launches}, expected {n} each")
-    check_icp_launches("orbit/depth", h1, cfg, n)
-    if k2_kernel_launches != n:
-        fail(f"K2 launched its kernel {k2_kernel_launches} times over {n} frames, "
-             "expected once a frame")
+    replayed = check_graph_run("orbit/depth", pipe, run, cfg)
+    print(f"launches a replayed frame on the card {replayed}", flush=True)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+        k["launches_per_replayed_frame"] = replayed[k["name"]]
     if diag["alloc_overflow"] or diag["visible_overflow"]:
         fail("allocation or visibility overflow")
     if diag["track_failures"]:
@@ -2025,9 +2483,9 @@ def main() -> None:
     # The same run with the track's entry points on their plain versions
     # (PyTorch on the card): the kernels must not move the trajectory.
     with plain_track():
-        _, est_plain, ms_plain, _ = run_pipeline(
+        _, est_plain, ms_plain, _, plain_run = run_pipeline(
             P, cfg, cam, poses, frames, 480, 640, dev, torch.cuda.synchronize)
-    if icp_counts() != h1:
+    if any(plain_run["counts"][-1][k] != v for k, v in h1.items()):
         fail("the plain-path run launched a track kernel")
     ate_plain = ate_rmse(est_plain, gt)
     plain_dt = float(np.abs(est - est_plain).max())
@@ -2039,11 +2497,14 @@ def main() -> None:
         fail(f"ATE through the kernels {ate} m is not within {PLAIN_ATE_TOL} m of the "
              f"plain path's {ate_plain} m")
     cells = [dict(cell="orbit/depth", mode="depth", frames=n,
+                  path="graph" if pipe.captured else "eager",
+                  graph=pipe.graph_stats, host_reads_by_frame=run["reads"],
                   ms_median=float(np.median(timed)),
                   ms_p90=float(np.percentile(timed, 90)), ate_m=float(ate),
                   armed_frames=int(armed), host_reads_per_frame=reads / n,
                   k1_launches=launches["bilateral"], k2_kernel_launches=k2_kernel_launches,
-                  h1_launches=h1, ate_plain_track_m=float(ate_plain),
+                  h1_launches=h1, launches_per_replayed_frame=replayed,
+                  ate_plain_track_m=float(ate_plain),
                   plain_track_max_dt_m=plain_dt,
                   plain_track_ms_median=float(np.median(ms_plain[N_WARM:])),
                   track_failures=diag["track_failures"],
@@ -2067,10 +2528,31 @@ def main() -> None:
         for mode in ("light", "depth"):
             cells.append(run_cell(P, torch, f"desk/{mode}", cfg, mode, cam,
                                   desk_poses, desk_frames, None))
-    del desk_frames
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "cells.json"), "w") as f:
         json.dump(dict(device=smi, cells=cells), f, indent=1)
+
+    phase("3c the captured graph against the eager step (480x640)")
+    armed_cfg = P.Config(auto_photo_enter=0.99)
+    graph_specs = [("orbit/depth", cfg, "depth", poses, frames, 0.01),
+                   ("orbit/combined", cfg, "combined", poses, frames, 0.01),
+                   ("orbit/depth, auto_photo_enter=0.99", armed_cfg, "depth", poses,
+                    frames, 0.01),
+                   ("orbit/color", cfg, "color", poses, frames, None),
+                   ("orbit/known poses", cfg, "depth", poses, frames, 1e-6, True),
+                   ("desk/combined", cfg, "combined", desk_poses, desk_frames, DESK_ATE)]
+    if want_parity:
+        graph_specs += [("desk/light", cfg, "light", desk_poses, desk_frames, None),
+                        ("desk/depth", cfg, "depth", desk_poses, desk_frames, None)]
+    graph_cells = [graph_against_eager(P, torch, label, config, mode, cam, cell_poses,
+                                       cell_frames, dev, ate, *known)
+                   for label, config, mode, cell_poses, cell_frames, ate, *known
+                   in graph_specs]
+    if not graph_cells[2]["armed_frames"]["graph"]:
+        fail("phase 3c: auto-photo never armed in the graph")
+    del desk_frames
+    with open(os.path.join(OUT_DIR, "graph.json"), "w") as f:
+        json.dump(dict(device=smi, cells=graph_cells), f, indent=1)
 
     phase("4 card vs CPU agreement (port, 120x160, 6 frames, depth and combined)")
     small = P.Config(num_blocks=8192, hash_size=32768, max_visible=4096,
@@ -2079,10 +2561,10 @@ def main() -> None:
     sposes = orbit_poses(6, radius=1.6, height=0.35, span=0.3)
     sframes = make_frames(P, scam, sposes, 120, 160, torch.device("cpu"))
     for mode in ("depth", "combined"):
-        _, est_gpu, _, _ = run_pipeline(P, small, scam, sposes, sframes, 120, 160,
-                                        dev, torch.cuda.synchronize, mode)
-        _, est_cpu, _, _ = run_pipeline(P, small, scam, sposes, sframes, 120, 160,
-                                        torch.device("cpu"), None, mode)
+        _, est_gpu, _, _, _ = run_pipeline(P, small, scam, sposes, sframes, 120, 160,
+                                           dev, torch.cuda.synchronize, mode)
+        _, est_cpu, _, _, _ = run_pipeline(P, small, scam, sposes, sframes, 120, 160,
+                                           torch.device("cpu"), None, mode)
         diff = float(np.abs(est_gpu - est_cpu).max())
         print(f"{mode}: max per-frame translation difference card vs CPU "
               f"{diff:.3e} m (tol {AGREE_TOL:g})", flush=True)
@@ -2125,11 +2607,11 @@ def main() -> None:
 
     phase("9 entry points: the CLI at 640x480 (synthetic, mesh, a TUM sequence)")
     t0 = time.perf_counter()
-    # The step's host reads a frame: phases 3 and 3b; at a given pose, the
-    # integrate chunk count and the splat's tier lengths.
+    # The eager step's host reads a frame (phase 3c): the integrate chunk
+    # count with the auto-photo render's branch, the splat's tier lengths,
+    # and in depth mode the auto-photo track's branch.
     cli_report = entry_points(P, torch, cfg, cam, poses, frames, dev,
-                              {"depth": reads / n, "known poses": 2.0,
-                               "combined": cells[1]["host_reads_per_frame"]},
+                              {"depth": 3.0, "known poses": 2.0, "combined": 2.0},
                               mesh_report["ply_snapshot"]["snapshot"],
                               mesh_report["full"]["triangles"])
     os.remove(mesh_report["ply_snapshot"].pop("snapshot"))

@@ -185,6 +185,68 @@ def test_render_settings_run_in_pipeline_on_cpu(setting):
     assert splat._fill_and_smooth.launches == 0
 
 
+_HOST_READS = ("item", "tolist", "numpy", "cpu", "__bool__", "__int__", "__float__",
+               "__index__")
+
+
+@pytest.mark.parametrize("mode,known", [
+    ("depth", False), ("color", False), ("combined", False), ("light", False),
+    ("depth", True)], ids=["depth", "color", "combined", "light", "known-pose"])
+def test_captured_branches_read_nothing(monkeypatch, mode, known):
+    """What a capture traces of ``fusion.step`` (every mode, auto-photo's
+    two ``cond``s in depth mode) and of ``step_known_pose``, with
+    ``sync.capturing()`` true and every IF node's body run as a capture
+    runs it, reaches no host read: ``read_int`` / ``read_ints`` and every
+    tensor method that copies to the host raise, through
+    ``sparse.integrate_sparse`` and ``splat._splat_zbuf_surfels`` too."""
+    from vulcan_tpu_torch.ops import sparse
+    from vulcan_tpu_torch.utils import sync
+
+    poses = orbit(3)
+    frames = [scene(pose) for pose in poses]
+    state = fusion.init_state(CFG_T, CAM_T, H, W, se3_t(poses[0]), "cpu")
+    for d, c in frames[:2]:   # a model to track against, as after warm-up
+        state = fusion.step(state, torch.from_numpy(d.copy()), torch.from_numpy(c.copy()), CFG_T,
+                            mode)
+    d, c = (torch.from_numpy(x.copy()) for x in frames[2])
+    nodes, calls = [], {"integrate": 0, "zbuf": 0}
+
+    def node(pred, fn):
+        nodes.append(pred)
+        fn()
+
+    def counted(name, fn):
+        def run(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return run
+
+    def read(*_a, **_k):
+        raise AssertionError("a host read in the captured step")
+
+    monkeypatch.setattr(sync, "capturing", lambda: True)
+    monkeypatch.setattr(sync, "_if_node", node)
+    monkeypatch.setattr(sparse, "integrate_sparse",
+                        counted("integrate", sparse.integrate_sparse))
+    monkeypatch.setattr(splat, "_splat_zbuf_surfels",
+                        counted("zbuf", splat._splat_zbuf_surfels))
+    for mod in (sync, sparse, splat):
+        for name in ("read_int", "read_ints"):
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, read)
+    for name in _HOST_READS:
+        monkeypatch.setattr(torch.Tensor, name, read)
+    if known:
+        fusion.step_known_pose(state, d, c, se3_t(poses[2]), CFG_T)
+    else:
+        fusion.step(state, d, c, CFG_T, mode)
+    monkeypatch.undo()
+    assert calls["integrate"] == 1 and calls["zbuf"] >= 1
+    bound = CFG_T.alloc_capacity // CFG_T.integrate_chunk
+    assert len(nodes) >= bound + (2 if mode == "depth" and not known else 0)
+    assert all(p.dtype == torch.bool and p.ndim == 0 for p in nodes)
+
+
 def test_uint16_uint8_input_equals_float_input():
     """Raw sensor dtypes convert on the device to the same metric frame."""
     pose = orbit(1)[0]

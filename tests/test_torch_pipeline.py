@@ -181,8 +181,9 @@ def test_auto_photo_arming_matches_reference(armed_run):
     """The analogue of tests/test_pipeline.py's arming test: one port step
     from each reference state arms, counts down and tracks as the
     reference does (equal photo_cnt every frame, the handoff bar for the
-    pose, the luma model rendered once armed); an independent port run
-    gives the same photo_cnt sequence from its carried host value."""
+    pose, the luma model rendered once armed); an independent port run,
+    whose conds read the device countdown, gives the same photo_cnt
+    sequence."""
     poses, frames, states = armed_run
     cfg = dataclasses.replace(CFG_T, auto_photo_enter=0.99)
     cnt_ref = [int(s["photo_cnt"]) for s in states[1:]]
@@ -190,7 +191,7 @@ def test_auto_photo_arming_matches_reference(armed_run):
     for i, (d, c) in enumerate(frames):
         ts = tfusion.step(pipeline_state_from_numpy(states[i], cfg), t(d), t(c), cfg)
         got, ref = pipeline_state_to_numpy(ts), states[i + 1]
-        assert ts.photo_cnt_host == int(got["photo_cnt"]) == cnt_ref[i]
+        assert int(got["photo_cnt"]) == cnt_ref[i]
         np.testing.assert_allclose(
             got["model.pose.translation"], ref["model.pose.translation"], atol=1e-4
         )

@@ -241,15 +241,15 @@ def test_track_through_entry_points_matches_reference(mode, monkeypatch):
 
 
 def test_rows_grid_is_a_function_of_the_pixel_count():
-    """H1b's grid (and so the order its blocks' sums meet in) depends on
-    the number of live pixels alone; its partial-sum buffer is sized from
-    it."""
-    per_block = cuda_kernels.ICP_THREADS * cuda_kernels.ICP_PIXELS_PER_THREAD
-    assert cuda_kernels.icp_rows_blocks(0) == 1
-    assert cuda_kernels.icp_rows_blocks(1) == 1
-    assert cuda_kernels.icp_rows_blocks(120 * 160) == -(-19200 // per_block)
-    assert cuda_kernels.icp_rows_blocks(240 * 320) == 76800 // per_block
-    assert cuda_kernels.icp_rows_blocks(10**9) == cuda_kernels.ICP_MAX_BLOCKS
+    """H1b's grid, and so the order its CTAs' sums meet in, is one cluster
+    of 16 CTAs of 512 threads whatever the pixel count: the constants the
+    wrapper states are the source's."""
+    text = (cuda_kernels.CSRC / "icp.cu").read_text()
+    for name, value in (("kRowsThreads", cuda_kernels.ICP_ROWS_THREADS),
+                        ("kRowsCluster", cuda_kernels.ICP_ROWS_CLUSTER)):
+        assert re.search(rf"constexpr int {name} = {value};", text), name
+    assert "cfg.gridDim = dim3(kRowsCluster);" in text
+    assert "clusterDim.x = kRowsCluster;" in text
 
 
 def test_kernel_signatures_match_the_c_entry_points():

@@ -41,6 +41,8 @@
 
 #include <cstdint>
 
+#include "launch_count.cuh"
+
 #ifndef K1_ROWS_PER_THREAD
 #define K1_ROWS_PER_THREAD 2
 #endif
@@ -78,7 +80,8 @@ __device__ __forceinline__ float staged(float d) {
 template <int R, bool kVec>
 __global__ void __launch_bounds__(kBX * kBY)
 bilateral_kernel(const float* __restrict__ depth, float* __restrict__ out,
-                 int h, int w, TapExponents te, float neg_a) {
+                 int h, int w, TapExponents te, float neg_a, unsigned int* launches) {
+  count_launch(launches);
   constexpr int TH = kTY + 2 * R;
   __shared__ __align__(16) float tile[TH * kTW];
 
@@ -148,15 +151,16 @@ bilateral_kernel(const float* __restrict__ depth, float* __restrict__ out,
 
 template <int R>
 void launch(const float* depth, float* out, int h, int w,
-            const TapExponents& te, float neg_a, cudaStream_t stream) {
+            const TapExponents& te, float neg_a, unsigned int* launches,
+            cudaStream_t stream) {
   const dim3 block(kBX, kBY);
   const dim3 grid((w + kBX - 1) / kBX, (h + kTY - 1) / kTY);
   if (w % 4 == 0 && reinterpret_cast<uintptr_t>(depth) % 16 == 0) {
     bilateral_kernel<R, true><<<grid, block, 0, stream>>>(depth, out, h, w, te,
-                                                          neg_a);
+                                                          neg_a, launches);
   } else {
     bilateral_kernel<R, false><<<grid, block, 0, stream>>>(depth, out, h, w,
-                                                           te, neg_a);
+                                                           te, neg_a, launches);
   }
 }
 
@@ -167,7 +171,7 @@ void launch(const float* depth, float* out, int h, int w,
 // [0, kMaxRadius].
 extern "C" int vulcan_bilateral(const float* depth, float* out, int h, int w,
                                 int radius, const float* neg_s, float neg_a,
-                                void* stream) {
+                                void* launches, void* stream) {
   if (radius < 0 || radius > kMaxRadius || h <= 0 || w <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -175,12 +179,13 @@ extern "C" int vulcan_bilateral(const float* depth, float* out, int h, int w,
   const int n = (2 * radius + 1) * (2 * radius + 1);
   for (int i = 0; i < n; ++i) te.neg_s[i] = neg_s[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned int* counter = static_cast<unsigned int*>(launches);
   switch (radius) {
-    case 0: launch<0>(depth, out, h, w, te, neg_a, s); break;
-    case 1: launch<1>(depth, out, h, w, te, neg_a, s); break;
-    case 2: launch<2>(depth, out, h, w, te, neg_a, s); break;
-    case 3: launch<3>(depth, out, h, w, te, neg_a, s); break;
-    default: launch<4>(depth, out, h, w, te, neg_a, s); break;
+    case 0: launch<0>(depth, out, h, w, te, neg_a, counter, s); break;
+    case 1: launch<1>(depth, out, h, w, te, neg_a, counter, s); break;
+    case 2: launch<2>(depth, out, h, w, te, neg_a, counter, s); break;
+    case 3: launch<3>(depth, out, h, w, te, neg_a, counter, s); break;
+    default: launch<4>(depth, out, h, w, te, neg_a, counter, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
 constexpr int kTileW = 32;
@@ -213,7 +215,8 @@ __device__ __forceinline__ void fill_rounds(float* b0, float* b1, int gy0,
 template <int R, bool kSmooth>
 __global__ void __launch_bounds__(kThreads)
 fill_smooth_kernel(const float* __restrict__ in, float* __restrict__ out,
-                   int h, int w, float two_mu, float half_mu) {
+                   int h, int w, float two_mu, float half_mu, unsigned int* launches) {
+  count_launch(launches);
   constexpr int kHalo = R + (kSmooth ? 1 : 0);
   constexpr int SH = kTileH + 2 * kHalo;
   constexpr int SW = kTileW + 2 * kHalo;
@@ -259,10 +262,10 @@ fill_smooth_kernel(const float* __restrict__ in, float* __restrict__ out,
 
 template <int R, bool kSmooth>
 void launch(const float* in, float* out, int h, int w, float two_mu,
-            float half_mu, cudaStream_t s) {
+            float half_mu, unsigned int* launches, cudaStream_t s) {
   const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
   fill_smooth_kernel<R, kSmooth><<<grid, kThreads, 0, s>>>(in, out, h, w,
-                                                          two_mu, half_mu);
+                                                          two_mu, half_mu, launches);
 }
 
 }  // namespace
@@ -274,21 +277,22 @@ void launch(const float* in, float* out, int h, int w, float two_mu,
 // cudaErrorInvalidValue for anything else.
 extern "C" int vulcan_fill_smooth(const float* in, float* out, int h, int w,
                                   int rounds, int smooth, float two_mu,
-                                  float half_mu, void* stream) {
+                                  float half_mu, void* launches, void* stream) {
   if (h <= 0 || w <= 0 || rounds < 0 || rounds > kMaxRounds ||
       (!smooth && rounds != kMaxRounds)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned int* counter = static_cast<unsigned int*>(launches);
   if (!smooth) {
-    launch<kMaxRounds, false>(in, out, h, w, two_mu, half_mu, s);
+    launch<kMaxRounds, false>(in, out, h, w, two_mu, half_mu, counter, s);
   } else {
     switch (rounds) {
-      case 0: launch<0, true>(in, out, h, w, two_mu, half_mu, s); break;
-      case 1: launch<1, true>(in, out, h, w, two_mu, half_mu, s); break;
-      case 2: launch<2, true>(in, out, h, w, two_mu, half_mu, s); break;
-      case 3: launch<3, true>(in, out, h, w, two_mu, half_mu, s); break;
-      default: launch<4, true>(in, out, h, w, two_mu, half_mu, s); break;
+      case 0: launch<0, true>(in, out, h, w, two_mu, half_mu, counter, s); break;
+      case 1: launch<1, true>(in, out, h, w, two_mu, half_mu, counter, s); break;
+      case 2: launch<2, true>(in, out, h, w, two_mu, half_mu, counter, s); break;
+      case 3: launch<3, true>(in, out, h, w, two_mu, half_mu, counter, s); break;
+      default: launch<4, true>(in, out, h, w, two_mu, half_mu, counter, s); break;
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -39,19 +39,39 @@
 // why they replace ~9000 PyTorch operations a frame.  H1c is one block of
 // serial 6x6 algebra: latency.
 //
-// Determinism.  H1b reduces a thread's pixels in order, a warp by an xor
-// tree, the warps of a block in order, and the blocks' partial sums in the
-// LAST block to finish (an integer ticket, no float atomics) in a fixed
-// order: two runs on the same inputs agree bit for bit whatever order the
-// blocks ran in.
+// H1b's shape.  One launch of one thread-block cluster of 16 CTAs of 512
+// threads, one CTA an SM: each CTA sums its pixels and stores its sums into
+// the cluster's rank 0 through distributed shared memory, which adds them
+// after one barrier and writes the (2, 29) result.  No partial sums go
+// through global memory, and no ticket or scratch buffer is shared between
+// launches, so two streams (or a CUDA graph and an eager caller) can run it
+// at once.  On the H100 its fixed part is ~4.1 us a launch (1.8-1.9 of it
+// the launch floor) and the rest the ~180 instructions a pixel on 16 SMs
+// (no FMA contraction); clusters of 8 over a whole wave, their partial
+// sums added by the last cluster, were slower at the depth-mode levels
+// (PERF.md).
+//
+// Determinism.  H1b sums a thread's pixels in order, a warp by a fixed
+// butterfly, the warps of a CTA in order and the CTAs in rank order, with
+// no float atomics: two runs on the same inputs agree bit for bit.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "launch_count.cuh"
+
+#include <mutex>
+#include <set>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;       // H1a's block
+constexpr int kRowsThreads = 512;   // H1b's CTA: one a streaming multiprocessor
+constexpr int kRowsWarps = kRowsThreads / 32;
+constexpr int kRowsCluster = 16;    // H1b's grid: one cluster of 16 CTAs
 constexpr int kSums = 29;           // 21 of H, 6 of b, error, count
 constexpr int kSlots = 2 * kSums;   // geometric, then photometric
 constexpr float kVertexStep = 1.0f / 65536.0f;        // ops/icp.py _VERTEX_SCALE
@@ -137,10 +157,12 @@ struct AssocArgs {
   uint8_t* ok;                // (n,)
   float* samples;             // (5, n): i_m0, gu, gv, u0, v0
   uint8_t* ok_c;              // (n,)
+  unsigned int* launches;     // the launch counter
 };
 
 template <bool kGeo, bool kPhoto>
 __global__ void __launch_bounds__(kThreads) associate_kernel(AssocArgs a) {
+  count_launch(a.launches);
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= a.n) return;
   float pose[12], model[15];
@@ -228,9 +250,8 @@ struct RowsArgs {
   int n;
   Camera cam;
   Scalars s;
-  float* partials;            // (gridDim.x, kSlots)
-  unsigned* ticket;           // one counter, 0 between launches
   float* out;                 // (2, kSums)
+  unsigned int* launches;     // the launch counter
 };
 
 // The 29 stacked products of one row in _sum_positions' layout: row a's
@@ -249,11 +270,105 @@ __device__ __forceinline__ void accumulate(float* acc, const float* j, float r, 
   acc[k + 1] = add(acc[k + 1], w > 0.0f ? 1.0f : 0.0f);
 }
 
+// A warp's sums of kN values a lane (kN 32 or 64): a butterfly in which the
+// two lanes of a pair keep opposite halves of their values and add the
+// other's, halving what a lane carries at each of the 5 steps; lane l ends
+// with the sums of values kN / 32 * l + [0, kN / 32).  kN - 2 (or 31)
+// shuffles a lane where an xor tree a value takes 5 kN: the warps' shuffles
+// share one unit an SM.  The order of the adds is fixed.
+template <int kHalf, int kOff>
+__device__ __forceinline__ void butterfly_step(float* v, int lane) {
+  const bool up = (lane & kOff) != 0;
+#pragma unroll
+  for (int j = 0; j < kHalf; ++j) {
+    const float give = up ? v[j] : v[j + kHalf];
+    const float keep = up ? v[j + kHalf] : v[j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, give, kOff);
+  }
+}
+
+template <int kN>
+__device__ __forceinline__ void warp_reduce_scatter(float (&v)[kN], int lane) {
+  butterfly_step<kN / 2, 16>(v, lane);
+  butterfly_step<kN / 4, 8>(v, lane);
+  butterfly_step<kN / 8, 4>(v, lane);
+  butterfly_step<kN / 16, 2>(v, lane);
+  butterfly_step<kN / 32, 1>(v, lane);
+}
+
+// One live pixel's rows, added to the thread's sums (acc: 29 geometric,
+// then 29 photometric).
 template <bool kGeo, bool kPhoto, bool kLiveNormals>
-__global__ void __launch_bounds__(kThreads) rows_kernel(RowsArgs a) {
-  __shared__ float warp_sums[kWarps][kSlots];
-  __shared__ bool last;
+__device__ __forceinline__ void add_row(const RowsArgs& a, int i, const float* pose,
+                                        const float* model, float* acc) {
+  const float x = __ldg(a.vertices + 3 * i), y = __ldg(a.vertices + 3 * i + 1),
+              z = __ldg(a.vertices + 3 * i + 2);
+  float vx, vy, vz;
+  affine(pose, x, y, z, vx, vy, vz);
+  if (kGeo) {
+    // _pp_normal_eqs.
+    float nwx, nwy, nwz;
+    rotate(pose, __ldg(a.normals + 3 * i), __ldg(a.normals + 3 * i + 1),
+           __ldg(a.normals + 3 * i + 2), nwx, nwy, nwz);
+    const float dx = sub(vx, __ldg(a.v_m + 3 * i));
+    const float dy = sub(vy, __ldg(a.v_m + 3 * i + 1));
+    const float dz = sub(vz, __ldg(a.v_m + 3 * i + 2));
+    float nx = __ldg(a.n_m + 3 * i), ny = __ldg(a.n_m + 3 * i + 1),
+          nz = __ldg(a.n_m + 3 * i + 2);
+    const float dist2 = add(add(mul(dx, dx), mul(dy, dy)), mul(dz, dz));
+    const float n_dot = add(add(mul(nwx, nx), mul(nwy, ny)), mul(nwz, nz));
+    const bool gate = __ldg(a.ok + i) && dist2 < a.s.dist2 && n_dot > a.s.normal_thresh;
+    if (kLiveNormals) {
+      nx = nwx;
+      ny = nwy;
+      nz = nwz;
+    }
+    const float r = add(add(mul(nx, dx), mul(ny, dy)), mul(nz, dz));
+    const float w = gate ? huber(r, a.s.huber_delta) : 0.0f;
+    const float j[6] = {sub(mul(vy, nz), mul(vz, ny)), sub(mul(vz, nx), mul(vx, nz)),
+                        sub(mul(vx, ny), mul(vy, nx)), nx, ny, nz};
+    accumulate(acc, j, r, w);
+  }
+  if (kPhoto) {
+    // color_rows_fixed: the first-order image model around the sample.
+    float px, py, pz, u, v;
+    affine(model, vx, vy, vz, px, py, pz);
+    project(a.cam, px, py, pz, u, v);
+    const float du = sub(u, __ldg(a.u0 + i)), dv = sub(v, __ldg(a.v0 + i));
+    const float gu = __ldg(a.gu + i), gv = __ldg(a.gv + i);
+    const float r = sub(add(add(__ldg(a.i_m0 + i), mul(gu, du)), mul(gv, dv)),
+                        __ldg(a.intensity + i));
+    const float zc = fmaxf(pz, 1e-6f);
+    const float gufx = mul(gu, a.cam.fx), gvfy = mul(gv, a.cam.fy);
+    const float gpx = dvd(gufx, zc), gpy = dvd(gvfy, zc);
+    const float gpz = dvd(-add(mul(gufx, px), mul(gvfy, py)), mul(zc, zc));
+    // R_m^T of the model camera's world-to-camera rotation.
+    const float gwx = add(add(mul(model[0], gpx), mul(model[3], gpy)), mul(model[6], gpz));
+    const float gwy = add(add(mul(model[1], gpx), mul(model[4], gpy)), mul(model[7], gpz));
+    const float gwz = add(add(mul(model[2], gpx), mul(model[5], gpy)), mul(model[8], gpz));
+    const float drift2 = add(mul(du, du), mul(dv, dv));
+    const float d = __ldg(a.depth + i);
+    const bool gate = d > a.s.depth_min && d < a.s.depth_max && __ldg(a.ok_c + i) &&
+                      pz > 0.0f && drift2 < 16.0f;
+    const float w = gate ? huber(r, a.s.rgb_huber_delta) : 0.0f;
+    const float s = a.s.rgb_weight;
+    const float j[6] = {mul(s, sub(mul(vy, gwz), mul(vz, gwy))),
+                        mul(s, sub(mul(vz, gwx), mul(vx, gwz))),
+                        mul(s, sub(mul(vx, gwy), mul(vy, gwx))),
+                        mul(s, gwx), mul(s, gwy), mul(s, gwz)};
+    accumulate(acc + kSums, j, mul(s, r), w);
+  }
+}
+
+template <bool kGeo, bool kPhoto, bool kLiveNormals>
+__global__ void __launch_bounds__(kRowsThreads, 1) rows_kernel(RowsArgs a) {
+  __shared__ float warp_sums[kRowsWarps][kSlots];
+  __shared__ float cluster_sums[kRowsCluster][kSlots];   // rank 0's: every CTA's sums
   float acc[kSlots];
+  count_launch(a.launches);
+  // A CTA stores into rank 0's shared memory only once every CTA of the
+  // cluster runs: arrive now, wait after the pixels.
+  asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
 #pragma unroll
   for (int k = 0; k < kSlots; ++k) acc[k] = 0.0f;
   float pose[12], model[15];
@@ -262,116 +377,54 @@ __global__ void __launch_bounds__(kThreads) rows_kernel(RowsArgs a) {
 #pragma unroll
   for (int k = 0; k < 15; ++k) model[k] = __ldg(a.model + k);
 
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < a.n; i += gridDim.x * kThreads) {
-    const float x = __ldg(a.vertices + 3 * i), y = __ldg(a.vertices + 3 * i + 1),
-                z = __ldg(a.vertices + 3 * i + 2);
-    float vx, vy, vz;
-    affine(pose, x, y, z, vx, vy, vz);
-    if (kGeo) {
-      // _pp_normal_eqs.
-      float nwx, nwy, nwz;
-      rotate(pose, __ldg(a.normals + 3 * i), __ldg(a.normals + 3 * i + 1),
-             __ldg(a.normals + 3 * i + 2), nwx, nwy, nwz);
-      const float dx = sub(vx, __ldg(a.v_m + 3 * i));
-      const float dy = sub(vy, __ldg(a.v_m + 3 * i + 1));
-      const float dz = sub(vz, __ldg(a.v_m + 3 * i + 2));
-      float nx = __ldg(a.n_m + 3 * i), ny = __ldg(a.n_m + 3 * i + 1),
-            nz = __ldg(a.n_m + 3 * i + 2);
-      const float dist2 = add(add(mul(dx, dx), mul(dy, dy)), mul(dz, dz));
-      const float n_dot = add(add(mul(nwx, nx), mul(nwy, ny)), mul(nwz, nz));
-      const bool gate = __ldg(a.ok + i) && dist2 < a.s.dist2 && n_dot > a.s.normal_thresh;
-      if (kLiveNormals) {
-        nx = nwx;
-        ny = nwy;
-        nz = nwz;
-      }
-      const float r = add(add(mul(nx, dx), mul(ny, dy)), mul(nz, dz));
-      const float w = gate ? huber(r, a.s.huber_delta) : 0.0f;
-      const float j[6] = {sub(mul(vy, nz), mul(vz, ny)), sub(mul(vz, nx), mul(vx, nz)),
-                          sub(mul(vx, ny), mul(vy, nx)), nx, ny, nz};
-      accumulate(acc, j, r, w);
-    }
-    if (kPhoto) {
-      // color_rows_fixed: the first-order image model around the sample.
-      float px, py, pz, u, v;
-      affine(model, vx, vy, vz, px, py, pz);
-      project(a.cam, px, py, pz, u, v);
-      const float du = sub(u, __ldg(a.u0 + i)), dv = sub(v, __ldg(a.v0 + i));
-      const float gu = __ldg(a.gu + i), gv = __ldg(a.gv + i);
-      const float r = sub(add(add(__ldg(a.i_m0 + i), mul(gu, du)), mul(gv, dv)),
-                          __ldg(a.intensity + i));
-      const float zc = fmaxf(pz, 1e-6f);
-      const float gufx = mul(gu, a.cam.fx), gvfy = mul(gv, a.cam.fy);
-      const float gpx = dvd(gufx, zc), gpy = dvd(gvfy, zc);
-      const float gpz = dvd(-add(mul(gufx, px), mul(gvfy, py)), mul(zc, zc));
-      // R_m^T of the model camera's world-to-camera rotation.
-      const float gwx = add(add(mul(model[0], gpx), mul(model[3], gpy)), mul(model[6], gpz));
-      const float gwy = add(add(mul(model[1], gpx), mul(model[4], gpy)), mul(model[7], gpz));
-      const float gwz = add(add(mul(model[2], gpx), mul(model[5], gpy)), mul(model[8], gpz));
-      const float drift2 = add(mul(du, du), mul(dv, dv));
-      const float d = __ldg(a.depth + i);
-      const bool gate = d > a.s.depth_min && d < a.s.depth_max && __ldg(a.ok_c + i) &&
-                        pz > 0.0f && drift2 < 16.0f;
-      const float w = gate ? huber(r, a.s.rgb_huber_delta) : 0.0f;
-      const float s = a.s.rgb_weight;
-      const float j[6] = {mul(s, sub(mul(vy, gwz), mul(vz, gwy))),
-                          mul(s, sub(mul(vz, gwx), mul(vx, gwz))),
-                          mul(s, sub(mul(vx, gwy), mul(vy, gwx))),
-                          mul(s, gwx), mul(s, gwy), mul(s, gwz)};
-      accumulate(acc + kSums, j, mul(s, r), w);
-    }
+  // The thread's pixels in order, two an iteration so that their loads are
+  // in flight together.
+  const int step = gridDim.x * kRowsThreads;
+  int i = blockIdx.x * kRowsThreads + threadIdx.x;
+  for (; i + step < a.n; i += 2 * step) {
+    add_row<kGeo, kPhoto, kLiveNormals>(a, i, pose, model, acc);
+    add_row<kGeo, kPhoto, kLiveNormals>(a, i + step, pose, model, acc);
   }
+  if (i < a.n) add_row<kGeo, kPhoto, kLiveNormals>(a, i, pose, model, acc);
 
-  // The block's sums: an xor tree in each warp, then the warps in order.
+  // The block's sums: a butterfly in each warp over the active slots
+  // [kLo, kHi), then the warps in order.
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int kLo = kGeo ? 0 : kSums, kHi = kPhoto ? kSlots : kSums;
+  constexpr int kN = kHi - kLo > 32 ? 64 : 32;
+  float v[kN];
 #pragma unroll
-  for (int k = 0; k < kSlots; ++k) {
-    if ((k < kSums && !kGeo) || (k >= kSums && !kPhoto)) continue;
-    float v = acc[k];
+  for (int j = 0; j < kN; ++j) v[j] = j < kHi - kLo ? acc[kLo + j] : 0.0f;
+  warp_reduce_scatter<kN>(v, lane);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0) warp_sums[warp][k] = v;
+  for (int j = 0; j < kN / 32; ++j) {
+    const int k = kLo + kN / 32 * lane + j;
+    if (k < kHi) warp_sums[warp][k] = v[j];
   }
   __syncthreads();
+
+  // The cluster's sums: every CTA stores its sums (the warps' in order)
+  // into rank 0's shared memory, through distributed shared memory; after
+  // one barrier rank 0 adds them in rank order, and the others are done.
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  asm volatile("barrier.cluster.wait;" ::: "memory");
   if (threadIdx.x < kSlots) {
     const int k = threadIdx.x;
     float v = 0.0f;
     if ((k < kSums && kGeo) || (k >= kSums && kPhoto)) {
-      for (int w = 0; w < kWarps; ++w) v += warp_sums[w][k];
+      for (int w = 0; w < kRowsWarps; ++w) v += warp_sums[w][k];
     }
-    a.partials[blockIdx.x * kSlots + k] = v;
+    cluster.map_shared_rank(&cluster_sums[0][0], 0)[rank * kSlots + k] = v;
   }
-
-  // The last block to finish adds the blocks' sums in block order.
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  // Warp w owns the columns w, w + 8, ...; a lane adds the blocks lane,
-  // lane + 32, ... in order (the loads of all its columns issued together),
-  // then an xor tree adds the lanes.
-  constexpr int kPerWarp = (kSlots + kWarps - 1) / kWarps;
-  float v[kPerWarp];
+  cluster.sync();
+  if (rank == 0 && threadIdx.x < kSlots) {
+    const int k = threadIdx.x;
+    float v = 0.0f;
 #pragma unroll
-  for (int m = 0; m < kPerWarp; ++m) v[m] = 0.0f;
-  for (int b = lane; b < static_cast<int>(gridDim.x); b += 32) {
-    const float* row = a.partials + b * kSlots;
-#pragma unroll
-    for (int m = 0; m < kPerWarp; ++m) {
-      const int k = warp + kWarps * m;
-      if (k < kSlots && (k < kSums ? kGeo : kPhoto)) v[m] += __ldcg(row + k);
-    }
+    for (int r = 0; r < kRowsCluster; ++r) v += cluster_sums[r][k];
+    a.out[k] = v;
   }
-#pragma unroll
-  for (int m = 0; m < kPerWarp; ++m) {
-    const int k = warp + kWarps * m;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v[m] += __shfl_xor_sync(0xffffffffu, v[m], off);
-    if (lane == 0 && k < kSlots) a.out[k] = v[m];
-  }
-  if (threadIdx.x == 0) *a.ticket = 0u;
 }
 
 // --- H1c: 6x6 algebra in one block ---------------------------------------
@@ -487,7 +540,9 @@ __device__ void exp_compose(const float* xi, const float* pose, float* out) {
 __global__ void __launch_bounds__(32) solve_kernel(const float* __restrict__ sums,
                                                   const float* __restrict__ pose,
                                                   float damping, int geometric, int photo,
-                                                  int detect, float* __restrict__ out) {
+                                                  int detect, float* __restrict__ out,
+                                                  unsigned int* launches) {
+  count_launch(launches);
   __shared__ float s[kSlots];
   __shared__ float p[16];
   for (int k = threadIdx.x; k < kSlots; k += 32) s[k] = sums[k];
@@ -540,6 +595,38 @@ __global__ void __launch_bounds__(32) solve_kernel(const float* __restrict__ sum
   out[15] = p[15];
 }
 
+// H1b's launch: one cluster of kRowsCluster CTAs, above the portable 8
+// (allowed once a kernel and device).
+template <bool kGeo, bool kPhoto, bool kLiveNormals>
+cudaError_t launch_rows(const RowsArgs& a, cudaStream_t s) {
+  auto kernel = rows_kernel<kGeo, kPhoto, kLiveNormals>;
+  static std::mutex mu;
+  static std::set<int> allowed;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (!allowed.count(dev)) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return err;
+      allowed.insert(dev);
+    }
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kRowsCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kRowsCluster);
+  cfg.blockDim = dim3(kRowsThreads);
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
+}
+
 cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 
 }  // namespace
@@ -552,7 +639,7 @@ extern "C" int vulcan_icp_associate(
     const void* vpack1, const void* vpack2, const void* npack, const void* wa,
     const void* wb, int n, int hm, int wm, float fx, float fy, float cx, float cy,
     float depth_min, float depth_max, int geometric, int photo, void* v_m, void* n_m,
-    void* ok, void* samples, void* ok_c, void* stream) {
+    void* ok, void* samples, void* ok_c, void* launches, void* stream) {
   if (n < 0 || hm < 2 || wm < 2 || !(geometric || photo))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaGetLastError());
@@ -564,7 +651,7 @@ extern "C" int vulcan_icp_associate(
               Scalars{depth_min, depth_max, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f},
               static_cast<float*>(v_m), static_cast<float*>(n_m),
               static_cast<uint8_t*>(ok), static_cast<float*>(samples),
-              static_cast<uint8_t*>(ok_c)};
+              static_cast<uint8_t*>(ok_c), static_cast<unsigned int*>(launches)};
   const int blocks = (n + kThreads - 1) / kThreads;
   if (geometric && photo)
     associate_kernel<true, true><<<blocks, kThreads, 0, as_stream(stream)>>>(a);
@@ -575,8 +662,7 @@ extern "C" int vulcan_icp_associate(
   return static_cast<int>(cudaGetLastError());
 }
 
-// H1b.  partials holds blocks * 58 floats, ticket one zeroed counter
-// (the last block resets it).  out: (2, 29).  Returns cudaGetLastError().
+// H1b.  out: (2, 29).  Returns the launch's error.
 extern "C" int vulcan_icp_rows(
     const void* depth, const void* vertices, const void* normals, const void* intensity,
     const void* pose, const void* model, const void* v_m, const void* n_m,
@@ -584,10 +670,8 @@ extern "C" int vulcan_icp_rows(
     const void* v0, const void* ok_c, int n, float fx, float fy, float cx, float cy,
     float depth_min, float depth_max, float dist2, float normal_thresh,
     float huber_delta, float rgb_huber_delta, float rgb_weight, int geometric,
-    int photo, int live_normals, int blocks, void* partials, void* ticket, void* out,
-    void* stream) {
-  if (n < 0 || blocks < 1 || !(geometric || photo))
-    return static_cast<int>(cudaErrorInvalidValue);
+    int photo, int live_normals, void* out, void* launches, void* stream) {
+  if (n < 0 || !(geometric || photo)) return static_cast<int>(cudaErrorInvalidValue);
   RowsArgs a{static_cast<const float*>(depth), static_cast<const float*>(vertices),
              static_cast<const float*>(normals), static_cast<const float*>(intensity),
              static_cast<const float*>(pose), static_cast<const float*>(model),
@@ -598,28 +682,27 @@ extern "C" int vulcan_icp_rows(
              static_cast<const uint8_t*>(ok_c), n, Camera{fx, fy, cx, cy},
              Scalars{depth_min, depth_max, dist2, normal_thresh, huber_delta,
                      rgb_huber_delta, rgb_weight},
-             static_cast<float*>(partials), static_cast<unsigned*>(ticket),
-             static_cast<float*>(out)};
+             static_cast<float*>(out), static_cast<unsigned int*>(launches)};
   cudaStream_t s = as_stream(stream);
+  cudaError_t err;
   if (geometric && photo) {
-    if (live_normals) rows_kernel<true, true, true><<<blocks, kThreads, 0, s>>>(a);
-    else rows_kernel<true, true, false><<<blocks, kThreads, 0, s>>>(a);
+    err = live_normals ? launch_rows<true, true, true>(a, s) : launch_rows<true, true, false>(a, s);
   } else if (geometric) {
-    if (live_normals) rows_kernel<true, false, true><<<blocks, kThreads, 0, s>>>(a);
-    else rows_kernel<true, false, false><<<blocks, kThreads, 0, s>>>(a);
+    err = live_normals ? launch_rows<true, false, true>(a, s) : launch_rows<true, false, false>(a, s);
   } else {
-    rows_kernel<false, true, false><<<blocks, kThreads, 0, s>>>(a);
+    err = launch_rows<false, true, false>(a, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // H1c.  sums (2, 29), pose (16,) in, out (16,).  Returns cudaGetLastError().
 extern "C" int vulcan_icp_solve(const void* sums, const void* pose, float damping,
                                 int geometric, int photo, int detect, void* out,
-                                void* stream) {
+                                void* launches, void* stream) {
   if (!(geometric || photo)) return static_cast<int>(cudaErrorInvalidValue);
   solve_kernel<<<1, 32, 0, as_stream(stream)>>>(
       static_cast<const float*>(sums), static_cast<const float*>(pose), damping,
-      geometric, photo, detect, static_cast<float*>(out));
+      geometric, photo, detect, static_cast<float*>(out),
+      static_cast<unsigned int*>(launches));
   return static_cast<int>(cudaGetLastError());
 }

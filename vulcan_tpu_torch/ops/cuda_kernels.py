@@ -136,15 +136,19 @@ def build_variant(source: str, defines: tuple[str, ...]) -> tuple[ctypes.CDLL, s
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "vulcan_bilateral": [_P, _P, _I, _I, _I, _P, _F, _P],
-    "vulcan_fill_smooth": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
+    "vulcan_bilateral": [_P, _P, _I, _I, _I, _P, _F, _P, _P],
+    "vulcan_fill_smooth": [_P, _P, _I, _I, _I, _I, _F, _F, _P, _P],
     "vulcan_fill_smooth_fused": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     "vulcan_chained_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "vulcan_gather_max_clusters": [_I, _I, _I, _I, _I, _I, _I],
     "vulcan_subsample2": [_P, _P, _I, _I, _P],
-    "vulcan_icp_associate": [_P] * 9 + [_I] * 3 + [_F] * 6 + [_I] * 2 + [_P] * 6,
-    "vulcan_icp_rows": [_P] * 15 + [_I] + [_F] * 11 + [_I] * 4 + [_P] * 4,
-    "vulcan_icp_solve": [_P, _P, _F, _I, _I, _I, _P, _P],
+    "vulcan_icp_associate": [_P] * 9 + [_I] * 3 + [_F] * 6 + [_I] * 2 + [_P] * 7,
+    "vulcan_icp_rows": [_P] * 15 + [_I] + [_F] * 11 + [_I] * 3 + [_P] * 3,
+    "vulcan_icp_solve": [_P, _P, _F, _I, _I, _I, _P, _P, _P],
+    "vulcan_graph_prepare": [_P],
+    "vulcan_graph_stream": [_P],
+    "vulcan_graph_if_begin": [_P, _P, _P, _P],
+    "vulcan_graph_if_end": [_P],
 }
 
 
@@ -205,6 +209,56 @@ def _launch(fn, x: torch.Tensor, *args) -> int:
         return fn(*args, stream)
 
 
+# Launch counters on the card (csrc/launch_count.cuh): one word a counted
+# kernel a device, to which each launch of the kernel adds one on the card,
+# eagerly or in a replay of a CUDA graph (whose launches the host never
+# sees).  ``launch_counts`` reads them, ``reset_launch_counts`` zeroes them.
+COUNTED = ("bilateral", "fill_smooth", "icp_associate", "icp_rows", "icp_solve",
+           "graph_if")
+_counters: dict[int, torch.Tensor] = {}
+
+
+def launch_counter(x: torch.Tensor, name: str) -> int:
+    """The address of kernel ``name``'s launch counter on ``x``'s device.
+    The counters are made at the first eager launch (or ``graph_prepare``),
+    never inside a capture."""
+    dev = x.get_device()
+    words = _counters.get(dev)
+    if words is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the launch counters are made before a capture")
+        words = _counters[dev] = torch.zeros(len(COUNTED), dtype=torch.int32,
+                                             device=x.device)
+    return words.data_ptr() + 4 * COUNTED.index(name)
+
+
+def launch_counts(device=None) -> dict[str, int]:
+    """Each counted kernel's launches on ``device`` (every device when
+    None) since the counters were made or last reset: one device->host copy,
+    which waits for the device."""
+    if device is None:
+        words = list(_counters.values())
+    else:
+        dev = torch.device(device)
+        words = [_counters[dev.index or 0]] if (dev.index or 0) in _counters else []
+    got = torch.stack(words).sum(0).tolist() if words else [0] * len(COUNTED)
+    return dict(zip(COUNTED, got))
+
+
+def launch_snapshot(device) -> torch.Tensor | None:
+    """A copy of ``device``'s launch counters taken on the card, in stream
+    order and without waiting for it (None before any counted launch):
+    snapshots read together later give the launches between them."""
+    words = _counters.get(torch.device(device).index or 0)
+    return None if words is None else words.clone()
+
+
+def reset_launch_counts() -> None:
+    """Every device's launch counters to 0."""
+    for words in _counters.values():
+        words.zero_()
+
+
 BILATERAL_MAX_RADIUS = 4        # csrc/bilateral.cu kMaxRadius
 # K1 stages an invalid or off-image depth as this value: its squared distance
 # to any real depth (1e36) times the range factor must drive ex2 to 0.
@@ -261,7 +315,7 @@ def bilateral(depth: torch.Tensor, constants: BilateralConstants) -> torch.Tenso
     err = _launch(
         lib.vulcan_bilateral, depth, depth.data_ptr(), out.data_ptr(),
         depth.shape[0], depth.shape[1], constants.radius, constants.pointer,
-        constants.neg_a,
+        constants.neg_a, launch_counter(depth, "bilateral"),
     )
     _raise_on(err, "bilateral")
     return out
@@ -294,11 +348,11 @@ def fill_smooth(d: torch.Tensor, plan: tuple[tuple[int, bool], ...],
     _check(d, "fill_smooth")
     lib = load()
     h, w = d.shape
-    src = d
+    src, counter = d, launch_counter(d, "fill_smooth")
     for rounds, smooth in plan:
         out = d.new_empty((h, w))
         err = _launch(lib.vulcan_fill_smooth, d, src.data_ptr(), out.data_ptr(),
-                      h, w, rounds, int(smooth), two_mu, half_mu)
+                      h, w, rounds, int(smooth), two_mu, half_mu, counter)
         _raise_on(err, "fill_smooth")
         src = out
     return src
@@ -659,38 +713,14 @@ def subsample2(x: torch.Tensor) -> torch.Tensor:
 # The track's Gauss-Newton kernels H1a-H1c (csrc/icp.cu).  A pose is a (16,)
 # float32 vector on the card, [R row-major (9), t (3), err, inliers, level
 # score, geometric score]; the model side a (15,) one, [world-to-camera R
-# (9), t (3), vertex origin (3)].  H1b sums ICP_PIXELS_PER_THREAD pixels a
-# thread in blocks of ICP_THREADS, at most ICP_MAX_BLOCKS blocks, and its
-# last block adds the blocks' partial sums in block order.
-ICP_THREADS = 256                   # csrc/icp.cu kThreads
+# (9), t (3), vertex origin (3)].  H1b is one thread-block cluster of
+# ICP_ROWS_CLUSTER CTAs of ICP_ROWS_THREADS, whatever the pixel count: the
+# CTAs' sums meet in rank order through distributed shared memory.
+ICP_ROWS_THREADS = 512              # csrc/icp.cu kRowsThreads
+ICP_ROWS_CLUSTER = 16               # csrc/icp.cu kRowsCluster
 ICP_SUMS = 29                       # csrc/icp.cu kSums: 21 of H, 6 of b, error, count
-ICP_PIXELS_PER_THREAD = 2
-ICP_MAX_BLOCKS = 1024
 ICP_POSE = 16
 ICP_MODEL = 15
-
-
-def icp_rows_blocks(n: int) -> int:
-    """H1b's grid for ``n`` live pixels, a pure function of ``n``: the
-    blocks' sums meet in the same order in every run on the same rows."""
-    per_block = ICP_THREADS * ICP_PIXELS_PER_THREAD
-    return max(1, min(ICP_MAX_BLOCKS, -(-n // per_block)))
-
-
-_icp_scratch: dict = {}
-
-
-def _rows_scratch(x: torch.Tensor, blocks: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """H1b's partial sums (``blocks`` x 58 floats) and its ticket (one
-    counter the last block resets to 0), made once a device and grid and
-    reused by every launch on the stream."""
-    key = (x.get_device(), blocks)
-    got = _icp_scratch.get(key)
-    if got is None:
-        got = (x.new_empty(blocks * 2 * ICP_SUMS),
-               torch.zeros(1, dtype=torch.int32, device=x.device))
-        _icp_scratch[key] = got
-    return got
 
 
 def _check_vector(x: torch.Tensor, what: str, size: int) -> None:
@@ -750,6 +780,7 @@ def icp_associate(depth: torch.Tensor, vertices: torch.Tensor, pose: torch.Tenso
         _ptr(wb), h * w, hm, wm, *camera, depth_min, depth_max, int(geometric),
         int(photo), *((c.data_ptr() for c in corr) if geometric else (None,) * 3),
         _ptr(samples[0]) if photo else None, _ptr(samples[5]) if photo else None,
+        launch_counter(depth, "icp_associate"),
     )
     _raise_on(err, "icp_associate")
     return corr, samples
@@ -782,16 +813,14 @@ def icp_rows(depth: torch.Tensor, vertices: torch.Tensor, normals: torch.Tensor,
             raise ValueError(f"icp_rows: a validity mask is {tuple(ok.shape)}")
     lib = load()
     n = depth.numel()
-    blocks = icp_rows_blocks(n)
-    partials, ticket = _rows_scratch(depth, blocks)
     out = depth.new_empty((2, ICP_SUMS))
     err = _launch(
         lib.vulcan_icp_rows, depth, depth.data_ptr(), vertices.data_ptr(),
         normals.data_ptr(), _ptr(intensity), pose.data_ptr(), model.data_ptr(),
         *((c.data_ptr() for c in corr) if geometric else (None,) * 3),
         *((s.data_ptr() for s in samples) if photo else (None,) * 6),
-        n, *camera, *scalars, int(geometric), int(photo), int(live_normals), blocks,
-        partials.data_ptr(), ticket.data_ptr(), out.data_ptr(),
+        n, *camera, *scalars, int(geometric), int(photo), int(live_normals),
+        out.data_ptr(), launch_counter(depth, "icp_rows"),
     )
     _raise_on(err, "icp_rows")
     return out
@@ -811,6 +840,47 @@ def icp_solve(sums: torch.Tensor, pose: torch.Tensor, damping: float,
     lib = load()
     out = pose.new_empty(ICP_POSE)
     err = _launch(lib.vulcan_icp_solve, sums, sums.data_ptr(), pose.data_ptr(), damping,
-                  int(geometric), int(photo), int(detect), out.data_ptr())
+                  int(geometric), int(photo), int(detect), out.data_ptr(),
+                  launch_counter(sums, "icp_solve"))
     _raise_on(err, "icp_solve")
     return out
+
+
+# Conditional IF nodes of a graph capture (csrc/graph.cu; utils/sync.py).
+def graph_prepare(device: torch.device) -> None:
+    """Load the IF nodes' one-thread kernel on ``device`` and make its
+    launch counters, before a capture."""
+    x = torch.empty(0, device=device)
+    launch_counter(x, "graph_if")
+    _raise_on(_launch(load().vulcan_graph_prepare, x), "graph_prepare")
+
+
+_graph_streams: dict = {}
+
+
+def graph_streams(device: torch.device, n: int) -> list:
+    """``n`` streams of the IF bodies' own on ``device`` (created once; a
+    capture may not create streams), as ``torch.cuda.ExternalStream``s."""
+    have = _graph_streams.setdefault(device.index, [])
+    while len(have) < n:
+        handle = ctypes.c_void_p()
+        with torch.cuda.device(device):
+            _raise_on(load().vulcan_graph_stream(ctypes.byref(handle)), "graph_stream")
+        have.append(torch.cuda.ExternalStream(handle.value, device=device))
+    return have[:n]
+
+
+def graph_if_begin(pred: torch.Tensor, body: torch.cuda.Stream) -> None:
+    """Add an IF node on the 0-d bool ``pred`` to the graph that the current
+    stream is capturing, and start capturing ``body`` into its body."""
+    if pred.dtype != torch.bool or pred.ndim != 0 or not pred.is_cuda:
+        raise ValueError("an IF node needs a 0-d bool CUDA predicate")
+    _raise_on(_launch(load().vulcan_graph_if_begin, pred, pred.data_ptr(),
+                      launch_counter(pred, "graph_if"), body.cuda_stream),
+              "graph_if_begin")
+
+
+def graph_if_end(body: torch.cuda.Stream) -> None:
+    """End the capture of an IF node's body."""
+    _raise_on(load().vulcan_graph_if_end(body.cuda_stream), "graph_if_end")
+

@@ -32,6 +32,7 @@ from ..config import Config
 from ..core.camera import PinholeCamera
 from ..core.frame import FrameMaps
 from ..core.se3 import SE3
+from ..utils import sync
 from . import cuda_kernels
 from .dense import COORD_CLAMP, round_to_int
 from .preprocess import _shift2d, intensity_from_color
@@ -480,7 +481,8 @@ def _photo_here(mode: str, level: int, config: Config) -> bool:
 # every GN step's rows through ``icp_rows`` (H1b) and its solve through
 # ``icp_solve`` (H1c), on either device: a CPU tensor takes the plain
 # PyTorch version beside each, a CUDA tensor launches the kernel of
-# ``csrc/icp.cu`` (counted in ``<entry>.launches``) or raises.  The pose
+# ``csrc/icp.cu`` (an eager launch counted in ``<entry>.launches``, every
+# launch on the card: ``cuda_kernels.launch_counts``) or raises.  The pose
 # travels as a (16,) vector, ``[R row-major (9), t (3), err, inliers, level
 # score, geometric score]``, that H1c writes and H1a/H1b read on the device.
 # The plain versions write each per-pixel operation out element by element
@@ -610,7 +612,8 @@ def icp_associate(lv: LevelInputs, pose: torch.Tensor, config: Config,
         lv.depth, lv.vertices, pose, lv.model, (lv.vpack1, lv.vpack2, lv.npack),
         lv.words, _camera4(lv.camera), config.depth_min, config.depth_max,
         geometric, photo)
-    icp_associate.launches += 1
+    if not sync.capturing():
+        icp_associate.launches += 1
     return out
 
 
@@ -712,7 +715,8 @@ def icp_rows(lv: LevelInputs, pose: torch.Tensor, corr, samples, config: Config,
     out = cuda_kernels.icp_rows(
         lv.depth, lv.vertices, lv.normals, lv.intensity, pose, lv.model, corr,
         samples, _camera4(lv.camera), scalars, geometric, photo, live_normals)
-    icp_rows.launches += 1
+    if not sync.capturing():
+        icp_rows.launches += 1
     return out
 
 
@@ -754,7 +758,8 @@ def icp_solve(sums: torch.Tensor, pose: torch.Tensor, config: Config,
         return _solve_plain(sums, pose, config.icp_damping, geometric, photo, detect)
     out = cuda_kernels.icp_solve(sums, pose, config.icp_damping, geometric, photo,
                                  detect)
-    icp_solve.launches += 1
+    if not sync.capturing():
+        icp_solve.launches += 1
     return out
 
 

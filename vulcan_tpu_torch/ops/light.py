@@ -42,7 +42,7 @@ def sh_basis(nx: torch.Tensor, ny: torch.Tensor, nz: torch.Tensor):
 def unit_coeffs(device=None) -> torch.Tensor:
     """Coefficients of the identity gain field (gain(n) == 1)."""
     e0 = torch.zeros(9, device=device)
-    e0[0] = 1.0
+    e0[:1].fill_(1.0)   # a fill on the device: no host value to copy in a capture
     return e0
 
 

@@ -13,12 +13,13 @@ buffer donation; copying the ~0.45 GB volume every frame would dominate.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from ..config import Config
 from ..core.frame import Frame
-from ..utils.sync import read_int
+from ..utils import sync
 from . import blocks as B
 from .dense import _sample_nearest, voxel_update
 
@@ -113,26 +114,37 @@ def integrate_sparse(
     config: Config,
     ids: torch.Tensor | None = None,
     count: torch.Tensor | None = None,
+    host_count: int | None = None,
 ) -> B.VolumeState:
     """Fuse one frame into the listed blocks, in place.
 
     Default work list: ``volume.visible_ids``; the online pipeline passes
-    the frame's truncation-band list from allocation instead.  The chunk
-    count follows the actual list length, read on the host once per call
-    (``utils.sync.read_int``).
+    the frame's truncation-band list from allocation instead.  The
+    reference's ``lax.while_loop`` over chunks of the list: eager, the
+    chunk count follows the list's length, read on the host once per call
+    (``utils.sync.read_int``) unless the caller has read it already
+    (``host_count``); while a CUDA graph is captured, the loop
+    runs to the list's capacity and each chunk is an IF node on
+    ``start < count`` (``utils.sync.run_if``).  Rows past the count are
+    masked and write back their old values, so the two forms fuse the same
+    volume.
     """
     work_ids = volume.visible_ids if ids is None else ids
     work_count = volume.num_visible if count is None else count
     V = work_ids.shape[0]
     C = min(config.integrate_chunk, V)
-    n_chunks = (read_int(work_count) + C - 1) // C
+    if sync.capturing():
+        bound = V
+    else:
+        bound = sync.read_int(work_count) if host_count is None else host_count
     packed_dc = _pack_depth_color(frame.depth, frame.color, config)
     work_ids = work_ids.to(torch.int64)
 
-    # surf_overflow is a per-frame gauge: it resets here.
+    # surf_overflow is a per-frame gauge: it resets here, and the chunks
+    # add to it in place (a chunk an IF node skips adds nothing).
     surf_overflow = torch.zeros((), dtype=torch.int32, device=work_ids.device)
-    for i in range(n_chunks):
-        start = i * C
+
+    def chunk_at(start: int) -> None:
         chunk = work_ids[start:start + C]
         row_valid = (
             start + torch.arange(C, device=chunk.device) < work_count
@@ -148,5 +160,8 @@ def integrate_sparse(
         volume.surfpack.index_copy_(0, chunk, surf)
         volume.surf_count.index_copy_(0, chunk, s_count)
         volume.mesh_dirty.index_copy_(0, chunk, volume.mesh_dirty[chunk] | mark)
-        surf_overflow = surf_overflow + s_drop.to(torch.int32)
+        surf_overflow.add_(s_drop.to(torch.int32))
+
+    for start in range(0, bound, C):
+        sync.run_if(start < work_count, functools.partial(chunk_at, start))
     return dataclasses.replace(volume, surf_overflow=surf_overflow)

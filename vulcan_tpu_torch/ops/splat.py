@@ -30,11 +30,14 @@ same int32 word is read by index.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..config import Config
 from ..core.camera import PinholeCamera
 from ..core.se3 import SE3
+from ..utils import sync
 from ..utils.sync import read_int, read_ints
 from . import blocks as B
 from . import cuda_kernels
@@ -120,9 +123,14 @@ def _splat_zbuf_surfels(
     luma: bool = False,
 ):
     """Z-buffer (H*W,) from the persistent surfel lists.  Tier 1 scatters
-    slots [0, S/2) of every surface block, tier 2 slots [S/2, S) of the
-    blocks that use them; the tiers' lengths are read on the host (one
-    counted read) to size the chunk loops.
+    slots [0, S/2) of every surface block in chunks of 2048 blocks, tier 2
+    slots [S/2, S) of the blocks that use them in chunks of 512: the
+    reference's two ``lax.while_loop``s.  Eager, the tiers' lengths are
+    read on the host (one counted read) to size the chunk loops; while a
+    CUDA graph is captured, each loop runs to the list's capacity with
+    every chunk an IF node on ``start < length``
+    (``utils.sync.run_if``): a chunk past the length would scatter only
+    masked lanes into the trash slot.
 
     Returns the float32 z-buffer (+inf = empty); with ``with_color``
     (zbuf, rgb888 int32 buffer, -1 = no colour), whose second pass
@@ -145,80 +153,85 @@ def _splat_zbuf_surfels(
     rowv = (torch.arange(V, device=dev) < n_surf) & full
     ids2 = compact_mask(rowv, render_ids, V, 0)
     n2 = torch.sum(rowv).to(torch.int32)
-    n_surf_h, n2_h = read_ints(n_surf, n2)
+    bounds = (V, V) if sync.capturing() else read_ints(n_surf, n2)
 
-    def scatter_tier(buf, ids_list, n_list, s_lo, s_hi, chunk, zref=None):
-        """Scatter surfel slots [s_lo, s_hi) of the listed blocks into
-        ``buf`` (index npix is a trash slot for masked lanes): min-z, or
-        the packed luma word, or (``zref`` given) the rgb888 colour of the
-        surfels whose depth won ``zref``."""
+    def scatter_tier(buf, ids_list, n_list, bound, s_lo, s_hi, chunk, zref=None):
+        """Scatter surfel slots [s_lo, s_hi) of the first ``n_list`` listed
+        blocks into ``buf`` (index npix is a trash slot for masked lanes),
+        in chunks up to ``bound`` blocks: min-z, or the packed luma word,
+        or (``zref`` given) the rgb888 colour of the surfels whose depth
+        won ``zref``."""
         C = min(chunk, ids_list.shape[0])
-        for i in range((n_list + C - 1) // C):
-            start = i * C
-            ids = ids_list[start:start + C].to(torch.int64)
-            rv = (start + torch.arange(C, device=dev) < n_list) & (ids > 0)
-            rows = volume.surfpack[ids][:, s_lo:s_hi]
-            lidx, t, valid, (gx, gy, gz) = B.unpack_surfels(rows)
-            valid = valid & rv[:, None]
-            coords = volume.block_coords[ids].to(torch.float32)  # (C, 3)
+        for start in range(0, bound, C):
+            sync.run_if(start < n_list, functools.partial(
+                scatter_chunk, buf, ids_list, n_list, start, C, s_lo, s_hi, zref))
 
-            lx = (lidx // 64).to(torch.float32)
-            ly = ((lidx // 8) % 8).to(torch.float32)
-            lz = (lidx % 8).to(torch.float32)
-            wx = (coords[:, 0:1] * 8 + lx) * vs
-            wy = (coords[:, 1:2] * 8 + ly) * vs
-            wz = (coords[:, 2:3] * 8 + lz) * vs
-            cx, cy, cz = _to_camera(w2c, wx, wy, wz)
-            z_surf = cz + t * mu
-            # Back-face cull: the stored orientation points outward; a
-            # surfel facing away from the camera must not write depth.
-            if config.splat_backface_cull:
-                back = (
-                    gx * (wx - cw[0]) + gy * (wy - cw[1]) + gz * (wz - cw[2])
-                ) > 0.0
-            else:
-                back = torch.zeros_like(valid)
-            zok = (
-                valid
-                & ~back
-                & (z_surf > config.ray_near)
-                & (z_surf < config.ray_far)
-                & (cz > 1e-6)
-            )
-            pix, inb = _pixel(camera, cx, cy, cz, zok, height, width)
-            pix = pix.reshape(-1)
-            if zref is None and not luma:
-                buf.scatter_reduce_(
-                    0, pix, torch.where(inb, z_surf, float("inf")).reshape(-1),
-                    "amin",
-                )
-                continue
-            # The voxel's colour word (w8|r8|g8|b8) within its block's row.
-            word = torch.gather(volume.colorpack[ids], 1, lidx.to(torch.int64))
-            r, g, b = (word >> 16) & 0xFF, (word >> 8) & 0xFF, word & 0xFF
-            if luma:
-                lum = (0.299 * r + 0.587 * g + 0.114 * b) * (1.0 / 255.0)
-                i12 = torch.clamp(torch.round(lum * 4095.0), 0, 4095).to(torch.int32)
-                zq = torch.clamp(
-                    torch.round(z_surf * (_ZQ_MAX / config.ray_far)),
-                    0, _ZQ_MAX - 1,   # keeps the word below _LUMA_EMPTY
-                ).to(torch.int32)
-                packed = (zq << 12) | i12
-                buf.scatter_reduce_(
-                    0, pix, torch.where(inb, packed, _LUMA_EMPTY).reshape(-1),
-                    "amin",
-                )
-                continue
-            rgb888 = (r << 16) | (g << 8) | b
-            zb = zref[torch.clamp(pix, max=npix - 1)].reshape(z_surf.shape)
-            win = inb & (z_surf <= zb + 1e-5)
+    def scatter_chunk(buf, ids_list, n_list, start, C, s_lo, s_hi, zref):
+        """One chunk of ``scatter_tier``: blocks [start, start + C)."""
+        ids = ids_list[start:start + C].to(torch.int64)
+        rv = (start + torch.arange(C, device=dev) < n_list) & (ids > 0)
+        rows = volume.surfpack[ids][:, s_lo:s_hi]
+        lidx, t, valid, (gx, gy, gz) = B.unpack_surfels(rows)
+        valid = valid & rv[:, None]
+        coords = volume.block_coords[ids].to(torch.float32)  # (C, 3)
+
+        lx = (lidx // 64).to(torch.float32)
+        ly = ((lidx // 8) % 8).to(torch.float32)
+        lz = (lidx % 8).to(torch.float32)
+        wx = (coords[:, 0:1] * 8 + lx) * vs
+        wy = (coords[:, 1:2] * 8 + ly) * vs
+        wz = (coords[:, 2:3] * 8 + lz) * vs
+        cx, cy, cz = _to_camera(w2c, wx, wy, wz)
+        z_surf = cz + t * mu
+        # Back-face cull: the stored orientation points outward; a
+        # surfel facing away from the camera must not write depth.
+        if config.splat_backface_cull:
+            back = (
+                gx * (wx - cw[0]) + gy * (wy - cw[1]) + gz * (wz - cw[2])
+            ) > 0.0
+        else:
+            back = torch.zeros_like(valid)
+        zok = (
+            valid
+            & ~back
+            & (z_surf > config.ray_near)
+            & (z_surf < config.ray_far)
+            & (cz > 1e-6)
+        )
+        pix, inb = _pixel(camera, cx, cy, cz, zok, height, width)
+        pix = pix.reshape(-1)
+        if zref is None and not luma:
             buf.scatter_reduce_(
-                0, pix, torch.where(win, rgb888, -1).reshape(-1), "amax"
+                0, pix, torch.where(inb, z_surf, float("inf")).reshape(-1),
+                "amin",
             )
+            return
+        # The voxel's colour word (w8|r8|g8|b8) within its block's row.
+        word = torch.gather(volume.colorpack[ids], 1, lidx.to(torch.int64))
+        r, g, b = (word >> 16) & 0xFF, (word >> 8) & 0xFF, word & 0xFF
+        if luma:
+            lum = (0.299 * r + 0.587 * g + 0.114 * b) * (1.0 / 255.0)
+            i12 = torch.clamp(torch.round(lum * 4095.0), 0, 4095).to(torch.int32)
+            zq = torch.clamp(
+                torch.round(z_surf * (_ZQ_MAX / config.ray_far)),
+                0, _ZQ_MAX - 1,   # keeps the word below _LUMA_EMPTY
+            ).to(torch.int32)
+            packed = (zq << 12) | i12
+            buf.scatter_reduce_(
+                0, pix, torch.where(inb, packed, _LUMA_EMPTY).reshape(-1),
+                "amin",
+            )
+            return
+        rgb888 = (r << 16) | (g << 8) | b
+        zb = zref[torch.clamp(pix, max=npix - 1)].reshape(z_surf.shape)
+        win = inb & (z_surf <= zb + 1e-5)
+        buf.scatter_reduce_(
+            0, pix, torch.where(win, rgb888, -1).reshape(-1), "amax"
+        )
 
     def tiers(buf, zref=None):
-        scatter_tier(buf, render_ids, n_surf_h, 0, s1, 2048, zref)
-        scatter_tier(buf, ids2, n2_h, s1, S, 512, zref)
+        scatter_tier(buf, render_ids, n_surf, bounds[0], 0, s1, 2048, zref)
+        scatter_tier(buf, ids2, n2, bounds[1], s1, S, 512, zref)
         return buf[:npix]
 
     if luma:
@@ -409,17 +422,19 @@ def _fill_and_smooth(d: torch.Tensor, config: Config) -> torch.Tensor:
     """Post-splat hole fill + smoothing.  A CPU tensor takes the plain
     version; a CUDA tensor launches kernel K2 (``csrc/fill_smooth.cu``):
     one launch at up to ``cuda_kernels.FILL_SMOOTH_MAX_ROUNDS`` rounds, more
-    as ``cuda_kernels.fill_smooth_plan`` splits them.  Calls are counted in
-    ``_fill_and_smooth.launches``, kernel launches in
-    ``_fill_and_smooth.kernel_launches``.  Anything the kernel does not
+    as ``cuda_kernels.fill_smooth_plan`` splits them.  Eager calls are
+    counted in ``_fill_and_smooth.launches``, their kernel launches in
+    ``_fill_and_smooth.kernel_launches`` (a graph's replays on the card:
+    ``cuda_kernels.launch_counts``).  Anything the kernel does not
     take raises."""
     if d.is_cpu:
         return _fill_smooth_math(d, config)
     mu = config.trunc_dist
     plan = cuda_kernels.fill_smooth_plan(config.splat_fill_rounds)
     out = cuda_kernels.fill_smooth(d, plan, 2.0 * mu, 0.5 * mu)
-    _fill_and_smooth.launches += 1
-    _fill_and_smooth.kernel_launches += len(plan)
+    if not sync.capturing():  # a capture records the launch, each replay makes it
+        _fill_and_smooth.launches += 1
+        _fill_and_smooth.kernel_launches += len(plan)
     return out
 
 

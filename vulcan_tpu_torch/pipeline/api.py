@@ -30,6 +30,7 @@ from ..ops import sparse as _sparse
 from ..ops.preprocess import build_pyramid
 from ..utils.device import resolve_device
 from . import fusion
+from .graphs import StepGraphs
 
 
 def _as_tensor(x, device) -> torch.Tensor:
@@ -314,7 +315,21 @@ class Pipeline:
     """Full online loop: track + fuse + render per frame on ``device``
     (the CUDA card when None; ``device="cpu"`` runs the plain versions).
     ``mode`` is the tracking mode: "depth", "color", "combined" or
-    "light"."""
+    "light".
+
+    On the card, where ``fusion.capturable(config, mode)`` holds (the
+    default ``Config`` in every mode), each kind of frame (tracked, known
+    pose) runs as a captured CUDA graph after two eager warm-up frames
+    (``graphs.StepGraphs``): a frame is then one replay with no host read.
+    ``captured`` says which path the pipeline takes, ``graph_stats`` what
+    each capture cost.  The state's tensors are then the graph's buffers,
+    which the next frame overwrites: ``pose`` and ``diagnostics()`` hand
+    out copies; clone whatever else of ``state`` you keep.  Whatever
+    replaces a part of ``state`` between frames (a snapshot's volume, a
+    re-meshed volume) is copied into the buffers before the next replay.
+    Elsewhere (the CPU, the march, the direct or polished splat) every
+    frame runs the eager step.
+    """
 
     def __init__(
         self,
@@ -335,6 +350,21 @@ class Pipeline:
         self.state = fusion.init_state(
             config, camera, height, width, init_pose, self.device
         )
+        self.captured = (self.device.type == "cuda"
+                         and fusion.capturable(config, mode))
+        self._graphs = StepGraphs(self.device) if self.captured else None
+
+    @property
+    def graph_stats(self) -> dict:
+        """Per captured kind of frame: capture ms, memory pool MiB, replays
+        (empty before a capture and on the eager path)."""
+        return {} if self._graphs is None else dict(self._graphs.stats)
+
+    def _tracked(self, state, depth, color):
+        return fusion.step(state, depth, color, self.config, self.mode)
+
+    def _known_pose(self, state, depth, color, pose):
+        return fusion.step_known_pose(state, depth, color, pose, self.config)
 
     def process(self, depth, color=None, pose: SE3 | None = None) -> None:
         """Feed one frame (numpy arrays or tensors).  With ``pose`` given
@@ -349,18 +379,22 @@ class Pipeline:
         color = _as_tensor(color, self.device)
         if color.dtype not in (torch.uint8, torch.float32):
             color = color.to(torch.float32)
-        if pose is not None:
-            self.state = fusion.step_known_pose(
-                self.state, depth, color, pose.to(self.device), self.config
-            )
+        args = (depth, color) if pose is None else (depth, color, pose.to(self.device))
+        step = self._tracked if pose is None else self._known_pose
+        if self._graphs is None:
+            self.state = step(self.state, *args)
         else:
-            self.state = fusion.step(
-                self.state, depth, color, self.config, self.mode
-            )
+            key = f"{step.__name__.lstrip('_')} {depth.dtype} {color.dtype}"
+            self.state = self._graphs.run(key, step, self.state, *args)
 
     @property
     def pose(self) -> SE3:
-        return self.state.pose
+        """The current camera-to-world pose, as a copy: on the captured
+        path the state's tensors are the graph's buffers, which the next
+        frame overwrites in place, so a pose kept across frames must not
+        be one of them."""
+        p = self.state.pose
+        return SE3(p.rotation.clone(), p.translation.clone())
 
     def diagnostics(self) -> dict:
         s = self.state
@@ -373,7 +407,7 @@ class Pipeline:
             "track_level_inliers": [int(x) for x in s.track_level_inliers],
             "track_level_degen": [round(float(x), 6) for x in s.track_level_degen],
             "track_degen_frames": int(s.track_degen_frames),
-            "photo_armed_frames": s.photo_cnt_host,
+            "photo_armed_frames": int(s.photo_cnt),
             "allocated_blocks": int(s.volume.free_count) - 1,
             "visible_blocks": int(s.volume.num_visible),
             "alloc_overflow": int(s.volume.alloc_overflow),

@@ -5,21 +5,24 @@ modes and under either renderer (``Config.render_mode``: the surfel splat
 or the hierarchical march): preprocess -> track -> fusion gate ->
 allocate + visibility -> integrate -> render, plus
 ``step_known_pose`` (fusion with a given pose) and ``Config.ablate``.  The
-reference runs this as one jitted, donated function; here it runs eagerly,
-with the volume updated in place.  The host reads the step makes
-(integrate chunk count, the renderer's loop bounds, the auto-photo
-countdown) are counted by ``utils.sync.read_int``.
+reference runs this as one jitted, donated function.  Here it runs
+eagerly, with the volume updated in place, or, where ``capturable`` says
+the configuration reads nothing on the host, as one CUDA graph that
+``pipeline/api.py``'s ``Pipeline`` captures and replays.  Its data-
+dependent loops and branches go through ``utils.sync``: eager, the
+integrate chunk count, the splat's tier lengths and the auto-photo
+branches are read on the host (counted by ``utils.sync.read_int``);
+captured, they are IF nodes on the device values.
 
 Auto-photo (depth mode, ``Config.auto_photo``): a frame whose geometric
 conditioning is weak arms combined tracking for ``auto_photo_hold``
-frames.  The reference switches the track with ``lax.cond`` on the
-device countdown; here the countdown's host value, read once a frame to
-choose the render's colour, is carried in ``PipelineState`` and picks the
-next frame's track in Python, with no further read.
+frames.  As in the reference, a ``cond`` on the device countdown picks
+the track (combined while armed) and one picks the render's colour (the
+luma model an armed next frame tracks against).
 
 Each stage runs under a ``torch.profiler.record_function`` range named
-``vulcan.<stage>`` so a profiler trace attributes host and device time per
-stage.
+``vulcan.<stage>`` so a profiler trace of the eager step attributes host
+and device time per stage (a graph's replay has no ranges).
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ from ..core.se3 import SE3
 from ..ops import allocate, icp, raycast, sparse
 from ..ops import blocks as B
 from ..ops.preprocess import bilateral_filter, build_pyramid
-from ..utils.sync import read_int
+from ..utils import sync
 
 MODES = icp.MODES
 _TPU_ONLY = "is a TPU layout that vulcan_tpu_torch does not carry"
@@ -59,6 +62,18 @@ def check_supported(config: Config, mode: str = "depth") -> None:
         )
 
 
+def capturable(config: Config, mode: str = "depth") -> bool:
+    """Whether ``step`` and ``step_known_pose`` at ``config`` read nothing
+    on the host, so that ``Pipeline`` on the card runs them as a captured
+    CUDA graph: the surfel splat, unpolished.  The march (its compaction
+    branches), the direct z-buffer and the render cache (polish) read their
+    loop bounds on the host and run eagerly; so does the sharded step
+    (``parallel/sharding.py``), whose collectives are host calls."""
+    check_supported(config, mode)
+    return (config.render_mode == "splat" and config.splat_source == "surfels"
+            and config.splat_polish == 0)
+
+
 def _ablated(config: Config) -> set[str]:
     """The stages ``Config.ablate`` skips (comma-separated names)."""
     return set(config.ablate.split(",")) if config.ablate else set()
@@ -66,9 +81,8 @@ def _ablated(config: Config) -> set[str]:
 
 @dataclasses.dataclass
 class PipelineState:
-    """State carried across frames (field for field the reference's, plus
-    the host copy of ``photo_cnt``).  The current pose lives in
-    ``model.pose``."""
+    """State carried across frames, field for field the reference's.  The
+    current pose lives in ``model.pose``."""
 
     volume: B.VolumeState
     model: raycast.Render           # last rendered model maps
@@ -82,9 +96,6 @@ class PipelineState:
     track_level_degen: torch.Tensor     # (levels,) f32 observability score
     track_degen_frames: torch.Tensor    # () int32, frames held as degenerate
     photo_cnt: torch.Tensor             # () int32 auto-photo countdown
-    # photo_cnt as the host last read it (no tensor, not in the reference):
-    # > 0 arms the next frame's combined track without another read.
-    photo_cnt_host: int = dataclasses.field(default=0, metadata={"host": True})
 
     @property
     def pose(self) -> SE3:
@@ -163,9 +174,8 @@ def _gate(state: PipelineState, result: icp.TrackResult, config: Config,
     A diverged or starved track is not fused: the previous pose is kept
     and the frame's depth masked to invalid (frame 0, with an empty model,
     bypasses the gate).  A degenerate track keeps its pose but is not
-    fused.  Under ``auto`` a weak geometric score re-arms the countdown,
-    which is read on the host (counted).  Returns (pose, trusted,
-    degenerate, fuse_ok, photo_cnt, photo_cnt_host).
+    fused.  Under ``auto`` a weak geometric score re-arms the countdown.
+    Returns (pose, trusted, degenerate, fuse_ok, photo_cnt).
     """
     model_empty = ~torch.any(state.model.valid)
     levels_sane = torch.all(result.level_error < 3.0 * config.icp_max_error)
@@ -176,7 +186,7 @@ def _gate(state: PipelineState, result: icp.TrackResult, config: Config,
     degenerate = (
         (~model_empty) & trusted & (result.min_degen < config.degen_min_eig)
     )
-    photo_cnt, photo_cnt_host = state.photo_cnt, state.photo_cnt_host
+    photo_cnt = state.photo_cnt
     if auto:
         weak = (~model_empty) & (result.geo_degen < config.auto_photo_enter)
         photo_cnt = torch.where(
@@ -184,9 +194,7 @@ def _gate(state: PipelineState, result: icp.TrackResult, config: Config,
             torch.full_like(state.photo_cnt, config.auto_photo_hold),
             torch.clamp(state.photo_cnt - 1, min=0),
         )
-        photo_cnt_host = read_int(photo_cnt)
-    return (pose, trusted, degenerate, trusted & ~degenerate, photo_cnt,
-            photo_cnt_host)
+    return pose, trusted, degenerate, trusted & ~degenerate, photo_cnt
 
 
 def _no_track(state: PipelineState, config: Config) -> icp.TrackResult:
@@ -196,7 +204,7 @@ def _no_track(state: PipelineState, config: Config) -> icp.TrackResult:
     return icp.TrackResult(
         pose=state.pose,
         error=torch.zeros((), device=dev),
-        inliers=torch.tensor(10**6, dtype=torch.int32, device=dev),
+        inliers=torch.full((), 10**6, dtype=torch.int32, device=dev),
         valid=torch.ones((), dtype=torch.bool, device=dev),
         level_error=torch.zeros(levels, device=dev),
         level_inliers=torch.full((levels,), 10**6, dtype=torch.int32, device=dev),
@@ -207,10 +215,13 @@ def _no_track(state: PipelineState, config: Config) -> icp.TrackResult:
 
 
 def _fuse_and_render(volume: B.VolumeState, frame: Frame, filtered: torch.Tensor,
-                     config: Config, h: int, w: int, with_color: bool = True):
+                     config: Config, h: int, w: int, with_color=True):
     """Allocate, update visibility, integrate and render at ``frame.pose``,
     skipping the stages ``Config.ablate`` names (integration needs the
-    allocation's band list).  Returns (volume, render or None)."""
+    allocation's band list).  ``with_color``: a bool, or a 0-d device
+    count that renders the colour where it is nonzero (the reference's
+    ``lax.cond``; both renders are one ``Render``, the colour a zeros
+    plane when off).  Returns (volume, render or None)."""
     skip = _ablated(config)
     band_ids = n_band = None
     if "alloc" not in skip:
@@ -223,19 +234,32 @@ def _fuse_and_render(volume: B.VolumeState, frame: Frame, filtered: torch.Tensor
             volume = allocate.update_visibility(
                 volume, frame.camera, frame.pose, h, w, config
             )
-    if "integrate" not in skip and "alloc" not in skip:
+    integrate = "integrate" not in skip and "alloc" not in skip
+    render_on = "render" not in skip
+    n_host, color_on = None, with_color
+    if (integrate and render_on and isinstance(with_color, torch.Tensor)
+            and not sync.capturing()):
+        # Eager, the chunk count and the colour branch in one transfer
+        # (captured, nothing is read).
+        n_host, color_on = sync.read_ints(n_band, with_color)
+    if integrate:
         with record_function("vulcan.integrate"):
             volume = sparse.integrate_sparse(
-                volume, frame, config, ids=band_ids, count=n_band
+                volume, frame, config, ids=band_ids, count=n_band, host_count=n_host
             )
-    if "render" in skip:
+    if not render_on:
         return volume, None
     with record_function("vulcan.render"):
-        render = raycast.render(
-            volume, frame.camera, frame.pose, h, w, config,
-            with_color=with_color, color_space=config.model_color,
-        )
-    return volume, render
+        def render(wc: bool):
+            return raycast.render(
+                volume, frame.camera, frame.pose, h, w, config,
+                with_color=wc, color_space=config.model_color,
+            )
+
+        if isinstance(with_color, bool):
+            return volume, render(with_color)
+        return volume, sync.cond(color_on, lambda: render(True),
+                                 lambda: render(False))
 
 
 def step(
@@ -285,15 +309,20 @@ def step(
                 flat_thresh=max(0.05, 6.0 * config.voxel_size),
             )
             init_pose = predict_pose(state, config)
+
+            def track(mode_now: str):
+                return icp.track(live_pyr, model_pyr, init_pose, config, mode_now,
+                                 reduce)
+
             if auto:
-                mode_now = "combined" if state.photo_cnt_host > 0 else "depth"
+                # The reference's lax.cond on the device countdown.
+                result = sync.cond(state.photo_cnt, lambda: track("combined"),
+                                   lambda: track("depth"))
             else:
-                mode_now = mode
-            result = icp.track(live_pyr, model_pyr, init_pose, config, mode_now,
-                               reduce)
+                result = track(mode)
 
     with record_function("vulcan.gate"):
-        pose, trusted, degenerate, fuse_ok, photo_cnt, photo_cnt_host = _gate(
+        pose, trusted, degenerate, fuse_ok, photo_cnt = _gate(
             state, result, config, auto
         )
     fused_depth = torch.where(fuse_ok, depth, 0.0)
@@ -305,7 +334,7 @@ def step(
     volume, render = _fuse_and_render(
         state.volume, Frame(fused_depth, color, camera, pose), filtered,
         config, h, w,
-        with_color=(photo_cnt_host > 0) if auto else (mode != "depth"),
+        with_color=photo_cnt if auto else (mode != "depth"),
     )
     return dataclasses.replace(
         state,
@@ -321,7 +350,6 @@ def step(
         track_level_degen=result.level_degen,
         track_degen_frames=state.track_degen_frames + degenerate.to(torch.int32),
         photo_cnt=photo_cnt,
-        photo_cnt_host=photo_cnt_host,
     )
 
 

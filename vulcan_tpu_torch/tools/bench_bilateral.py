@@ -69,7 +69,8 @@ def run(device, h: int = 480, w: int = 640) -> list[dict]:
         fn = cuda_kernels.bind(lib, ("vulcan_bilateral",)).vulcan_bilateral
 
         def call(fn=fn):
-            err = fn(x.data_ptr(), out.data_ptr(), h, w, k.radius, k.pointer, k.neg_a, stream)
+            err = fn(x.data_ptr(), out.data_ptr(), h, w, k.radius, k.pointer, k.neg_a, None,
+                     stream)
             if err:
                 raise RuntimeError(f"bilateral {defines}: CUDA error {err}")
 

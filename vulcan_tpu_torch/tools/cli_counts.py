@@ -6,10 +6,13 @@ runs ``vulcan_tpu_torch.cli.main`` on the arguments, as ``python -m
 vulcan_tpu_torch.cli`` does, then prints one more line,
 ``{"counts": {...}}``:
 
-  * ``frames``, ``step_reads``, ``step_ms``: the frames
-    ``Pipeline.process`` took, the host reads (``utils.sync.read_int``)
-    made inside it, and each call's host time (not synchronized: with the
-    step's own reads, close to the frame's time);
+  * ``frames``, ``step_reads``, ``step_reads_by_frame``, ``step_ms``: the
+    frames ``Pipeline.process`` took, the host reads
+    (``utils.sync.read_int``) made inside it, in all and frame by frame,
+    and each call's host time (not synchronized: with the step's own
+    reads, close to the frame's time);
+  * ``captured``: whether the pipeline ran its frames as a captured CUDA
+    graph (``Pipeline.captured``; its warm-up frames run eagerly);
   * ``mesh_calls``, ``mesh_reads``: the ``ops.mcubes`` extraction, update
     and decode calls and the reads inside them;
   * ``loop_transfers``, ``loop_syncs``, ``loop_windows``: what the CLI's
@@ -22,7 +25,11 @@ vulcan_tpu_torch.cli`` does, then prints one more line,
     call) and the code after the last step (the final report) are left
     out;
   * ``k1_launches``, ``k2_launches``: the bilateral and fill/smooth
-    kernels' launches over the run (0 on the CPU);
+    kernels' launches over the run, counted on the card by the kernels
+    themselves (``ops.cuda_kernels.launch_counts``: a captured graph's
+    replays too; 0 on the CPU), and ``launches_by_frame``: each counted
+    kernel's launches in each ``Pipeline.process`` call (a copy of the
+    card's counters queued after each call, read at the end);
   * ``feed_wait_ms``: for a ``--dataset`` run, the host time the loop
     spent waiting for each frame from the TUM reader (the native
     prefetching loader), in frame order.
@@ -44,13 +51,14 @@ _TRANSFERS = ("item", "tolist", "cpu", "numpy", "__array__", "__bool__",
 def counting():
     """Patch the counters in; yields the counts dict, filled on exit."""
     from ..io import tum
-    from ..ops import mcubes, preprocess, splat
+    from ..ops import cuda_kernels, mcubes
     from ..pipeline import api
     from ..utils.sync import read_int
 
-    counts = dict(frames=0, step_reads=0, mesh_calls=0, mesh_reads=0,
-                  loop_transfers=0, loop_syncs=0, loop_windows=0, feed_wait_ms=[],
-                  step_ms=[])
+    counts = dict(frames=0, step_reads=0, step_reads_by_frame=[], captured=False,
+                  mesh_calls=0, mesh_reads=0, loop_transfers=0, loop_syncs=0,
+                  loop_windows=0, feed_wait_ms=[], step_ms=[])
+    snapshots = []
     where = {"now": "outside"}
     pending = {"transfers": 0, "syncs": 0}
     saved = []
@@ -73,6 +81,10 @@ def counting():
         finally:
             counts["step_ms"].append((time.perf_counter() - t0) * 1e3)
             counts["step_reads"] += read_int.count - r0
+            counts["step_reads_by_frame"].append(read_int.count - r0)
+            counts["captured"] = self.captured
+            snapshots.append(cuda_kernels.launch_snapshot(self.device)
+                             if self.device.type == "cuda" else None)
             counts["frames"] += 1
             pending["transfers"] = pending["syncs"] = 0
             where["now"] = "between" if counts["frames"] >= 2 else "outside"
@@ -119,15 +131,20 @@ def counting():
 
     patch(tum.TumDataset, "__iter__", timed_iter)
 
-    k1_0 = preprocess.bilateral_filter.launches
-    k2_0 = splat._fill_and_smooth.kernel_launches
+    cuda_kernels.reset_launch_counts()
     try:
         yield counts
     finally:
         for obj, name, orig in reversed(saved):
             setattr(obj, name, orig)
-        counts["k1_launches"] = preprocess.bilateral_filter.launches - k1_0
-        counts["k2_launches"] = splat._fill_and_smooth.kernel_launches - k2_0
+        total = cuda_kernels.launch_counts()
+        counts["k1_launches"] = total["bilateral"]
+        counts["k2_launches"] = total["fill_smooth"]
+        zero = torch.zeros(len(cuda_kernels.COUNTED), dtype=torch.int64)
+        rows = torch.stack([zero, *(zero if s is None else s.cpu().to(torch.int64)
+                                    for s in snapshots)])
+        counts["launches_by_frame"] = [dict(zip(cuda_kernels.COUNTED, d))
+                                       for d in rows.diff(dim=0).tolist()]
 
 
 def main(argv=None) -> int:

@@ -6,17 +6,34 @@
 For each checkout root, in the order given (e.g. a parent's tree unpacked
 under ``build/``, then this one, this one, the parent: two versions
 compared on one card in turns), a fresh process run from that root uses
-that checkout's own ``chip_smoke.py`` and ``vulcan_tpu_torch`` on the
-35-frame 480x640 orbit, in depth and in combined mode:
+that checkout's own ``chip_smoke.py`` and ``vulcan_tpu_torch``:
 
-  * ms/frame, synchronized per frame (``chip_smoke.run_pipeline``), median
-    over the frames after the 5 warm-up ones;
+  * the cells orbit/depth, orbit/combined, orbit/depth armed
+    (``auto_photo_enter=0.99``) and desk/combined (245 frames) through
+    ``Pipeline`` as a user calls it (a captured graph where the checkout
+    captures one): ms a frame synchronized per frame, median and p90 over
+    the frames after the 5 warm-up ones and before the last 10; the host
+    reads a frame over those frames; the last 10 frames under
+    torch.profiler for the device's busy ms (the union of the kernels',
+    copies' and fills' intervals: this tool's own ``timing.busy_ms`` in
+    every root; a reading above the median frame is discarded) and
+    operations a frame, and the idle share (1 - busy / median ms); the
+    graph's capture ms and
+    memory pool MiB (``Pipeline.graph_stats``);
+
+and, on the 35-frame 480x640 orbit in depth and in combined mode, through
+the eager step:
+
   * ``chip_smoke.profile_stages``: stage wall times with a device sync at
     each stage boundary, kernel ms a stage and the device's busy ms, idle
     share and operations a frame (torch.profiler);
   * the track stage's device operations a frame (``icp.model_pyramid`` and
     ``icp.track`` each run under a profiler of its own for 5 steady frames:
-    the CUDA kernels, copies and fills they launch).
+    the CUDA kernels, copies and fills they launch);
+
+and H1b's kernel ms (``timing.device_and_host``) at every level in depth
+and combined mode, on chip_smoke phase 2's inputs, through the checkout's
+own ``icp.icp_rows``: two kernel designs timed in one call.
 
 Prints a table and writes every run's report as JSON.  Needs the card; a
 root without ``chip_smoke.py`` or the package raises.
@@ -24,14 +41,18 @@ root without ``chip_smoke.py`` or the package raises.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
 import sys
 
-# Run inside each root's own process (cwd = the root).
+from . import timing
+
+# Run inside each root's own process (cwd = the root), after this tool's own
+# busy-time helpers (``_helpers``), with which every root is measured.
 _CHILD = r'''
-import json, os, statistics, sys
+import json, os, statistics, sys, time
 sys.path.insert(0, os.getcwd())
 import torch
 import chip_smoke as cs
@@ -47,12 +68,11 @@ cam = P.PinholeCamera.tum_default()
 n = cs.N_WARM + cs.N_TIMED
 poses = orbit_poses(n, radius=1.6, height=0.35, span=min(6.28, n * 0.05))
 frames = cs.make_frames(P, cam, poses, 480, 640, dev)
-cuda = torch.autograd.DeviceType.CUDA
 
 
 def track_ops(mode, n_warm=15, n_run=5):
     ops, ms = [], []
-    pipe = P.Pipeline(P.Config(), cam, 480, 640, init_pose=poses[0], mode=mode, device=dev)
+    pipe = eager(P.Config(), cam, 480, 640, init_pose=poses[0], mode=mode, device=dev)
     for d16, c8 in frames[:n_warm]:
         pipe.process(d16, c8)
     originals = {name: getattr(icp, name) for name in ("model_pyramid", "track")}
@@ -63,9 +83,9 @@ def track_ops(mode, n_warm=15, n_run=5):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 out = fn(*args, **kwargs)
                 torch.cuda.synchronize()
-            evs = [e for e in prof.key_averages() if e.device_type == cuda]
-            ops.append(sum(e.count for e in evs))
-            ms.append(sum(cs.dev_us(e, True) for e in evs) / 1e3)
+            spans = device_spans(prof)
+            ops.append(len(spans))
+            ms.append(busy_ms(spans))
             return out
         return run
 
@@ -80,11 +100,90 @@ def track_ops(mode, n_warm=15, n_run=5):
     return sum(ops) / n_run, sum(ms) / n_run
 
 
-out = {"device": cs.nvidia_smi(), "root": os.getcwd()}
+def cell(config, mode, cell_poses, cell_frames, k_profile=10):
+    from vulcan_tpu_torch.utils.sync import read_int
+
+    n = len(cell_frames)
+    pipe = P.Pipeline(config, cam, 480, 640, init_pose=cell_poses[0], mode=mode, device=dev)
+    ms, reads, armed = [], [], 0
+    for d16, c8 in cell_frames[:n - k_profile]:
+        armed += int(pipe.state.photo_cnt) > 0
+        r0 = read_int.count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.process(d16, c8)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        reads.append(read_int.count - r0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for d16, c8 in cell_frames[n - k_profile:]:
+            pipe.process(d16, c8)
+            torch.cuda.synchronize()
+    spans = device_spans(prof)
+    timed = ms[cs.N_WARM:]
+    busy = busy_ms(spans) / k_profile
+    med = statistics.median(timed)
+    valid = busy <= med
+    return dict(ms_median=med, ms_p90=statistics.quantiles(timed, n=10)[-1],
+                host_reads_per_frame=sum(reads[cs.N_WARM:]) / len(timed),
+                device_busy_ms=busy if valid else None, device_busy_ms_read=busy,
+                idle_share=1.0 - busy / med if valid else None,
+                device_ops_per_frame=len(spans) / k_profile,
+                armed_frames=armed, captured=getattr(pipe, "captured", False),
+                graph=getattr(pipe, "graph_stats", {}))
+
+
+def rows_ms():
+    """H1b's kernel ms at every level, depth and combined mode: the orbit's
+    first frame fused at its pose is the model, its own pyramid the live
+    side at a pose moved 2 cm and 1 degree (chip_smoke phase 2's inputs),
+    through the checkout's own ``icp.icp_rows``."""
+    from vulcan_tpu_torch.core.frame import Frame
+    from vulcan_tpu_torch.core.se3 import SE3
+    from vulcan_tpu_torch.ops import preprocess
+    from vulcan_tpu_torch.pipeline import fusion
+    from vulcan_tpu_torch.tools.timing import device_and_host
+
+    cfg = P.Config()
+    d, c = (torch.from_numpy(x).to(dev) for x in frames[0])
+    state = fusion.step_known_pose(fusion.init_state(cfg, cam, 480, 640, poses[0], dev),
+                                   d, c, poses[0].to(dev), cfg)
+    depth, color = fusion._to_metric(d, c, cfg)
+    live = preprocess.build_pyramid(Frame(depth, color, cam, poses[0]), cfg)
+    model = icp.model_pyramid(state.model, cfg.pyramid_levels,
+                              flat_thresh=max(0.05, 6.0 * cfg.voxel_size))
+    moved = SE3.exp(torch.tensor([0.0, 0.0174533, 0.0, 0.02, 0.0, 0.0], device=dev))
+    pv = icp._pose_vector(moved @ poses[0].to(dev))
+    out = {}
+    for mode in ("depth", "combined"):
+        for level in range(cfg.pyramid_levels):
+            photo = icp._photo_here(mode, level, cfg)
+            lv = icp.level_inputs(live[level], model[level], icp._level_strides(cfg)[level],
+                                  icp.LOCAL, photo)
+            corr, samples = icp._associate_plain(lv, pv, cfg, True, photo)
+            out[f"{mode}/level {level}"] = device_and_host(
+                lambda: icp.icp_rows(lv, pv, corr, samples, cfg, True, photo))[0]
+    return out
+
+
+desk_poses = orbit_poses(245, center=(0.0, 0.0, -0.25), radius=1.5, height=0.55,
+                         span=2.0 * 3.141592653589793)
+desk_frames = cs.make_desk_frames(P, cam, desk_poses, 480, 640, dev)
+out = {"device": cs.nvidia_smi(), "root": os.getcwd(), "cells": {
+    "orbit/depth": cell(P.Config(), "depth", poses, frames),
+    "orbit/combined": cell(P.Config(), "combined", poses, frames),
+    "orbit/depth armed": cell(P.Config(auto_photo_enter=0.99), "depth", poses, frames),
+    "desk/combined": cell(P.Config(), "combined", desk_poses, desk_frames),
+}}
+del desk_frames
+out["h1b_kernel_ms"] = rows_ms()
+eager = getattr(cs, "eager_pipeline", lambda P: P.Pipeline)(P)
 for mode in ("depth", "combined"):
-    _, _, ms, _ = cs.run_pipeline(P, P.Config(), cam, poses, frames, 480, 640, dev,
-                                  torch.cuda.synchronize, mode)
-    wall = statistics.median(ms[cs.N_WARM:])
+    res = cs.run_pipeline(P, P.Config(), cam, poses, frames, 480, 640, dev,
+                          torch.cuda.synchronize, mode, **(
+                              {"eager": True} if eager is not P.Pipeline else {}))
+    wall = statistics.median(res[2][cs.N_WARM:])
     rep = cs.profile_stages(P, torch, P.Config(), cam, poses, frames, dev, wall, mode)
     rep["track_ops_per_frame"], rep["track_kernel_ms_alone"] = track_ops(mode)
     out[mode] = rep
@@ -92,10 +191,17 @@ print("STAGE_PROFILE " + json.dumps(out), flush=True)
 '''
 
 
+def _helpers() -> str:
+    return "\n".join(["import torch", f"DEVICE_WORK = {timing.DEVICE_WORK!r}",
+                      inspect.getsource(timing._device_work),
+                      inspect.getsource(timing.device_spans),
+                      inspect.getsource(timing.busy_ms)])
+
+
 def run_root(root: str) -> dict:
     """One root's report (its own process, cwd = the root)."""
-    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=root, capture_output=True,
-                          text=True)
+    proc = subprocess.run([sys.executable, "-c", _helpers() + _CHILD], cwd=root,
+                          capture_output=True, text=True)
     sys.stderr.write(proc.stderr[-4000:])
     for line in proc.stdout.splitlines():
         if line.startswith("STAGE_PROFILE "):
@@ -104,17 +210,30 @@ def run_root(root: str) -> dict:
                        f"{proc.stdout[-4000:]}")
 
 
+def _ms(x) -> str:
+    return "discarded" if x is None else f"{x:7.3f}"
+
+
 def summary(label: str, rep: dict) -> str:
     rows = []
+    for name, c in rep["cells"].items():
+        rows.append(
+            f"{label:>14s} {name:18s} {'graph' if c['captured'] else 'eager'} frame "
+            f"{c['ms_median']:8.3f} ms (p90 {c['ms_p90']:8.3f}), busy "
+            f"{_ms(c['device_busy_ms'])}, idle {_ms(c['idle_share'])}, "
+            f"{c['device_ops_per_frame']:7.0f} ops, reads {c['host_reads_per_frame']:.2f}, "
+            f"armed {c['armed_frames']}, graph {c['graph']}")
     for mode in ("depth", "combined"):
         r = rep[mode]
         track = r["stages"]["track"]
         rows.append(
-            f"{label:>14s} {mode:8s} frame {r['wall_ms_per_frame_unprofiled_median']:8.3f} "
+            f"{label:>14s} {mode:8s} eager frame {r['wall_ms_per_frame_unprofiled_median']:8.3f} "
             f"ms (synced per stage {r['wall_ms_per_frame_stage_synced']:8.3f}), busy "
-            f"{r['device_busy_ms_per_frame']:7.3f}, idle {r['device_idle_share']:.3f}, "
+            f"{_ms(r['device_busy_ms_per_frame'])}, idle {_ms(r['device_idle_share'])}, "
             f"{r['device_ops_per_frame']:7.0f} ops; track synced {track['synced_wall_ms']:8.3f}"
             f" ms, kernels {track['kernel_ms']:7.3f} ms, {r['track_ops_per_frame']:7.0f} ops")
+    rows.append(f"{label:>14s} H1b kernel ms " + ", ".join(
+        f"{k} {v:.6f}" for k, v in rep["h1b_kernel_ms"].items()))
     return "\n".join(rows)
 
 

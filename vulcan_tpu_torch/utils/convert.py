@@ -7,9 +7,7 @@ flattens to one dict of numpy arrays keyed by the dotted field path:
 ``volume.tsdf``, ``model.pose.rotation``, ``model.camera.fx``,
 ``prev_pose.translation``, ``frame_idx``, ...  (a ``VolumeState`` alone:
 ``tsdf``, ``hash_codes``, ...).  The tests flatten a JAX state the same
-way and start both implementations from identical arrays.  Fields marked
-``metadata={"host": True}`` (the port's host copies of device values) are
-left out and restored from the device value they copy.
+way and start both implementations from identical arrays.
 """
 from __future__ import annotations
 
@@ -35,8 +33,6 @@ def flatten(obj, prefix: str = "") -> dict[str, np.ndarray]:
     out: dict[str, np.ndarray] = {}
     if dataclasses.is_dataclass(obj):
         for f in dataclasses.fields(obj):
-            if f.metadata.get("host"):
-                continue
             out.update(flatten(getattr(obj, f.name), f"{prefix}{f.name}."))
     elif isinstance(obj, torch.Tensor):
         out[prefix[:-1]] = obj.detach().cpu().numpy()
@@ -137,9 +133,6 @@ def pipeline_state_from_numpy(
         f.name: t(f.name)
         for f in dataclasses.fields(PipelineState)
         if f.name not in ("volume", "model", "prev_pose")
-        and not f.metadata.get("host")
     }
     return PipelineState(
-        volume=volume, model=model, prev_pose=se3("prev_pose"), **scalars,
-        photo_cnt_host=int(arrays["photo_cnt"]),
-    )
+        volume=volume, model=model, prev_pose=se3("prev_pose"), **scalars)
