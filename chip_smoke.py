@@ -24,18 +24,26 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      against its plain version; K2 at fill rounds 0, 1, 2 and 5 (5 is two
      launches) at 480x640 and 121x161 against its plain version, with its
      launches per call, and the device time a launch of an empty kernel
-     takes (the launch floor).  Then the track's kernels H1a-H1c
-     (``csrc/icp.cu``; ``track_kernels``): the orbit's first frame fused
-     at its true pose is the model and its own pyramid the live side; at
-     the true pose and at one moved 2 cm and 1 degree, in depth, color
-     and combined mode, at every level, H1a against ``_associate_plain``
-     (validity masks and correspondences bit-equal, samples within 1e-5),
-     H1b against ``_rows_plain`` (step and detector rows: H, b and the
-     error of each term within 1e-5 of the block's largest sum of
-     magnitudes, counts equal), H1c against ``_solve_plain`` (rtol 1e-4),
-     each twice and bit-identical (chiprun_out/track_kernels.json),
-     and each timed like K1 at the finest level in depth mode (H1b: one
-     thread-block cluster of 16 CTAs, ``cluster_ctas``);
+     takes (the launch floor).  Then the track's kernels H1a-H1c and the
+     fused step (``csrc/icp.cu``; ``track_kernels``): the orbit's first
+     frame fused at its true pose is the model and its own pyramid the
+     live side; at the true pose and at one moved 2 cm and 1 degree, in
+     depth, color and combined mode, at every level, H1a against
+     ``_associate_plain`` (validity masks and correspondences bit-equal,
+     samples within 1e-5), H1b against ``_rows_plain`` (step and detector
+     rows: H, b and the error of each term within 1e-5 of the block's
+     largest sum of magnitudes, counts equal), H1c against
+     ``_solve_plain`` (rtol 1e-4, atol 1e-6), the fused step
+     ``icp_rows_solve`` (a GN step and the level scores) against
+     ``_solve_plain(_rows_plain(...))`` (its sums as H1b's, its pose as
+     H1c's) and its pose bit-equal to H1c's on its own sums, and H1a
+     launched right behind the fused step whose pose it reads (bit-equal
+     to ``_associate_plain`` at that pose); each twice and bit-identical
+     (OUT_DIR/track_kernels.json), and each timed like K1 at the
+     finest level in depth mode (H1b and the fused step: one
+     thread-block cluster of 16 CTAs, ``cluster_ctas``).  Then the IF
+     nodes' kernel (``graph_if_kernel``), with one IF node's own cost
+     against an empty kernel node;
   3. main path: Pipeline(Config(), tum_default(), 480, 640) in depth mode
      over the 35-frame synthetic orbit (uint16 depth / uint8 colour in),
      5 warm-up + 30 timed frames.  The pipeline runs its first two frames
@@ -46,7 +54,8 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      after each frame: ``check_graph_run`` holds that the pipeline ran as
      a graph, that no replayed frame read on the host or launched
      anything eagerly, and that every replayed frame launched K1 and K2
-     once and H1a-H1c 12 / 29 / 29 times (``want_per_frame``); the run's
+     once, H1a 12 times and the fused step 29 (H1b and H1c alone 0;
+     ``want_per_frame``); the run's
      counts are the kernels line's ``launches`` and a replayed frame's its
      ``launches_per_replayed_frame``; zero overflows, zero track failures
      and ATE < 0.01 m; then the same run with the track's entry points on
@@ -56,10 +65,10 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      Config; (b) the orbit in depth mode with auto_photo_enter=0.99, which
      must arm the combined-mode rescue; (c) the 245-frame desk orbit in
      mode="combined".  Each prints ms/frame median and p90, ATE, armed
-     frames, host reads a frame and K1/K2/H1a-H1c launches, and fails
+     frames, host reads a frame and the K1/K2/track launches, and fails
      unless ``check_graph_run`` holds (an eager path: ``check_eager_run``,
-     K1 and K2 once and H1a-H1c as ``track_launches`` every frame, on the
-     card), nothing overflowed, every pose is finite and ATE < 0.01 m on
+     K1 and K2 once and the track's as ``track_launches`` every frame, on
+     the card), nothing overflowed, every pose is finite and ATE < 0.01 m on
      (a) and (b), < 0.1 m on (c).  With --parity also the desk in
      mode="light" and in depth mode under the default Config (armed frames
      and ATE, recorded, not judged);
@@ -71,7 +80,7 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      poses a frame and every array of the final state must equal the
      eager ones wherever the eager runs agree (GRAPH_TOL); the replayed
      frames read nothing; every frame of each run launches exactly K1 and
-     K2 once and H1a-H1c 12 / 29 / 29 times on the card; the last 10
+     K2 once, H1a 12 times and the fused step 29 on the card; the last 10
      frames run under torch.profiler: device busy ms (the union of the
      trace's kernel, copy and fill intervals; discarded where the trace
      holds fewer hand kernels than the card launched or more busy time
@@ -166,7 +175,9 @@ Run from the root of a checkout.  Phases, each printed as it runs:
   10. the row-sharded step (``parallel/sharding.py``): 2 gloo ranks on the
      one card over the orbit's first 10 frames, default Config, against
      the single-process step (tests/test_parallel.py's tolerances), every
-     rank's pose bit-identical.  Phases 9-10 write OUT_DIR/entry.json.
+     rank's pose bit-identical, each rank's track on H1a, H1b and H1c (12
+     / 29 / 29 a frame; no fused step: the ranks' sums are added between
+     rows and solve).  Phases 9-10 write OUT_DIR/entry.json.
 
 Every failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -199,7 +210,7 @@ N_WARM, N_TIMED = 5, 30
 K1_TOL = 1e-5    # m: ex2.approx, the folded exponent, the reduction's order
 K2_TOL = 1e-6    # m: fill is min/max (exact); smoothing sums in one order
 AGREE_TOL = 1e-3  # m: card vs CPU per-frame translation (float reassociation)
-PLAIN_ATE_TOL = 1e-4  # m: orbit ATE through H1a-H1c vs their plain versions on the card
+PLAIN_ATE_TOL = 1e-4  # m: orbit ATE through the track's kernels vs their plain versions
 DESK_ATE = 0.1    # m: the desk's wrong-basin slide, which combined tracking
                   # prevents, is 0.73 m; the reference holds 0.02162 m
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -384,11 +395,16 @@ ICP_SOLVE_OPS = 400      # one 6x6 step: the factor, two solves, exp, product
 
 
 def icp_bytes_ops(kind: str, lv, geometric: bool, photo: bool) -> tuple[int, int]:
-    """Bytes in + out and f32 operations of one H1a or H1b call on a level:
-    each input read once, each output written once.  H1a gathers model
+    """Bytes in + out and f32 operations of one H1a, H1b or fused step
+    (``rows_solve``: H1b and a solve) call on a level: each input read
+    once, each output written once.  H1a gathers model
     words for each live pixel, one vpack1/vpack2/npack triple and the four
     taps of the two photometric words: counted once a live pixel, at most
     a whole map."""
+    if kind == "rows_solve":
+        # H1b's work, then the solve's: the pose vector out (64 B).
+        nbytes, ops = icp_bytes_ops("rows", lv, geometric, photo)
+        return nbytes + 64, ops + ICP_SOLVE_OPS
     n = lv.depth.numel()
     model = lv.npack.numel()
     if kind == "associate":
@@ -422,13 +438,19 @@ def icp_sums_err(got, want, magnitudes) -> float:
     return worst
 
 
+IF_NODES = 50   # nodes a graph when one IF node's cost is timed
+
+
 def graph_if_kernel(torch, dev) -> dict:
     """Phase 2, the IF nodes' kernel (``csrc/graph.cu``): a graph with a
     guarded chunk (``sync.run_if``), a nested one and a ``sync.cond``,
     replayed at predicates 0, 1 and 2 against the same work run eagerly
     (its plain version: the branch the host reads); timed as one replay of
     a graph of one IF node around one add, beside that add under a host
-    read of its predicate.  Returns its kernels-line entry."""
+    read of its predicate, and one IF node's own cost: a graph of IF_NODES
+    IF nodes with empty bodies (predicate true and false) and one of
+    IF_NODES empty kernels, each replay over the node count.  Returns its
+    kernels-line entry."""
     from vulcan_tpu_torch.tools.timing import call_ms, device_and_host
     from vulcan_tpu_torch.utils import sync
 
@@ -479,6 +501,30 @@ def graph_if_kernel(torch, dev) -> dict:
         sync.run_if(flag > 0, lambda: x.add_(1.0))
     flag.fill_(1)
     kernel_ms, host_us = device_and_host(one.replay)
+    # One IF node's own cost: a graph of IF_NODES IF nodes with empty bodies
+    # on one predicate, against one of IF_NODES empty kernels, each replay
+    # between CUDA events over the node count.
+    pred = flag > 0
+    ifs = torch.cuda.CUDAGraph()
+    with sync.capture(ifs, dev) as _pool2:
+        for _ in range(IF_NODES):
+            sync.run_if(pred, lambda: None)
+    empty = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(empty):
+        for _ in range(IF_NODES):
+            torch.cuda._sleep(0)
+    before = launch_counts()["graph_if"]
+    node = {}
+    for v in (1, 0):
+        flag.fill_(v)
+        pred.copy_(flag > 0)
+        node[f"if_node_ms_pred_{v}"] = device_and_host(ifs.replay)[0] / IF_NODES
+    node["empty_kernel_node_ms"] = device_and_host(empty.replay)[0] / IF_NODES
+    node["if_node_excess_ms"] = node["if_node_ms_pred_1"] - node["empty_kernel_node_ms"]
+    torch.cuda.synchronize()
+    if (launch_counts()["graph_if"] - before) % IF_NODES:
+        fail("a replay of the IF-node graph ran another count of IF nodes")
+    flag.fill_(1)
 
     def eager_add():
         if sync.read_int(flag) > 0:
@@ -492,28 +538,35 @@ def graph_if_kernel(torch, dev) -> dict:
                  launches_per_call=1, plain_ms=call_ms(eager_add),
                  bound_ms=bound(1.0, 0.0)[0], bound_by="bytes", library_ms=None,
                  library_kernel_ms=None, library_host_us=None,
-                 shape="one IF node around one 4-float add")
+                 shape="one IF node around one 4-float add", **node)
     print(f"graph_if: IF nodes (guarded, nested, cond) against the eager branches "
           f"max_abs_err {err:.3e} (tol 0); a replay of one IF node around an add "
           f"{kernel_ms:.4f} ms device, host {host_us:.2f} us, call {entry['ms']:.4f} ms; "
-          f"the add under a host read {entry['plain_ms']:.4f} ms", flush=True)
+          f"the add under a host read {entry['plain_ms']:.4f} ms; one IF node with an "
+          f"empty body (a graph of {IF_NODES}) {node['if_node_ms_pred_1']:.6f} ms "
+          f"(predicate false {node['if_node_ms_pred_0']:.6f}), one empty kernel node "
+          f"{node['empty_kernel_node_ms']:.6f} ms, an IF node's excess "
+          f"{node['if_node_excess_ms']:.6f} ms", flush=True)
     if err != 0.0:
         fail("the IF nodes ran other branches than the eager form")
     return entry
 
 
 def track_kernels(P, torch, dev, cam, poses, frames) -> list[dict]:
-    """Phase 2, H1a-H1c: the orbit's first frame fused at its true pose and
-    rendered (the model), its own pyramid (the live side), at the true
-    pose and at one moved 2 cm and 1 degree, in depth, color (no
-    geometric term) and combined mode, every level: H1a against
+    """Phase 2, H1a-H1c and the fused step: the orbit's first frame fused
+    at its true pose and rendered (the model), its own pyramid (the live
+    side), at the true pose and at one moved 2 cm and 1 degree, in depth,
+    color (no geometric term) and combined mode, every level: H1a against
     ``_associate_plain`` (validity masks and the decoded correspondences
     exact, samples within 1e-5), H1b against ``_rows_plain`` on the same
     correspondences (step and detector rows; ``icp_sums_err`` within
-    ICP_SUM_TOL, the count exact), H1c against
-    ``_solve_plain`` on the same sums (step and scores, ICP_SOLVE_RTOL);
-    each kernel twice, bit-identical.  Returns the kernels line's entries,
-    timed at the finest level in depth mode (the main path's shapes)."""
+    ICP_SUM_TOL, the count exact), H1c against ``_solve_plain`` on the
+    same sums (step and scores, ICP_SOLVE_RTOL), the fused step
+    ``icp_rows_solve`` against ``_solve_plain(_rows_plain(...))`` (sums as
+    H1b's, pose and scores as H1c's; its pose bit-equal to H1c's on the
+    fused sums), H1a right behind a fused step (bit-equal); each kernel
+    twice, bit-identical.  Returns the kernels line's entries, timed at
+    the finest level in depth mode (the main path's shapes)."""
     from vulcan_tpu_torch.core.frame import Frame
     from vulcan_tpu_torch.core.se3 import SE3
     from vulcan_tpu_torch.ops import cuda_kernels, icp, preprocess
@@ -570,7 +623,7 @@ def track_kernels(P, torch, dev, cam, poses, frames) -> list[dict]:
                         err=icp_sums_err(got, want, icp._rows_plain(*args, magnitudes=True)),
                         count_equal=bool(torch.equal(got[:, 28], want[:, 28])),
                         repeat=bool(torch.equal(got, again)), sums=want)
-                solve = {}
+                solve, fused = {}, {}
                 for detect in (False, True):
                     sums = rows[detect]["sums"]
                     got = icp.icp_solve(sums, pv, cfg, geometric, photo, detect)
@@ -580,6 +633,33 @@ def track_kernels(P, torch, dev, cam, poses, frames) -> list[dict]:
                     solve[detect] = dict(
                         err=max_abs_err(got, want), repeat=bool(torch.equal(got, again)),
                         ok=bool(torch.allclose(got, want, rtol=ICP_SOLVE_RTOL, atol=1e-6)))
+                    # The fused step against _solve_plain(_rows_plain(...)),
+                    # and its pose against H1c alone on its own sums (the
+                    # same solve code on the same numbers: bit-equal).
+                    args = (lv, pv, want_c, want_s, cfg, geometric, photo, detect)
+                    f_sums, f_pose = icp.icp_rows_solve(*args)
+                    a_sums, a_pose = icp.icp_rows_solve(*args)
+                    p_sums = icp._rows_plain(*args)
+                    p_pose = icp._solve_plain(p_sums, pv, cfg.icp_damping, geometric, photo,
+                                              detect)
+                    fused[detect] = dict(
+                        sums_err=icp_sums_err(f_sums, p_sums,
+                                              icp._rows_plain(*args, magnitudes=True)),
+                        count_equal=bool(torch.equal(f_sums[:, 28], p_sums[:, 28])),
+                        pose_err=max_abs_err(f_pose, p_pose),
+                        ok=bool(torch.allclose(f_pose, p_pose, rtol=ICP_SOLVE_RTOL,
+                                               atol=1e-6)),
+                        same_as_h1c=bool(torch.equal(
+                            f_pose, icp.icp_solve(f_sums, pv, cfg, geometric, photo,
+                                                  detect))),
+                        repeat=bool(torch.equal(f_sums, a_sums) and torch.equal(f_pose, a_pose)))
+                # H1a right behind the fused step whose pose it reads (a
+                # programmatic dependent launch waits for that pose).
+                chained_pose = icp.icp_rows_solve(lv, pv, want_c, want_s, cfg, geometric,
+                                                  photo)[1]
+                chained = icp.icp_associate(lv, chained_pose, cfg, geometric, photo)
+                chained_want = icp._associate_plain(lv, chained_pose, cfg, geometric, photo)
+                chained_exact = all(same(chained[k], chained_want[k]) for k in terms)
                 line = dict(mode=mode, pose=tag, level=level, photo=photo,
                             live=tuple(lv.depth.shape), ok_flips=ok_flips,
                             correspondences_exact=corr_exact, samples_exact=samples_exact,
@@ -587,9 +667,15 @@ def track_kernels(P, torch, dev, cam, poses, frames) -> list[dict]:
                             detector_rows_rel_err=rows[True]["err"],
                             solve_max_abs_err=solve[False]["err"],
                             scores_max_abs_err=solve[True]["err"],
+                            fused_sums_rel_err=max(f["sums_err"] for f in fused.values()),
+                            fused_pose_max_abs_err=fused[False]["pose_err"],
+                            fused_scores_max_abs_err=fused[True]["pose_err"],
+                            fused_equals_h1c=all(f["same_as_h1c"] for f in fused.values()),
+                            h1a_behind_fused_exact=chained_exact,
                             inliers=float(rows[False]["sums"][0 if geometric else 1, 28]),
                             repeats_bit_identical=repeat and all(
-                                r["repeat"] for r in (*rows.values(), *solve.values())))
+                                r["repeat"] for r in (*rows.values(), *solve.values(),
+                                                      *fused.values())))
                 report.append(line)
                 print(f"H1a-H1c {mode}, {tag}, level {level} ({line['live'][0]}x"
                       f"{line['live'][1]}, photometric {photo}): ok flips {ok_flips}, "
@@ -598,7 +684,12 @@ def track_kernels(P, torch, dev, cam, poses, frames) -> list[dict]:
                       f"{rows[True]['err']:.3e} of a block's sum of magnitudes (tol {ICP_SUM_TOL:g}), "
                       f"counts equal {rows[False]['count_equal'] and rows[True]['count_equal']}; "
                       f"solve max abs err {solve[False]['err']:.3e}, scores "
-                      f"{solve[True]['err']:.3e} (rtol {ICP_SOLVE_RTOL:g}, atol 1e-6); inliers {line['inliers']:.0f}; repeats "
+                      f"{solve[True]['err']:.3e} (rtol {ICP_SOLVE_RTOL:g}, atol 1e-6); fused "
+                      f"step sums {line['fused_sums_rel_err']:.3e}, pose "
+                      f"{line['fused_pose_max_abs_err']:.3e}, scores "
+                      f"{line['fused_scores_max_abs_err']:.3e}, equal to H1c on its sums "
+                      f"{line['fused_equals_h1c']}; H1a behind it exact {chained_exact}; "
+                      f"inliers {line['inliers']:.0f}; repeats "
                       f"bit-identical {line['repeats_bit_identical']}", flush=True)
                 if ok_flips or not corr_exact or not s_err <= 1e-5:
                     fail(f"H1a differs from its plain version ({mode}, {tag}, level {level})")
@@ -606,8 +697,14 @@ def track_kernels(P, torch, dev, cam, poses, frames) -> list[dict]:
                     fail(f"H1b differs from its plain version ({mode}, {tag}, level {level})")
                 if not all(v["ok"] for v in solve.values()):
                     fail(f"H1c differs from its plain version ({mode}, {tag}, level {level})")
+                if not all(f["sums_err"] <= ICP_SUM_TOL and f["count_equal"] and f["ok"]
+                           and f["same_as_h1c"] for f in fused.values()):
+                    fail(f"the fused step differs from its plain version or from H1c "
+                         f"({mode}, {tag}, level {level})")
+                if not chained_exact:
+                    fail(f"H1a behind the fused step differs ({mode}, {tag}, level {level})")
                 if not line["repeats_bit_identical"]:
-                    fail(f"a repeat of H1a-H1c differs ({mode}, {tag}, level {level})")
+                    fail(f"a repeat of a track kernel differs ({mode}, {tag}, level {level})")
                 if line["inliers"] < 100:
                     fail(f"under 100 inliers at level {level}: the check saw no rows")
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -623,6 +720,7 @@ def track_kernels(P, torch, dev, cam, poses, frames) -> list[dict]:
             f"{lv.npack.shape[1]} model, depth mode"
     a_bytes, a_ops = icp_bytes_ops("associate", lv, True, False)
     r_bytes, r_ops = icp_bytes_ops("rows", lv, True, False)
+    f_bytes, f_ops = icp_bytes_ops("rows_solve", lv, True, False)
     specs = [
         dict(name="icp_associate", tol=0.0, source="vulcan_tpu_torch/csrc/icp.cu",
              replaces="vulcan_tpu/ops/icp.py:349",
@@ -651,6 +749,19 @@ def track_kernels(P, torch, dev, cam, poses, frames) -> list[dict]:
              bytes=(2 * 29 + 2 * 16) * 4, ops=ICP_SOLVE_OPS,
              extra=dict(shape="one 6x6 step",
                         also_replaces="vulcan_tpu/ops/icp.py:931 _min_eig_normalized")),
+        dict(name="icp_rows_solve", tol=ICP_SOLVE_RTOL, source="vulcan_tpu_torch/csrc/icp.cu",
+             replaces="vulcan_tpu/ops/icp.py:753",
+             call=lambda: icp.icp_rows_solve(lv, pv, corr, None, cfg, True, False),
+             count=lambda: icp.icp_rows_solve.launches,
+             plain=lambda: icp._solve_plain(icp._rows_plain(lv, pv, corr, None, cfg, True,
+                                                            False),
+                                            pv, cfg.icp_damping, True, False),
+             flat=lambda out: (out[1] if isinstance(out, tuple) else out)[:12],
+             bytes=f_bytes, ops=f_ops,
+             extra=dict(shape=shape + ", one GN step",
+                        cluster_ctas=cuda_kernels.ICP_ROWS_CLUSTER,
+                        also_replaces="vulcan_tpu/ops/icp.py:703 _pp_normal_eqs, "
+                               ":983 solve_gn, SE3.exp")),
     ]
     return [check_kernel(spec, torch) for spec in specs]
 
@@ -934,7 +1045,7 @@ def eager_pipeline(P):
 
 def launch_counts() -> dict[str, int]:
     """The main path's kernels' launches on the card: K1, K2's kernel
-    launches, H1a-H1c and the IF nodes' kernel, each counted by the kernel
+    launches, H1a-H1c, the fused step and the IF nodes' kernel, each counted by the kernel
     itself at every launch, eager or replayed from a CUDA graph
     (``cuda_kernels.launch_counts``; a capture launches nothing)."""
     from vulcan_tpu_torch.ops import cuda_kernels
@@ -944,7 +1055,7 @@ def launch_counts() -> dict[str, int]:
 
 def host_counts() -> dict[str, int]:
     """The wrappers' own counts of their eager launches (K1, K2's kernel
-    launches, H1a-H1c): on the eager path they must equal the card's."""
+    launches, the track's entry points): on the eager path they must equal the card's."""
     from vulcan_tpu_torch.ops import preprocess, splat
 
     return {"bilateral": preprocess.bilateral_filter.launches,
@@ -978,8 +1089,8 @@ def per_frame(counts: list[dict]) -> list[dict]:
 
 def want_per_frame(config, known=False, k2_per_frame=1) -> dict[str, int]:
     """The launches a frame of the main path takes: K1 once, K2
-    ``k2_per_frame`` times, H1a-H1c as ``track_launches`` (none at a known
-    pose)."""
+    ``k2_per_frame`` times, the track's as ``track_launches`` (none at a
+    known pose)."""
     h1 = {k: 0 if known else v for k, v in track_launches(config).items()}
     return {"bilateral": 1, "fill_smooth": k2_per_frame, **h1}
 
@@ -1081,24 +1192,28 @@ def check_eager_run(label, run, config, known=False, k2_per_frame=1) -> None:
         fail(f"{label}: the card counted {card} launches, the wrappers {run['host'][-1]}")
 
 
-def track_launches(cfg) -> dict[str, int]:
-    """H1a-H1c launches of one track at ``cfg``: an association round each,
-    a rows and a solve launch each GN step and each level score."""
-    from vulcan_tpu_torch.ops import icp
+# The track's entry points: H1a, H1b, H1c and the fused step (H1b + H1c).
+H1_ENTRIES = ("icp_associate", "icp_rows", "icp_solve", "icp_rows_solve")
 
+
+def track_launches(cfg, sharded=False) -> dict[str, int]:
+    """The track's launches at ``cfg``: H1a once an association round; a
+    GN step and a level score each one ``icp_rows_solve`` in one process,
+    or (``sharded``: the reducer adds the ranks' sums between them) one
+    H1b and one H1c."""
     rounds = [max(1, min(a, i)) for a, i in zip(cfg.icp_assoc, cfg.icp_iters)]
     steps = sum(r * -(-i // r) for r, i in zip(rounds, cfg.icp_iters))
-    scores = cfg.pyramid_levels if cfg.degen_min_eig > 0.0 else 0
-    return {"icp_associate": sum(rounds), "icp_rows": steps + scores,
-            "icp_solve": steps + scores}
+    steps += cfg.pyramid_levels if cfg.degen_min_eig > 0.0 else 0
+    return {"icp_associate": sum(rounds), "icp_rows": steps if sharded else 0,
+            "icp_solve": steps if sharded else 0, "icp_rows_solve": 0 if sharded else steps}
 
 
 def icp_counts(reset: bool = False) -> dict[str, int]:
-    """The H1a-H1c launch counts (set to 0 first with ``reset``)."""
+    """The track's entry points' launch counts (set to 0 first with
+    ``reset``)."""
     from vulcan_tpu_torch.ops import icp
 
-    entries = {"icp_associate": icp.icp_associate, "icp_rows": icp.icp_rows,
-               "icp_solve": icp.icp_solve}
+    entries = {k: getattr(icp, k) for k in H1_ENTRIES}
     if reset:
         for e in entries.values():
             e.launches = 0
@@ -1108,20 +1223,28 @@ def icp_counts(reset: bool = False) -> dict[str, int]:
 
 @contextlib.contextmanager
 def plain_track():
-    """The track's three entry points swapped for their plain versions, on
+    """The track's entry points swapped for their plain versions, on
     whatever device the tensors are (the yardstick run of phase 3), and
     put back after."""
     from vulcan_tpu_torch.ops import icp
 
-    saved = icp.icp_associate, icp.icp_rows, icp.icp_solve
+    saved = {k: getattr(icp, k) for k in H1_ENTRIES}
+
+    def rows_solve(lv, pose, corr, samples, config, geometric, photo, detect=False):
+        sums = icp._rows_plain(lv, pose, corr, samples, config, geometric, photo, detect)
+        return sums, icp._solve_plain(sums, pose, config.icp_damping, geometric, photo,
+                                      detect)
+
     icp.icp_associate = icp._associate_plain
     icp.icp_rows = icp._rows_plain
     icp.icp_solve = lambda sums, pose, config, geometric, photo, detect=False: (
         icp._solve_plain(sums, pose, config.icp_damping, geometric, photo, detect))
+    icp.icp_rows_solve = rows_solve
     try:
         yield
     finally:
-        icp.icp_associate, icp.icp_rows, icp.icp_solve = saved
+        for k, v in saved.items():
+            setattr(icp, k, v)
 
 
 def run_cell(P, torch, label, config, mode, camera, poses, frames, ate_limit,
@@ -1130,7 +1253,7 @@ def run_cell(P, torch, label, config, mode, camera, poses, frames, ate_limit,
     ``Pipeline``, counts set to 0 just before it and read just after.
     ``ate_limit`` None records the ATE without judging it.  On the eager
     path every frame must launch K1 once, K2 ``k2_per_frame`` times (0 on
-    the ray march, which has no fill/smooth step) and H1a-H1c as
+    the ray march, which has no fill/smooth step) and the track's as
     ``track_launches`` (``check_eager_run``); a captured path must pass
     ``check_graph_run``.  ``no_failures`` fails on a track failure.
     Returns the printed numbers as a dict."""
@@ -1145,7 +1268,7 @@ def run_cell(P, torch, label, config, mode, camera, poses, frames, ate_limit,
         torch.cuda.synchronize, mode,
     )
     counts = run["counts"][-1]
-    h1 = {k: counts[k] for k in ("icp_associate", "icp_rows", "icp_solve")}
+    h1 = {k: counts[k] for k in H1_ENTRIES}
     k1, k2 = counts["bilateral"], counts["fill_smooth"]
     reads = sum(run["reads"])
     path = "graph" if pipe.captured else "eager"
@@ -1167,7 +1290,7 @@ def run_cell(P, torch, label, config, mode, camera, poses, frames, ate_limit,
           f"{out['ms_p90']:.3f} (warm-up {N_WARM}, timed {len(timed)}, synchronized "
           f"per frame); ATE {ate:.6f} m over {n} frames; armed frames {armed}; "
           f"host reads/frame {reads / n:.2f} ({replay_reads:.2f} after the first "
-          f"{WARMUP_FRAMES}); K1 launches {k1}, K2 kernel launches {k2}, H1a-H1c {h1}; "
+          f"{WARMUP_FRAMES}); K1 launches {k1}, K2 kernel launches {k2}, track {h1}; "
           f"graph {pipe.graph_stats}; track failures {diag['track_failures']}, "
           f"degenerate frames {diag['track_degen_frames']}", flush=True)
     if pipe.captured:
@@ -1192,7 +1315,8 @@ def run_cell(P, torch, label, config, mode, camera, poses, frames, ate_limit,
 # nodes' one-thread kernel (csrc/graph.cu).
 KERNEL_NAMES = {"bilateral": "bilateral_kernel", "fill_smooth": "fill_smooth_kernel",
                 "icp_associate": "associate_kernel", "icp_rows": "rows_kernel",
-                "icp_solve": "solve_kernel", "graph_if": "set_if_kernel"}
+                "icp_solve": "solve_kernel", "icp_rows_solve": "gn_step_kernel",
+                "graph_if": "set_if_kernel"}
 
 
 def replay_profile(pipe, frames, torch, poses=None) -> dict:
@@ -2258,7 +2382,9 @@ def sharded_step(P, torch, cfg, cam, poses, frames, dev, k=10) -> dict:
     against the single-process step on the same frames
     (tests/test_parallel.py's tolerances, and the last frame's inliers at
     each pyramid level within 1%); every rank's pose bit-identical, the
-    same host reads on every rank and K1/K2 once a frame in each.  Also
+    same host reads on every rank, K1/K2 once a frame in each and the
+    track's H1a, H1b and H1c (no fused step: the reducer sits between the
+    rows and the solve) as ``track_launches(sharded=True)``.  Also
     times the all-gather that opens each step, whole and for the frame's
     rows alone: the rest is the model maps' round trip."""
     from vulcan_tpu_torch.parallel import sharding
@@ -2301,7 +2427,8 @@ def sharded_step(P, torch, cfg, cam, poses, frames, dev, k=10) -> dict:
                level_inliers=lvn.tolist(), single_level_inliers=lv1.tolist(),
                ranks_bit_identical=same, reads=[r["reads"] for r in ranks],
                single_reads=reads, k1=[r["k1_launches"] for r in ranks],
-               k2=[r["k2_launches"] for r in ranks], max_translation_diff_m=dt,
+               k2=[r["k2_launches"] for r in ranks],
+               track=[r["track_launches"] for r in ranks], max_translation_diff_m=dt,
                free_count=[nf1, nfn], valid_mismatch=float((v1 != vn).mean()),
                depth_diff_q99_m=dq, tsdf_off_frac=tsdf_off,
                failures=[r["track_failures"] for r in ranks],
@@ -2312,7 +2439,8 @@ def sharded_step(P, torch, cfg, cam, poses, frames, dev, k=10) -> dict:
           f"{out['gather_ms']} ms, of it the frame's rows alone {out['frame_gather_ms']} "
           f"ms; {spawn_s:.1f} s spawn to results; poses, "
           f"tsdf bit-identical across ranks {same}; host reads {out['reads']} (single "
-          f"{reads}); K1 {out['k1']}, K2 {out['k2']}; against the single process: "
+          f"{reads}); K1 {out['k1']}, K2 {out['k2']}, track {out['track']}; against "
+          f"the single process: "
           f"level inliers {out['level_inliers']} vs {out['single_level_inliers']} "
           f"(tol 1%), max "
           f"|dt| {dt:.3e} m (tol 1e-3), free count {nf1} vs {nfn}, valid mismatch "
@@ -2322,6 +2450,10 @@ def sharded_step(P, torch, cfg, cam, poses, frames, dev, k=10) -> dict:
         fail("the ranks disagree with each other or with the single process's reads")
     if out["k1"] != [k, k] or out["k2"] != [k, k]:
         fail(f"K1/K2 launches a rank {out['k1']} / {out['k2']}, expected {k} each")
+    # The sharded track keeps H1b, the reducer, then H1c: no fused step.
+    want_track = {name: k * v for name, v in track_launches(cfg, sharded=True).items()}
+    if any(r["track_launches"] != want_track for r in ranks):
+        fail(f"track launches a rank {out['track']}, expected {want_track} each")
     if any(out["failures"]) or any(out["overflow"]):
         fail("a track failure or overflow in a rank")
     if not (dt < 1e-3 and abs(nf1 - nfn) <= 0.05 * max(nf1, nfn)
@@ -2447,7 +2579,7 @@ def main() -> None:
         P, cfg, cam, poses, frames, 480, 640, dev, torch.cuda.synchronize
     )
     launches = run["counts"][-1]
-    h1 = {k: launches[k] for k in ("icp_associate", "icp_rows", "icp_solve")}
+    h1 = {k: launches[k] for k in H1_ENTRIES}
     k2_kernel_launches = launches["fill_smooth"]
     reads = sum(run["reads"])
     gt = np.stack([p.translation.numpy() for p in poses])

@@ -114,7 +114,7 @@ _ICP_CAM = (100.0, 100.0, 4.0, 4.0)
 
 @pytest.mark.parametrize(
     "launch", ["bilateral", "fill_smooth", "fill_smooth_fused", "subsample2",
-               "icp_associate", "icp_rows", "icp_solve"])
+               "icp_associate", "icp_rows", "icp_solve", "icp_rows_solve"])
 def test_kernel_entry_refuses_cpu_tensors(launch):
     """A CUDA entry point given a CPU tensor raises before anything is
     built or loaded (the wrappers never send it one)."""
@@ -134,6 +134,10 @@ def test_kernel_entry_refuses_cpu_tensors(launch):
             (0.1, 5.0, 0.01, 0.8, 0.03, 0.1, 0.1), True, False, False),
         "icp_solve": lambda x: cuda_kernels.icp_solve(
             x.new_zeros((2, 29)), x.new_zeros(16), 1e-4, True, False, False),
+        "icp_rows_solve": lambda x: cuda_kernels.icp_rows_solve(
+            *_icp_live(x), x.new_zeros(16), x.new_zeros(15),
+            (_icp_live(x)[1], _icp_live(x)[1], x > 0), None, _ICP_CAM,
+            (0.1, 5.0, 0.01, 0.8, 0.03, 0.1, 0.1), 1e-4, True, False, False),
     }[launch]
     with pytest.raises(ValueError, match="CUDA tensor"):
         fn(torch.ones((8, 8)))
@@ -143,7 +147,7 @@ def test_kernel_entry_refuses_cpu_tensors(launch):
 def test_cpu_step_launches_no_kernel():
     """Whole CPU steps go through the plain versions in every tracking
     mode and in fusion at a given pose: the launch counters stay at 0,
-    the track's three (H1a-H1c) among them."""
+    the track's (H1a-H1c and the fused step) among them."""
     poses = orbit(2)
     frames = [scene(pose) for pose in poses]
     for mode in fusion.MODES:
@@ -156,7 +160,7 @@ def test_cpu_step_launches_no_kernel():
     assert preprocess.bilateral_filter.launches == 0
     assert splat._fill_and_smooth.launches == 0
     assert splat._fill_and_smooth.kernel_launches == 0
-    for entry in (icp.icp_associate, icp.icp_rows, icp.icp_solve):
+    for entry in (icp.icp_associate, icp.icp_rows, icp.icp_solve, icp.icp_rows_solve):
         assert entry.launches == 0
 
 

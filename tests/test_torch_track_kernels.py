@@ -1,12 +1,14 @@
 """The track's Gauss-Newton loop held against the JAX package: the plain
-versions of its three entry points, H1a ``icp_associate``
-(``associate_depth`` and the flat ``color_assoc``), H1b ``icp_rows`` (the
-29 stacked sums of ``_pp_normal_eqs`` and ``color_rows_fixed``) and H1c
-``icp_solve`` (``solve_gn``, ``SE3.exp`` and ``_min_eig_normalized``),
-then ``track`` through them in every mode.  The CUDA kernels behind the
-entry points run on the card only (``chip_smoke.py`` phase 2 holds them
-against these plain versions); here the C signatures are held against
-their ctypes bindings."""
+versions of its entry points, H1a ``icp_associate`` (``associate_depth``
+and the flat ``color_assoc``), H1b ``icp_rows`` (the 29 stacked sums of
+``_pp_normal_eqs`` and ``color_rows_fixed``), H1c ``icp_solve``
+(``solve_gn``, ``SE3.exp`` and ``_min_eig_normalized``) and the fused step
+``icp_rows_solve`` (H1b then H1c), then ``track`` through them in every
+mode and with either kind of reducer.  The CUDA kernels behind the entry
+points run on the card only (``chip_smoke.py`` phase 2 holds them against
+these plain versions); here the C signatures are held against their
+ctypes bindings, and the kernels' grids against the wrapper's
+constants."""
 import ctypes
 import re
 
@@ -14,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from vulcan_tpu.core.frame import FrameMaps as JFrameMaps
 from vulcan_tpu.core.se3 import SE3 as JSE3
@@ -194,6 +197,118 @@ def test_solve_plain_matches_reference(case):
         assert det[14] == 0.0 and det[15] == 0.0
 
 
+def _reference_step(geo, pho, pose_j, geometric, detect):
+    """The reference's GN step (or level scores) on its own stacked sums:
+    ``solve_gn`` of Hg + Hc, the ``c >= 6`` gate and ``SE3.exp(delta) @
+    pose``, or ``_min_eig_normalized`` of the summed and geometric H."""
+    (Hg, bg, eg, cg), (Hc, bc, ec, cc) = geo, pho
+    H = jnp.asarray(Hg) + jnp.asarray(Hc)
+    if detect:
+        deg = float(jicp._min_eig_normalized(H))
+        return deg, float(jicp._min_eig_normalized(jnp.asarray(Hg))) if geometric else 1.0
+    e, c = (eg, cg) if geometric else (ec, cc)
+    delta = jicp.solve_gn(H, jnp.asarray(bg) + jnp.asarray(bc), CFG_J.icp_damping)
+    return JSE3.exp(jnp.where(c >= 6.0, delta, 0.0)) @ pose_j, float(e), float(c)
+
+
+@pytest.mark.parametrize("detect", [False, True], ids=["step", "scores"])
+@pytest.mark.parametrize("mode", ["combined", "color"])
+def test_rows_solve_plain_matches_reference(mode, detect):
+    """The fused step's plain path (``icp_rows_solve`` on CPU tensors) at
+    every level, from the reference's own correspondences and samples,
+    against the reference's ``_fused_normal_eqs`` of ``_pp_normal_eqs``
+    (the detector's rows for the scores) and of ``color_rows_fixed``, then
+    ``solve_gn``, the ``c >= 6`` gate and ``SE3.exp`` (a step) or
+    ``_min_eig_normalized`` of the summed and the geometric matrix (the
+    scores): its sums as ``_assert_sums``, its pose and scores within 1e-4
+    relative, as test_solve_plain_matches_reference; and equal to
+    ``_solve_plain(_rows_plain(...))`` bit for bit."""
+    geometric = mode != "color"
+    pose_j = photo_track_inputs()["poses"][AT["init"]]
+    pose_v = ticp._pose_vector(se3_t(pose_j))
+    for level in range(3):
+        live_j, mj, lv = _level(level)
+        vj, nj, okj = jicp.associate_depth(live_j, mj, pose_j, CFG_J)
+        sj = jicp.color_assoc(live_j, mj, jicp.intensity_grads(mj.intensity), pose_j,
+                              CFG_J)
+        corr = (t(vj), t(nj), t(okj)) if geometric else None
+        samples = tuple(t(x) for x in sj)
+        sums, got = ticp.icp_rows_solve(lv, pose_v, corr, samples, CFG_T, geometric, True,
+                                        detect)
+        plain = ticp._rows_plain(lv, pose_v, corr, samples, CFG_T, geometric, True, detect)
+        assert torch.equal(sums, plain)
+        assert torch.equal(got, ticp._solve_plain(plain, pose_v, CFG_T.icp_damping,
+                                                  geometric, True, detect))
+        zero = (np.zeros((6, 6)), np.zeros(6), 0.0, 0.0)
+        geo = (jicp._pp_normal_eqs(live_j, vj, nj, okj, pose_j, CFG_J,
+                                   live_normals=detect) if geometric else zero)
+        pho = jicp._fused_normal_eqs(*jicp.color_rows_fixed(live_j, sj, mj, pose_j, CFG_J))
+        if geometric:
+            _assert_sums(sums[0], _vec(*geo))
+        else:
+            assert not sums[0].any()
+        _assert_sums(sums[1], _vec(*pho))
+        got = got.numpy()
+        want = _reference_step(geo, pho, pose_j, geometric, detect)
+        if detect:
+            np.testing.assert_allclose(got[14:], want, rtol=1e-4)
+            np.testing.assert_array_equal(got[:14], pose_v.numpy()[:14])
+            continue
+        new, e, c = want
+        np.testing.assert_allclose(got[:9], np.asarray(new.rotation).ravel(), rtol=1e-4,
+                                   atol=1e-6)
+        np.testing.assert_allclose(got[9:12], np.asarray(new.translation), rtol=1e-4,
+                                   atol=1e-6)
+        np.testing.assert_allclose(got[12], e / max(c, 1.0), rtol=1e-4)
+        np.testing.assert_allclose(got[13], c, rtol=1e-4)
+
+
+class _PassThrough(ticp.Reducer):
+    """A reducer with nothing to add, counting its calls: ``track`` must
+    then take the rows, the reducer and the solve, not the fused step."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self, sums):
+        self.calls += 1
+        return sums
+
+
+@pytest.mark.parametrize("mode", ["depth", "combined"])
+def test_track_local_and_other_reducer_agree(mode, monkeypatch):
+    """``track`` with ``LOCAL`` runs every GN step and level score through
+    the fused ``icp_rows_solve`` and never through ``icp_rows`` /
+    ``icp_solve``; with another reducer (one that adds nothing) it runs
+    each through ``icp_rows``, the reducer, then ``icp_solve``, calling the
+    reducer once a GN step and once a level score; the two give the same
+    track bit for bit."""
+    calls = dict.fromkeys(("icp_rows", "icp_solve", "icp_rows_solve"), 0)
+    for name in calls:
+        def counted(*args, _name=name, _fn=getattr(ticp, name), **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(ticp, name, counted)
+    inp = photo_track_inputs()
+    init = se3_t(inp["poses"][2])
+    rounds = [max(1, min(a, i)) for a, i in zip(CFG_T.icp_assoc, CFG_T.icp_iters)]
+    steps = sum(r * -(-i // r) for r, i in zip(rounds, CFG_T.icp_iters))
+    steps += CFG_T.pyramid_levels
+
+    local = ticp.track(inp["live_t"], inp["mt"], init, CFG_T, mode)
+    assert calls == {"icp_rows": 0, "icp_solve": 0, "icp_rows_solve": steps}
+    calls.update(dict.fromkeys(calls, 0))
+    other = _PassThrough()
+    got = ticp.track(inp["live_t"], inp["mt"], init, CFG_T, mode, reduce=other)
+    assert calls == {"icp_rows": steps, "icp_solve": steps, "icp_rows_solve": 0}
+    assert other.calls == steps
+    for name in ("error", "inliers", "valid", "level_error", "level_inliers",
+                 "level_degen", "min_degen", "geo_degen"):
+        assert torch.equal(getattr(got, name), getattr(local, name)), name
+    assert torch.equal(got.pose.rotation, local.pose.rotation)
+    assert torch.equal(got.pose.translation, local.pose.translation)
+
+
 @pytest.mark.parametrize("mode", ["depth", "color", "combined", "light"])
 def test_track_through_entry_points_matches_reference(mode, monkeypatch):
     """``track`` in each mode runs every association round, GN step and
@@ -252,12 +367,40 @@ def test_rows_grid_is_a_function_of_the_pixel_count():
     assert "clusterDim.x = kRowsCluster;" in text
 
 
+def test_associate_grid_fills_the_card_at_the_finest_level():
+    """H1a takes ICP_ASSOC_PIXELS pixels a thread in blocks of
+    ICP_ASSOC_THREADS (the source's constants, and its launch's grid), so
+    the finest level of a 480x640 frame (240x320 at stride 2) makes more
+    blocks than the H100's 132 SMs, and every pixel has one thread."""
+    text = (cuda_kernels.CSRC / "icp.cu").read_text()
+    for name, value in (("kAssocThreads", cuda_kernels.ICP_ASSOC_THREADS),
+                        ("kAssocPixels", cuda_kernels.ICP_ASSOC_PIXELS),
+                        ("kSolveThreads", cuda_kernels.ICP_SOLVE_THREADS)):
+        assert re.search(rf"constexpr int {name} = {value};", text), name
+    assert "constexpr int kAssocBlockPixels = kAssocThreads * kAssocPixels;" in text
+    assert "cfg.gridDim = dim3((a.n + kAssocBlockPixels - 1) / kAssocBlockPixels);" in text
+    per_block = cuda_kernels.ICP_ASSOC_THREADS * cuda_kernels.ICP_ASSOC_PIXELS
+    assert -(-240 * 320 // per_block) == 150 >= 132
+    # Thread t of block b takes pixels b * per_block + t + p * threads: every
+    # pixel of a block once.
+    threads = cuda_kernels.ICP_ASSOC_THREADS
+    taken = sorted(t + p * threads for t in range(threads)
+                   for p in range(cuda_kernels.ICP_ASSOC_PIXELS))
+    assert taken == list(range(per_block))
+    assert "const int base = blockIdx.x * kAssocBlockPixels + threadIdx.x;" in text
+    assert "base + p * kAssocThreads" in text
+    # Two warps for H1c: a level's two scores at once.
+    assert cuda_kernels.ICP_SOLVE_THREADS == 64
+
+
 def test_kernel_signatures_match_the_c_entry_points():
     """Every ctypes binding has the C entry point's parameters, in order
     (a pointer as c_void_p, int, float): a wrong count or kind would pass
     garbage to the card, and nothing here compiles the sources."""
     text = "".join(p.read_text() for p in sorted(cuda_kernels.CSRC.glob("*.cu")))
     kinds = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
+    assert {"vulcan_icp_associate", "vulcan_icp_rows", "vulcan_icp_solve",
+            "vulcan_icp_rows_solve"} <= set(cuda_kernels._SIGNATURES)
     for name, argtypes in cuda_kernels._SIGNATURES.items():
         m = re.search(rf'extern "C" int {name}\((.*?)\)\s*\{{', text, re.S)
         assert m, name

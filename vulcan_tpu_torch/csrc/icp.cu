@@ -1,5 +1,5 @@
 // H1a-H1c: the Gauss-Newton loop of the frame-to-model track
-// (ops/icp.py track) as three kernels, for Hopper (sm_90a).
+// (ops/icp.py track) as hand kernels, for Hopper (sm_90a).
 //
 // Replaces the XLA code of the reference's track loop
 // (vulcan_tpu/ops/icp.py track, :993, its inner lax.fori_loop :1170), not a
@@ -11,7 +11,11 @@
 //                      sums of each term, once a GN step and once a level
 //                      with the live normals (the degeneracy detector);
 //   H1c icp_solve      solve_gn (:983), the c >= 6 gate, SE3.exp(delta) @
-//                      pose, and _min_eig_normalized (:931).
+//                      pose, and _min_eig_normalized (:931);
+//   icp_rows_solve     H1b and H1c in one launch (gn_step_kernel): the
+//                      cluster's rank 0 solves the sums it has just added.
+//                      The track takes it where its reducer is local; the
+//                      sharded track keeps H1b, its reducer, then H1c.
 // ops/icp.py keeps the plain PyTorch versions (_associate_plain,
 // _rows_plain, _solve_plain); the CPU takes them, the card these kernels.
 //
@@ -35,9 +39,20 @@
 // 1.1-1.8 us at 3.35 TB/s, for ~150-300 f32 operations a pixel (~0.2-0.3
 // us at 67 TFLOP/s).  H1a moves ~70 B a pixel (the gathers hit a model map
 // of 1.2-2.0 MB).  Each is about one launch floor (1.74 us) of work: a
-// frame's 70 launches are bound by launch latency and the host, which is
-// why they replace ~9000 PyTorch operations a frame.  H1c is one block of
-// serial 6x6 algebra: latency.
+// frame's launches are bound by launch latency, which is why they replace
+// ~9000 PyTorch operations a frame.  H1c is a chain of dependent 6x6
+// algebra on 58 numbers: latency.
+//
+// H1a's shape.  Two pixels a thread, 256 threads a block, so the finest
+// level's 76800 pixels make 150 blocks, more than the card's 132 SMs.  A
+// thread issues both pixels' live loads, then both pixels' model gathers,
+// before it decodes either, so two dependent chains are in flight a
+// thread.  It is launched as a programmatic dependent launch: the live
+// vertices and depth, which no kernel ahead of it in the track writes,
+// are loaded before griddepcontrol.wait, and the pose (written by the
+// solve just ahead of it) after; one warp stages the 27 pose and model
+// floats in shared memory for the block.  So its launch and its first
+// loads overlap the tail of the kernel that wrote the pose.
 //
 // H1b's shape.  One launch of one thread-block cluster of 16 CTAs of 512
 // threads, one CTA an SM: each CTA sums its pixels and stores its sums into
@@ -50,6 +65,23 @@
 // (no FMA contraction); clusters of 8 over a whole wave, their partial
 // sums added by the last cluster, were slower at the depth-mode levels
 // (PERF.md).
+//
+// H1c's shape.  The algebra runs on a warp: lane i < 6 holds row i of the
+// matrix, and the Cholesky factor is formed a column at a time, the pivot
+// and L[j][k] going to the other lanes by shuffle.  Each lane sums its
+// terms in the serial code's k order, so the factor is the serial code's
+// where the compiler contracts the same products.  The triangular solves
+// then run in every lane on the factor gathered from the rows: a step of
+// a substitution is one multiply-add and one division, and a shuffle in
+// that chain would lengthen it.  The division by the diagonal goes
+// through its reciprocal, formed once a factor, and two exact-residual
+// corrections that round as a division does (div_by): a level score's
+// 8-step iteration is 108 of them in a row.  The pose update computes its 12 outputs
+// on 12 lanes.  A level's two scores (the summed matrix and the
+// geometric one) run on two warps at once.  gn_step_kernel runs this on
+// its rank 0 after the cluster's sums, so a GN step is one launch and its
+// sums never leave the SM; solve_kernel runs it alone (the sharded track,
+// whose reducer adds the ranks' sums between the two).
 //
 // Determinism.  H1b sums a thread's pixels in order, a warp by a fixed
 // butterfly, the warps of a CTA in order and the CTAs in rank order, with
@@ -68,7 +100,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;       // H1a's block
+constexpr int kAssocThreads = 256;  // H1a's block
+constexpr int kAssocPixels = 2;     // H1a's pixels a thread
+constexpr int kAssocBlockPixels = kAssocThreads * kAssocPixels;
+constexpr int kSolveThreads = 64;   // H1c's warps: a level score each
 constexpr int kRowsThreads = 512;   // H1b's CTA: one a streaming multiprocessor
 constexpr int kRowsWarps = kRowsThreads / 32;
 constexpr int kRowsCluster = 16;    // H1b's grid: one cluster of 16 CTAs
@@ -78,6 +113,20 @@ constexpr float kVertexStep = 1.0f / 65536.0f;        // ops/icp.py _VERTEX_SCAL
 constexpr float kNormalStep = (float)(1.0 / 511.5);   // _unpack_normals
 constexpr float kPhotoStep = (float)(1.0 / 65535.0);  // _PHOTO_SCALE
 constexpr float kCoordClamp = 1e7f;                   // ops/dense.py COORD_CLAMP
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// Programmatic dependent launch (sm_90).  A kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start before the
+// kernel ahead of it in the stream has finished; wait_for_prior_grid()
+// returns once that kernel has finished and its writes are visible (at
+// once for a kernel launched without the attribute).  allow_dependents()
+// lets such a dependent start launching now rather than at this grid's end.
+__device__ __forceinline__ void wait_for_prior_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+__device__ __forceinline__ void allow_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -160,74 +209,134 @@ struct AssocArgs {
   unsigned int* launches;     // the launch counter
 };
 
+// H1a.  Thread t of block b takes the pixels b * kAssocBlockPixels + t +
+// p * kAssocThreads, p < kAssocPixels (each p a coalesced row of the block).
 template <bool kGeo, bool kPhoto>
-__global__ void __launch_bounds__(kThreads) associate_kernel(AssocArgs a) {
-  count_launch(a.launches);
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= a.n) return;
+__global__ void __launch_bounds__(kAssocThreads) associate_kernel(AssocArgs a) {
+  __shared__ float staged[27];   // the pose's R and t (12), the model side (15)
+  const int base = blockIdx.x * kAssocBlockPixels + threadIdx.x;
+  // The live maps, which the kernel ahead does not write: load them before
+  // waiting for it (the last block's spare threads load a valid pixel and
+  // store nothing).
+  float x[kAssocPixels], y[kAssocPixels], z[kAssocPixels], dep[kAssocPixels];
+#pragma unroll
+  for (int p = 0; p < kAssocPixels; ++p) {
+    const int i = min(base + p * kAssocThreads, a.n - 1);
+    x[p] = __ldg(a.vertices + 3 * i);
+    y[p] = __ldg(a.vertices + 3 * i + 1);
+    z[p] = __ldg(a.vertices + 3 * i + 2);
+    dep[p] = kGeo ? __ldg(a.depth + i) : 0.0f;
+  }
+  wait_for_prior_grid();
+  count_launch(a.launches);   // after the wait: a reset of the counter may be just ahead
+  // The pose (the kernel ahead's output) through L2, not the read-only path.
+  if (threadIdx.x < 27)
+    staged[threadIdx.x] = threadIdx.x < 12 ? __ldcg(a.pose + threadIdx.x)
+                                           : __ldcg(a.model + threadIdx.x - 12);
+  __syncthreads();
   float pose[12], model[15];
 #pragma unroll
-  for (int k = 0; k < 12; ++k) pose[k] = __ldg(a.pose + k);
+  for (int k = 0; k < 12; ++k) pose[k] = staged[k];
 #pragma unroll
-  for (int k = 0; k < 15; ++k) model[k] = __ldg(a.model + k);
-  const float x = __ldg(a.vertices + 3 * i), y = __ldg(a.vertices + 3 * i + 1),
-              z = __ldg(a.vertices + 3 * i + 2);
-  float wx, wy, wz, mx, my, mz, u, v;
-  affine(pose, x, y, z, wx, wy, wz);
-  affine(model, wx, wy, wz, mx, my, mz);
-  project(a.cam, mx, my, mz, u, v);
-  const bool front = mz > 0.0f;
+  for (int k = 0; k < 15; ++k) model[k] = staged[12 + k];
 
-  if (kGeo) {
-    // associate_depth: the nearest model pixel, round half to even.
-    const int ui = static_cast<int>(rintf(clamp_coord(u)));
-    const int vi = static_cast<int>(rintf(clamp_coord(v)));
-    const bool inb = ui >= 0 && ui < a.wm && vi >= 0 && vi < a.hm;
-    const int idx = min(max(vi, 0), a.hm - 1) * a.wm + min(max(ui, 0), a.wm - 1);
-    const int p1 = __ldg(a.vpack1 + idx), p2 = __ldg(a.vpack2 + idx);
-    const int qx = p1 >> 11;
-    const int qy = sext21(((p1 & 0x7FF) << 10) | ((p2 >> 22) & 0x3FF));
-    const int qz = sext21((p2 >> 1) & 0x1FFFFF);
-    a.v_m[3 * i] = add(mul(static_cast<float>(qx), kVertexStep), model[12]);
-    a.v_m[3 * i + 1] = add(mul(static_cast<float>(qy), kVertexStep), model[13]);
-    a.v_m[3 * i + 2] = add(mul(static_cast<float>(qz), kVertexStep), model[14]);
-    const int np = __ldg(a.npack + idx);
-    a.n_m[3 * i] = sub(mul(static_cast<float>((np >> 20) & 0x3FF), kNormalStep), 1.0f);
-    a.n_m[3 * i + 1] = sub(mul(static_cast<float>((np >> 10) & 0x3FF), kNormalStep), 1.0f);
-    a.n_m[3 * i + 2] = sub(mul(static_cast<float>(np & 0x3FF), kNormalStep), 1.0f);
-    const float d = __ldg(a.depth + i);
-    a.ok[i] = d > a.s.depth_min && d < a.s.depth_max && inb && (np >> 30) > 0 && front;
+  float u[kAssocPixels], v[kAssocPixels], mz[kAssocPixels];
+#pragma unroll
+  for (int p = 0; p < kAssocPixels; ++p) {
+    float wx, wy, wz, mx, my;
+    affine(pose, x[p], y[p], z[p], wx, wy, wz);
+    affine(model, wx, wy, wz, mx, my, mz[p]);
+    project(a.cam, mx, my, mz[p], u[p], v[p]);
   }
 
-  if (kPhoto) {
-    // color_assoc: the 2x2 footprint of the two packed words, their
-    // 16-bit halves blended, validity from the tap nearest the warp point.
-    const float u0f = floorf(u), v0f = floorf(v);
-    const int u0 = static_cast<int>(clamp_coord(u0f));
-    const int v0 = static_cast<int>(clamp_coord(v0f));
-    const bool inb = u0 >= 0 && u0 + 1 < a.wm && v0 >= 0 && v0 + 1 < a.hm;
-    const int uc = min(max(u0, 0), a.wm - 2), vc = min(max(v0, 0), a.hm - 2);
-    const float fu = sub(u, u0f), fv = sub(v, v0f);
-    const int i00 = vc * a.wm + uc, i10 = i00 + a.wm;
-    const int a00 = __ldg(a.wa + i00), a01 = __ldg(a.wa + i00 + 1);
-    const int a10 = __ldg(a.wa + i10), a11 = __ldg(a.wa + i10 + 1);
-    const int b00 = __ldg(a.wb + i00), b01 = __ldg(a.wb + i00 + 1);
-    const int b10 = __ldg(a.wb + i10), b11 = __ldg(a.wb + i10 + 1);
-    const float gu_ = sub(1.0f, fu), gv_ = sub(1.0f, fv);
-    const float w00 = mul(gu_, gv_), w01 = mul(fu, gv_);
-    const float w10 = mul(gu_, fv), w11 = mul(fu, fv);
-    auto blend = [&](int x00, int x01, int x10, int x11, int shift, float lo) {
-      return add(add(add(mul(w00, decode16(x00, shift, lo)), mul(w01, decode16(x01, shift, lo))),
-                     mul(w10, decode16(x10, shift, lo))),
-                 mul(w11, decode16(x11, shift, lo)));
-    };
-    a.samples[i] = blend(a00, a01, a10, a11, 16, 0.0f);
-    a.samples[a.n + i] = blend(a00, a01, a10, a11, 0, -0.5f);
-    a.samples[2 * a.n + i] = blend(b00, b01, b10, b11, 16, -0.5f);
-    a.samples[3 * a.n + i] = u;
-    a.samples[4 * a.n + i] = v;
-    const int vb = fv >= 0.5f ? (fu >= 0.5f ? b11 : b10) : (fu >= 0.5f ? b01 : b00);
-    a.ok_c[i] = inb && (vb & 1) > 0 && front;
+  // Every pixel's gathers issued before any decode.
+  int idx[kAssocPixels], p1[kAssocPixels], p2[kAssocPixels], np[kAssocPixels];
+  bool inb_g[kAssocPixels];
+  int i00[kAssocPixels];
+  float fu[kAssocPixels], fv[kAssocPixels];
+  bool inb_c[kAssocPixels];
+  int wa[kAssocPixels][4], wb[kAssocPixels][4];
+#pragma unroll
+  for (int p = 0; p < kAssocPixels; ++p) {
+    if (kGeo) {
+      // associate_depth: the nearest model pixel, round half to even.
+      const int ui = static_cast<int>(rintf(clamp_coord(u[p])));
+      const int vi = static_cast<int>(rintf(clamp_coord(v[p])));
+      inb_g[p] = ui >= 0 && ui < a.wm && vi >= 0 && vi < a.hm;
+      idx[p] = min(max(vi, 0), a.hm - 1) * a.wm + min(max(ui, 0), a.wm - 1);
+    }
+    if (kPhoto) {
+      // color_assoc: the 2x2 footprint of the two packed words.
+      const float u0f = floorf(u[p]), v0f = floorf(v[p]);
+      const int u0 = static_cast<int>(clamp_coord(u0f));
+      const int v0 = static_cast<int>(clamp_coord(v0f));
+      inb_c[p] = u0 >= 0 && u0 + 1 < a.wm && v0 >= 0 && v0 + 1 < a.hm;
+      const int uc = min(max(u0, 0), a.wm - 2), vc = min(max(v0, 0), a.hm - 2);
+      fu[p] = sub(u[p], u0f);
+      fv[p] = sub(v[p], v0f);
+      i00[p] = vc * a.wm + uc;
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < kAssocPixels; ++p) {
+    if (kGeo) {
+      p1[p] = __ldg(a.vpack1 + idx[p]);
+      p2[p] = __ldg(a.vpack2 + idx[p]);
+      np[p] = __ldg(a.npack + idx[p]);
+    }
+    if (kPhoto) {
+      const int i10 = i00[p] + a.wm;
+      wa[p][0] = __ldg(a.wa + i00[p]);
+      wa[p][1] = __ldg(a.wa + i00[p] + 1);
+      wa[p][2] = __ldg(a.wa + i10);
+      wa[p][3] = __ldg(a.wa + i10 + 1);
+      wb[p][0] = __ldg(a.wb + i00[p]);
+      wb[p][1] = __ldg(a.wb + i00[p] + 1);
+      wb[p][2] = __ldg(a.wb + i10);
+      wb[p][3] = __ldg(a.wb + i10 + 1);
+    }
+  }
+
+#pragma unroll
+  for (int p = 0; p < kAssocPixels; ++p) {
+    const int i = base + p * kAssocThreads;
+    if (i >= a.n) continue;
+    const bool front = mz[p] > 0.0f;
+    if (kGeo) {
+      const int qx = p1[p] >> 11;
+      const int qy = sext21(((p1[p] & 0x7FF) << 10) | ((p2[p] >> 22) & 0x3FF));
+      const int qz = sext21((p2[p] >> 1) & 0x1FFFFF);
+      a.v_m[3 * i] = add(mul(static_cast<float>(qx), kVertexStep), model[12]);
+      a.v_m[3 * i + 1] = add(mul(static_cast<float>(qy), kVertexStep), model[13]);
+      a.v_m[3 * i + 2] = add(mul(static_cast<float>(qz), kVertexStep), model[14]);
+      const int n = np[p];
+      a.n_m[3 * i] = sub(mul(static_cast<float>((n >> 20) & 0x3FF), kNormalStep), 1.0f);
+      a.n_m[3 * i + 1] = sub(mul(static_cast<float>((n >> 10) & 0x3FF), kNormalStep), 1.0f);
+      a.n_m[3 * i + 2] = sub(mul(static_cast<float>(n & 0x3FF), kNormalStep), 1.0f);
+      a.ok[i] = dep[p] > a.s.depth_min && dep[p] < a.s.depth_max && inb_g[p] &&
+                (n >> 30) > 0 && front;
+    }
+    if (kPhoto) {
+      // Their 16-bit halves blended, validity from the tap nearest the
+      // warp point.
+      const float gu_ = sub(1.0f, fu[p]), gv_ = sub(1.0f, fv[p]);
+      const float w00 = mul(gu_, gv_), w01 = mul(fu[p], gv_);
+      const float w10 = mul(gu_, fv[p]), w11 = mul(fu[p], fv[p]);
+      auto blend = [&](const int* t, int shift, float lo) {
+        return add(add(add(mul(w00, decode16(t[0], shift, lo)),
+                           mul(w01, decode16(t[1], shift, lo))),
+                       mul(w10, decode16(t[2], shift, lo))),
+                   mul(w11, decode16(t[3], shift, lo)));
+      };
+      a.samples[i] = blend(wa[p], 16, 0.0f);
+      a.samples[a.n + i] = blend(wa[p], 0, -0.5f);
+      a.samples[2 * a.n + i] = blend(wb[p], 16, -0.5f);
+      a.samples[3 * a.n + i] = u[p];
+      a.samples[4 * a.n + i] = v[p];
+      const int vb = fv[p] >= 0.5f ? (fu[p] >= 0.5f ? wb[p][3] : wb[p][2])
+                                   : (fu[p] >= 0.5f ? wb[p][1] : wb[p][0]);
+      a.ok_c[i] = inb_c[p] && (vb & 1) > 0 && front;
+    }
   }
 }
 
@@ -252,6 +361,11 @@ struct RowsArgs {
   Scalars s;
   float* out;                 // (2, kSums)
   unsigned int* launches;     // the launch counter
+  // gn_step_kernel's solve: the damping, whether it is the level's scores,
+  // and where the next (16,) pose vector goes.
+  float damping;
+  int detect;
+  float* pose_out;
 };
 
 // The 29 stacked products of one row in _sum_positions' layout: row a's
@@ -360,8 +474,12 @@ __device__ __forceinline__ void add_row(const RowsArgs& a, int i, const float* p
   }
 }
 
-template <bool kGeo, bool kPhoto, bool kLiveNormals>
-__global__ void __launch_bounds__(kRowsThreads, 1) rows_kernel(RowsArgs a) {
+__device__ void gn_solve(const float* sums, const float* pose, float damping, bool geometric,
+                         bool photo, bool detect, float* out);
+
+// H1b's pass over the pixels; with kSolve also H1c's on rank 0's sums.
+template <bool kGeo, bool kPhoto, bool kLiveNormals, bool kSolve>
+__device__ __forceinline__ void rows_pass(const RowsArgs& a) {
   __shared__ float warp_sums[kRowsWarps][kSlots];
   __shared__ float cluster_sums[kRowsCluster][kSlots];   // rank 0's: every CTA's sums
   float acc[kSlots];
@@ -418,16 +536,39 @@ __global__ void __launch_bounds__(kRowsThreads, 1) rows_kernel(RowsArgs a) {
     cluster.map_shared_rank(&cluster_sums[0][0], 0)[rank * kSlots + k] = v;
   }
   cluster.sync();
-  if (rank == 0 && threadIdx.x < kSlots) {
+  if (rank != 0) return;
+  __shared__ float sums[kSlots], pose_in[16];   // the solve's inputs
+  if (threadIdx.x < kSlots) {
     const int k = threadIdx.x;
     float v = 0.0f;
 #pragma unroll
     for (int r = 0; r < kRowsCluster; ++r) v += cluster_sums[r][k];
     a.out[k] = v;
+    sums[k] = v;
+  } else if (kSolve && threadIdx.x < kSlots + 16) {
+    pose_in[threadIdx.x - kSlots] = a.pose[threadIdx.x - kSlots];
   }
+  if (!kSolve) return;
+  __syncthreads();
+  if (threadIdx.x < kSolveThreads)
+    gn_solve(sums, pose_in, a.damping, kGeo, kPhoto, a.detect != 0, a.pose_out);
 }
 
-// --- H1c: 6x6 algebra in one block ---------------------------------------
+template <bool kGeo, bool kPhoto, bool kLiveNormals>
+__global__ void __launch_bounds__(kRowsThreads, 1) rows_kernel(RowsArgs a) {
+  rows_pass<kGeo, kPhoto, kLiveNormals, false>(a);
+}
+
+// icp_rows_solve: H1b, then H1c on rank 0.  The next kernel (H1a, a
+// programmatic dependent launch) may start launching at once: it waits for
+// this grid before it reads the pose.
+template <bool kGeo, bool kPhoto, bool kLiveNormals>
+__global__ void __launch_bounds__(kRowsThreads, 1) gn_step_kernel(RowsArgs a) {
+  allow_dependents();
+  rows_pass<kGeo, kPhoto, kLiveNormals, true>(a);
+}
+
+// --- H1c: 6x6 algebra on a warp -----------------------------------------
 
 // Position of H[r][c] (r <= c) and of b[r] in the stacked sums.
 __device__ __forceinline__ int row_start(int r) { return 7 * r - r * (r - 1) / 2; }
@@ -436,68 +577,136 @@ __device__ __forceinline__ int h_pos(int r, int c) {
 }
 __device__ __forceinline__ int b_pos(int r) { return row_start(r) + 6 - r; }
 
-// Lower Cholesky factor of A in place; false when a pivot is not positive
-// (or not a number), as LAPACK's potrf reports it.
-__device__ bool cholesky6(float (&A)[6][6]) {
+// The lower Cholesky factor of a 6x6 matrix held by rows: lane i (i < 6;
+// the lanes above pass i = 5 and hold a copy of row 5) holds row[0..5] of
+// row i and ends with L[i][0..i] in row[0..i].  Column j: every lane sums
+// row[j] - sum_k row[k] L[j][k] in k order, L[j][k] shuffled from lane j;
+// lane j's sum is the pivot, which every lane takes from it; lane j keeps
+// its root, the lanes below divide by it.  The serial code's arithmetic
+// in its order.  False on every lane when a pivot is not positive (or not
+// a number), as LAPACK's potrf reports it; the factor is then undefined.
+__device__ __forceinline__ bool cholesky6_warp(float (&row)[6], int i) {
+  bool ok = true;
+#pragma unroll
   for (int j = 0; j < 6; ++j) {
-    float s = A[j][j];
-    for (int k = 0; k < j; ++k) s -= A[j][k] * A[j][k];
-    if (!(s > 0.0f)) return false;
-    const float d = sqrtf(s);
-    A[j][j] = d;
-    for (int i = j + 1; i < 6; ++i) {
-      float t = A[i][j];
-      for (int k = 0; k < j; ++k) t -= A[i][k] * A[j][k];
-      A[i][j] = t / d;
+    float s = row[j];
+#pragma unroll
+    for (int k = 0; k < j; ++k) s -= row[k] * __shfl_sync(kFullWarp, row[k], j);
+    const float pivot = __shfl_sync(kFullWarp, s, j);
+    ok = ok && pivot > 0.0f;
+    const float d = sqrtf(pivot);
+    if (i == j) {
+      row[j] = d;
+    } else if (i > j) {
+      row[j] = s / d;
     }
   }
-  return true;
+  return ok;
 }
 
-// Solve L L^T x = b with the factor from cholesky6.
-__device__ void cho_solve6(const float (&L)[6][6], const float* b, float* x) {
+// a / b rounded to nearest from inv = RN(1 / b): q = a inv, then two
+// corrections q + (a - b q) inv, each residual exact by FMA.  The first
+// brings q within an ulp of a / b, and the second then rounds it
+// correctly (Markstein's theorem), so the result is a / b's (div.rn)
+// wherever the quotient and the residuals are normal numbers; the chain
+// is five dependent FMAs where a division's is a reciprocal and its
+// refinement too.
+__device__ __forceinline__ float div_by(float a, float b, float inv) {
+  float q = __fmul_rn(a, inv);
+  float r = __fmaf_rn(-b, q, a);
+  q = __fmaf_rn(r, inv, q);
+  r = __fmaf_rn(-b, q, a);
+  return __fmaf_rn(r, inv, q);
+}
+
+// The factor and its diagonal's reciprocals, for cho_solve6.
+struct Factor {
+  float L[6][6];    // lower triangle
+  float inv[6];     // RN(1 / L[i][i])
+};
+
+// Solve L L^T x = b with the factor, in one lane: the serial substitution,
+// each division by the diagonal through its reciprocal (div_by).
+__device__ __forceinline__ void cho_solve6(const Factor& f, const float* b, float* x) {
   float y[6];
+#pragma unroll
   for (int i = 0; i < 6; ++i) {
     float s = b[i];
-    for (int k = 0; k < i; ++k) s -= L[i][k] * y[k];
-    y[i] = s / L[i][i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) s -= f.L[i][k] * y[k];
+    y[i] = div_by(s, f.L[i][i], f.inv[i]);
   }
+#pragma unroll
   for (int i = 5; i >= 0; --i) {
     float s = y[i];
-    for (int k = i + 1; k < 6; ++k) s -= L[k][i] * x[k];
-    x[i] = s / L[i][i];
+#pragma unroll
+    for (int k = i + 1; k < 6; ++k) s -= f.L[k][i] * x[k];
+    x[i] = div_by(s, f.L[i][i], f.inv[i]);
   }
 }
 
-// _min_eig_normalized: the smallest eigenvalue of D^-1/2 H D^-1/2 by eight
-// steps of inverse power iteration with a 1e-6 ridge; 0 when the factor
-// fails or the estimate is not finite.
-__device__ float min_eig_normalized(const float (&H)[6][6]) {
-  float d[6], A[6][6];
-  for (int i = 0; i < 6; ++i) d[i] = sqrtf(fmaxf(H[i][i], 1e-20f));
-  for (int i = 0; i < 6; ++i)
-    for (int j = 0; j < 6; ++j) A[i][j] = H[i][j] / (d[i] * d[j]);
+// L (lower triangle) and its diagonal's reciprocals in every lane, from
+// the rows of cholesky6_warp.
+__device__ __forceinline__ void gather_factor(const float (&row)[6], Factor& f) {
+#pragma unroll
+  for (int r = 0; r < 6; ++r) {
+#pragma unroll
+    for (int k = 0; k <= r; ++k) f.L[r][k] = __shfl_sync(kFullWarp, row[k], r);
+    f.inv[r] = __frcp_rn(f.L[r][r]);
+  }
+}
+
+// _min_eig_normalized on a warp: the smallest eigenvalue of D^-1/2 H D^-1/2
+// by eight steps of inverse power iteration with a 1e-6 ridge; 0 when the
+// factor fails or the estimate is not finite.  H = G + C from the stacked
+// sums g and c (c null: H = G).  Lane i forms row i of the scaled matrix;
+// the iteration runs in every lane on the gathered factor.
+__device__ __forceinline__ float min_eig_warp(const float* g, const float* c, int lane) {
+  const int i = min(lane, 5);
+  float d[6], row[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const int pos = h_pos(k, k);
+    d[k] = sqrtf(fmaxf(c ? g[pos] + c[pos] : g[pos], 1e-20f));
+  }
+  float di = d[0];
+#pragma unroll
+  for (int k = 1; k < 6; ++k) di = i == k ? d[k] : di;
   const float ridge = 1e-6f;
-  for (int i = 0; i < 6; ++i) A[i][i] += ridge;
-  const bool ok = cholesky6(A);
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    const int pos = h_pos(i, j);
+    row[j] = (c ? g[pos] + c[pos] : g[pos]) / (di * d[j]);
+    if (j == i) row[j] += ridge;
+  }
+  const bool ok = cholesky6_warp(row, i);
+  Factor A;
+  gather_factor(row, A);
   float x[6], y[6];
-  for (int i = 0; i < 6; ++i) x[i] = (float)0.40824829046386296;  // 6 ** -0.5
+#pragma unroll
+  for (int k = 0; k < 6; ++k) x[k] = (float)0.40824829046386296;  // 6 ** -0.5
+#pragma unroll 1
   for (int it = 0; it < 8; ++it) {
     cho_solve6(A, x, y);
     float ss = 0.0f;
-    for (int i = 0; i < 6; ++i) ss += y[i] * y[i];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) ss += y[k] * y[k];
     const float inv = 1.0f / sqrtf(fmaxf(ss, 1e-38f));
-    for (int i = 0; i < 6; ++i) x[i] = y[i] * inv;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) x[k] = y[k] * inv;
   }
   cho_solve6(A, x, y);
   float inv_lam = 0.0f;
-  for (int i = 0; i < 6; ++i) inv_lam += x[i] * y[i];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) inv_lam += x[k] * y[k];
   const float lam = 1.0f / fmaxf(inv_lam, 1e-30f) - ridge;
   return ok && isfinite(lam) ? fmaxf(lam, 0.0f) : 0.0f;
 }
 
-// SE3.exp(xi) @ (R, t) of core/se3.py, with its small-angle series.
-__device__ void exp_compose(const float* xi, const float* pose, float* out) {
+// SE3.exp(xi) @ (R, t) of core/se3.py, with its small-angle series: lane l
+// < 12 writes out[l] (R row-major, then t).  Every lane forms R and V.
+__device__ __forceinline__ void exp_compose_warp(const float* xi, const float* pose,
+                                                 int lane, float* out) {
   const float w0 = xi[0], w1 = xi[1], w2 = xi[2];
   const float theta2 = w0 * w0 + w1 * w1 + w2 * w2;
   const float theta = sqrtf(theta2 + 1e-16f);
@@ -508,98 +717,124 @@ __device__ void exp_compose(const float* xi, const float* pose, float* out) {
   const float cc = series ? 1.0f / 6.0f - theta2 / 120.0f : (theta - s) / (theta2 * theta);
   const float K[3][3] = {{0.0f, -w2, w1}, {w2, 0.0f, -w0}, {-w1, w0, 0.0f}};
   float R[3][3], V[3][3];
+#pragma unroll
   for (int i = 0; i < 3; ++i)
+#pragma unroll
     for (int j = 0; j < 3; ++j) {
       float kk = 0.0f;
+#pragma unroll
       for (int k = 0; k < 3; ++k) kk += K[i][k] * K[k][j];
       const float eye = i == j ? 1.0f : 0.0f;
       R[i][j] = eye + a * K[i][j] + b * kk;
       V[i][j] = eye + b * K[i][j] + cc * kk;
     }
-  for (int i = 0; i < 3; ++i) {
-    for (int j = 0; j < 3; ++j) {
-      float r = 0.0f;
-      for (int k = 0; k < 3; ++k) r += R[i][k] * pose[3 * k + j];
-      out[3 * i + j] = r;
-    }
+  if (lane >= 12) return;
+  // This lane's row of R and V.
+  const int i = lane < 9 ? lane / 3 : lane - 9;
+  float Ri[3], Vi[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    Ri[k] = i == 0 ? R[0][k] : (i == 1 ? R[1][k] : R[2][k]);
+    Vi[k] = i == 0 ? V[0][k] : (i == 1 ? V[1][k] : V[2][k]);
+  }
+  if (lane < 9) {
+    const int j = lane - 3 * i;
+    float r = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) r += Ri[k] * pose[3 * k + j];
+    out[lane] = r;
+  } else {
     float t = 0.0f, te = 0.0f;
+#pragma unroll
     for (int k = 0; k < 3; ++k) {
-      t += R[i][k] * pose[9 + k];
-      te += V[i][k] * xi[3 + k];
+      t += Ri[k] * pose[9 + k];
+      te += Vi[k] * xi[3 + k];
     }
-    out[9 + i] = t + te;
+    out[lane] = t + te;
   }
 }
 
-// sums (2, 29): geometric, photometric (zeros where a term is absent).
-// Step: pose' = exp(solve_gn(Hg + Hc, bg + bc)) @ pose (a zero step under
-// 6 inliers or when the factor fails or the step is not finite), err =
-// e / max(c, 1), inliers = c, from the geometric term when there is one.
-// Detect: out[14] = the score of the summed matrix, out[15] the geometric
-// one (1 without a geometric term); the rest passes through.
-__global__ void __launch_bounds__(32) solve_kernel(const float* __restrict__ sums,
-                                                  const float* __restrict__ pose,
-                                                  float damping, int geometric, int photo,
-                                                  int detect, float* __restrict__ out,
-                                                  unsigned int* launches) {
-  count_launch(launches);
-  __shared__ float s[kSlots];
-  __shared__ float p[16];
-  for (int k = threadIdx.x; k < kSlots; k += 32) s[k] = sums[k];
-  if (threadIdx.x < 16) p[threadIdx.x] = pose[threadIdx.x];
-  __syncthreads();
-  const float* g = s;
-  const float* c = s + kSums;
-  float H[6][6];
-  for (int i = 0; i < 6; ++i)
-    for (int j = 0; j < 6; ++j) H[i][j] = g[h_pos(i, j)] + c[h_pos(i, j)];
-
+// H1c on the (2, 29) sums (geometric, photometric: zeros where a term is
+// absent) and the (16,) pose, both in shared memory, by the block's first
+// kSolveThreads threads (two warps).
+// Step (warp 0): pose' = exp(solve_gn(Hg + Hc, bg + bc)) @ pose (a zero
+// step under 6 inliers or when the factor fails or the step is not
+// finite), err = e / max(c, 1), inliers = c, from the geometric term when
+// there is one.
+// Detect: out[14] = the score of the summed matrix (warp 0), out[15] the
+// geometric one (warp 1; 1 without a geometric term); the rest passes
+// through.
+// Not inlined: the solve's registers stay out of gn_step_kernel's pixel
+// loop.
+__device__ __noinline__ void gn_solve(const float* sums, const float* pose, float damping,
+                                      bool geometric, bool photo, bool detect, float* out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* g = sums;
+  const float* c = sums + kSums;
   if (detect) {
-    if (threadIdx.x == 0) {
-      out[14] = min_eig_normalized(H);
-      for (int k = 0; k < 14; ++k) out[k] = p[k];
-    } else if (threadIdx.x == 1) {
-      float score = 1.0f;
-      if (geometric && photo) {
-        float Hg[6][6];
-        for (int i = 0; i < 6; ++i)
-          for (int j = 0; j < 6; ++j) Hg[i][j] = g[h_pos(i, j)];
-        score = min_eig_normalized(Hg);
-      } else if (geometric) {
-        score = min_eig_normalized(H);
-      }
-      out[15] = score;
+    float score = 1.0f;
+    if (warp == 0) {
+      score = min_eig_warp(g, c, lane);
+      if (lane < 14) out[lane] = pose[lane];
+    } else if (geometric) {
+      score = min_eig_warp(g, photo ? nullptr : c, lane);
     }
+    if (lane == 0) out[14 + warp] = score;
     return;
   }
-  if (threadIdx.x != 0) return;
+  if (warp != 0) return;
+  const int i = min(lane, 5);
+  float row[6], rhs[6], delta[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    const float h = g[h_pos(i, j)] + c[h_pos(i, j)];
+    row[j] = j == i ? (h + damping * fmaxf(h, 1e-12f)) + 1e-12f : h;
+    rhs[j] = -(g[b_pos(j)] + c[b_pos(j)]);
+  }
+  bool ok = cholesky6_warp(row, i);
   const float e = geometric ? g[27] : c[27];
   const float cnt = geometric ? g[28] : c[28];
-  float A[6][6], rhs[6], delta[6];
-  for (int i = 0; i < 6; ++i) {
-    for (int j = 0; j < 6; ++j) A[i][j] = H[i][j];
-    A[i][i] = (H[i][i] + damping * fmaxf(H[i][i], 1e-12f)) + 1e-12f;
-    rhs[i] = -(g[b_pos(i)] + c[b_pos(i)]);
-  }
-  bool ok = cholesky6(A);
   if (ok) {
-    cho_solve6(A, rhs, delta);
-    for (int i = 0; i < 6; ++i) ok = ok && isfinite(delta[i]);
+    Factor L;
+    gather_factor(row, L);
+    cho_solve6(L, rhs, delta);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) ok = ok && isfinite(delta[k]);
   }
-  if (!ok || !(cnt >= 6.0f))
-    for (int i = 0; i < 6; ++i) delta[i] = 0.0f;
-  exp_compose(delta, p, out);
-  out[12] = e / fmaxf(cnt, 1.0f);
-  out[13] = cnt;
-  out[14] = p[14];
-  out[15] = p[15];
+  if (!ok || !(cnt >= 6.0f)) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) delta[k] = 0.0f;
+  }
+  exp_compose_warp(delta, pose, lane, out);
+  if (lane == 12) out[12] = e / fmaxf(cnt, 1.0f);
+  if (lane == 13) out[13] = cnt;
+  if (lane == 14 || lane == 15) out[lane] = pose[lane];
 }
 
-// H1b's launch: one cluster of kRowsCluster CTAs, above the portable 8
-// (allowed once a kernel and device).
-template <bool kGeo, bool kPhoto, bool kLiveNormals>
+// H1c alone, for the sharded track (its reducer adds the ranks' sums
+// between H1b and this).
+__global__ void __launch_bounds__(kSolveThreads) solve_kernel(const float* __restrict__ sums,
+                                                             const float* __restrict__ pose,
+                                                             float damping, int geometric,
+                                                             int photo, int detect,
+                                                             float* __restrict__ out,
+                                                             unsigned int* launches) {
+  count_launch(launches);
+  allow_dependents();
+  __shared__ float s[kSlots];
+  __shared__ float p[16];
+  for (int k = threadIdx.x; k < kSlots; k += kSolveThreads) s[k] = sums[k];
+  if (threadIdx.x < 16) p[threadIdx.x] = pose[threadIdx.x];
+  __syncthreads();
+  gn_solve(s, p, damping, geometric != 0, photo != 0, detect != 0, out);
+}
+
+// H1b's launch (gn_step_kernel's with kSolve): one cluster of kRowsCluster
+// CTAs, above the portable 8 (allowed once a kernel and device).
+template <bool kGeo, bool kPhoto, bool kLiveNormals, bool kSolve>
 cudaError_t launch_rows(const RowsArgs& a, cudaStream_t s) {
-  auto kernel = rows_kernel<kGeo, kPhoto, kLiveNormals>;
+  auto kernel = kSolve ? gn_step_kernel<kGeo, kPhoto, kLiveNormals>
+                       : rows_kernel<kGeo, kPhoto, kLiveNormals>;
   static std::mutex mu;
   static std::set<int> allowed;
   int dev = 0;
@@ -627,6 +862,54 @@ cudaError_t launch_rows(const RowsArgs& a, cudaStream_t s) {
   return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
+// The rows pass of each term combination; live normals only with a
+// geometric term.
+template <bool kSolve>
+cudaError_t launch_rows_for(const RowsArgs& a, bool geometric, bool photo, bool live_normals,
+                            cudaStream_t s) {
+  if (geometric && photo)
+    return live_normals ? launch_rows<true, true, true, kSolve>(a, s)
+                        : launch_rows<true, true, false, kSolve>(a, s);
+  if (geometric)
+    return live_normals ? launch_rows<true, false, true, kSolve>(a, s)
+                        : launch_rows<true, false, false, kSolve>(a, s);
+  return launch_rows<false, true, false, kSolve>(a, s);
+}
+
+// H1a's launch: a programmatic dependent launch, one block a
+// kAssocBlockPixels pixels.
+template <bool kGeo, bool kPhoto>
+cudaError_t launch_associate(const AssocArgs& a, cudaStream_t s) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.n + kAssocBlockPixels - 1) / kAssocBlockPixels);
+  cfg.blockDim = dim3(kAssocThreads);
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, associate_kernel<kGeo, kPhoto>, a);
+}
+
+RowsArgs rows_args(const void* depth, const void* vertices, const void* normals,
+                   const void* intensity, const void* pose, const void* model,
+                   const void* v_m, const void* n_m, const void* ok, const void* i_m0,
+                   const void* gu, const void* gv, const void* u0, const void* v0,
+                   const void* ok_c, int n, Camera cam, Scalars sc, void* out,
+                   void* launches) {
+  return RowsArgs{static_cast<const float*>(depth), static_cast<const float*>(vertices),
+                  static_cast<const float*>(normals), static_cast<const float*>(intensity),
+                  static_cast<const float*>(pose), static_cast<const float*>(model),
+                  static_cast<const float*>(v_m), static_cast<const float*>(n_m),
+                  static_cast<const uint8_t*>(ok), static_cast<const float*>(i_m0),
+                  static_cast<const float*>(gu), static_cast<const float*>(gv),
+                  static_cast<const float*>(u0), static_cast<const float*>(v0),
+                  static_cast<const uint8_t*>(ok_c), n, cam, sc,
+                  static_cast<float*>(out), static_cast<unsigned int*>(launches),
+                  0.0f, 0, nullptr};
+}
+
 cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 
 }  // namespace
@@ -652,14 +935,11 @@ extern "C" int vulcan_icp_associate(
               static_cast<float*>(v_m), static_cast<float*>(n_m),
               static_cast<uint8_t*>(ok), static_cast<float*>(samples),
               static_cast<uint8_t*>(ok_c), static_cast<unsigned int*>(launches)};
-  const int blocks = (n + kThreads - 1) / kThreads;
-  if (geometric && photo)
-    associate_kernel<true, true><<<blocks, kThreads, 0, as_stream(stream)>>>(a);
-  else if (geometric)
-    associate_kernel<true, false><<<blocks, kThreads, 0, as_stream(stream)>>>(a);
-  else
-    associate_kernel<false, true><<<blocks, kThreads, 0, as_stream(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = as_stream(stream);
+  const cudaError_t err = geometric && photo ? launch_associate<true, true>(a, s)
+                          : geometric        ? launch_associate<true, false>(a, s)
+                                             : launch_associate<false, true>(a, s);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // H1b.  out: (2, 29).  Returns the launch's error.
@@ -672,26 +952,39 @@ extern "C" int vulcan_icp_rows(
     float huber_delta, float rgb_huber_delta, float rgb_weight, int geometric,
     int photo, int live_normals, void* out, void* launches, void* stream) {
   if (n < 0 || !(geometric || photo)) return static_cast<int>(cudaErrorInvalidValue);
-  RowsArgs a{static_cast<const float*>(depth), static_cast<const float*>(vertices),
-             static_cast<const float*>(normals), static_cast<const float*>(intensity),
-             static_cast<const float*>(pose), static_cast<const float*>(model),
-             static_cast<const float*>(v_m), static_cast<const float*>(n_m),
-             static_cast<const uint8_t*>(ok), static_cast<const float*>(i_m0),
-             static_cast<const float*>(gu), static_cast<const float*>(gv),
-             static_cast<const float*>(u0), static_cast<const float*>(v0),
-             static_cast<const uint8_t*>(ok_c), n, Camera{fx, fy, cx, cy},
-             Scalars{depth_min, depth_max, dist2, normal_thresh, huber_delta,
-                     rgb_huber_delta, rgb_weight},
-             static_cast<float*>(out), static_cast<unsigned int*>(launches)};
-  cudaStream_t s = as_stream(stream);
-  cudaError_t err;
-  if (geometric && photo) {
-    err = live_normals ? launch_rows<true, true, true>(a, s) : launch_rows<true, true, false>(a, s);
-  } else if (geometric) {
-    err = live_normals ? launch_rows<true, false, true>(a, s) : launch_rows<true, false, false>(a, s);
-  } else {
-    err = launch_rows<false, true, false>(a, s);
-  }
+  const RowsArgs a = rows_args(depth, vertices, normals, intensity, pose, model, v_m, n_m, ok,
+                               i_m0, gu, gv, u0, v0, ok_c, n, Camera{fx, fy, cx, cy},
+                               Scalars{depth_min, depth_max, dist2, normal_thresh,
+                                       huber_delta, rgb_huber_delta, rgb_weight},
+                               out, launches);
+  const cudaError_t err =
+      launch_rows_for<false>(a, geometric, photo, live_normals, as_stream(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// H1b and H1c in one launch: sums (2, 29) and the next pose (16,) out, a
+// GN step, or with detect the level's scores from the detector's rows (the
+// live normals).  Returns the launch's error.
+extern "C" int vulcan_icp_rows_solve(
+    const void* depth, const void* vertices, const void* normals, const void* intensity,
+    const void* pose, const void* model, const void* v_m, const void* n_m,
+    const void* ok, const void* i_m0, const void* gu, const void* gv, const void* u0,
+    const void* v0, const void* ok_c, int n, float fx, float fy, float cx, float cy,
+    float depth_min, float depth_max, float dist2, float normal_thresh,
+    float huber_delta, float rgb_huber_delta, float rgb_weight, float damping,
+    int geometric, int photo, int detect, void* sums, void* pose_out, void* launches,
+    void* stream) {
+  if (n < 0 || !(geometric || photo)) return static_cast<int>(cudaErrorInvalidValue);
+  RowsArgs a = rows_args(depth, vertices, normals, intensity, pose, model, v_m, n_m, ok,
+                         i_m0, gu, gv, u0, v0, ok_c, n, Camera{fx, fy, cx, cy},
+                         Scalars{depth_min, depth_max, dist2, normal_thresh, huber_delta,
+                                 rgb_huber_delta, rgb_weight},
+                         sums, launches);
+  a.damping = damping;
+  a.detect = detect;
+  a.pose_out = static_cast<float*>(pose_out);
+  const cudaError_t err =
+      launch_rows_for<true>(a, geometric, photo, detect, as_stream(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -700,7 +993,7 @@ extern "C" int vulcan_icp_solve(const void* sums, const void* pose, float dampin
                                 int geometric, int photo, int detect, void* out,
                                 void* launches, void* stream) {
   if (!(geometric || photo)) return static_cast<int>(cudaErrorInvalidValue);
-  solve_kernel<<<1, 32, 0, as_stream(stream)>>>(
+  solve_kernel<<<1, kSolveThreads, 0, as_stream(stream)>>>(
       static_cast<const float*>(sums), static_cast<const float*>(pose), damping,
       geometric, photo, detect, static_cast<float*>(out),
       static_cast<unsigned int*>(launches));

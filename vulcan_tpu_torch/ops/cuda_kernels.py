@@ -145,6 +145,7 @@ _SIGNATURES = {
     "vulcan_icp_associate": [_P] * 9 + [_I] * 3 + [_F] * 6 + [_I] * 2 + [_P] * 7,
     "vulcan_icp_rows": [_P] * 15 + [_I] + [_F] * 11 + [_I] * 3 + [_P] * 3,
     "vulcan_icp_solve": [_P, _P, _F, _I, _I, _I, _P, _P, _P],
+    "vulcan_icp_rows_solve": [_P] * 15 + [_I] + [_F] * 12 + [_I] * 3 + [_P] * 4,
     "vulcan_graph_prepare": [_P],
     "vulcan_graph_stream": [_P],
     "vulcan_graph_if_begin": [_P, _P, _P, _P],
@@ -214,7 +215,7 @@ def _launch(fn, x: torch.Tensor, *args) -> int:
 # eagerly or in a replay of a CUDA graph (whose launches the host never
 # sees).  ``launch_counts`` reads them, ``reset_launch_counts`` zeroes them.
 COUNTED = ("bilateral", "fill_smooth", "icp_associate", "icp_rows", "icp_solve",
-           "graph_if")
+           "icp_rows_solve", "graph_if")
 _counters: dict[int, torch.Tensor] = {}
 
 
@@ -713,9 +714,14 @@ def subsample2(x: torch.Tensor) -> torch.Tensor:
 # The track's Gauss-Newton kernels H1a-H1c (csrc/icp.cu).  A pose is a (16,)
 # float32 vector on the card, [R row-major (9), t (3), err, inliers, level
 # score, geometric score]; the model side a (15,) one, [world-to-camera R
-# (9), t (3), vertex origin (3)].  H1b is one thread-block cluster of
-# ICP_ROWS_CLUSTER CTAs of ICP_ROWS_THREADS, whatever the pixel count: the
-# CTAs' sums meet in rank order through distributed shared memory.
+# (9), t (3), vertex origin (3)].  H1b (and ``icp_rows_solve``, H1b with
+# H1c on its rank 0) is one thread-block cluster of ICP_ROWS_CLUSTER CTAs
+# of ICP_ROWS_THREADS, whatever the pixel count: the CTAs' sums meet in
+# rank order through distributed shared memory.  H1a takes
+# ICP_ASSOC_PIXELS pixels a thread in blocks of ICP_ASSOC_THREADS.
+ICP_ASSOC_THREADS = 256             # csrc/icp.cu kAssocThreads
+ICP_ASSOC_PIXELS = 2                # csrc/icp.cu kAssocPixels
+ICP_SOLVE_THREADS = 64              # csrc/icp.cu kSolveThreads: two warps
 ICP_ROWS_THREADS = 512              # csrc/icp.cu kRowsThreads
 ICP_ROWS_CLUSTER = 16               # csrc/icp.cu kRowsCluster
 ICP_SUMS = 29                       # csrc/icp.cu kSums: 21 of H, 6 of b, error, count
@@ -753,7 +759,13 @@ def icp_associate(depth: torch.Tensor, vertices: torch.Tensor, pose: torch.Tenso
                   depth_max: float, geometric: bool, photo: bool):
     """Launch H1a: the live (h, w) level at ``pose`` against the model maps
     ``(vpack1, vpack2, npack)`` (and the photometric ``words``).  Returns
-    ``((v_m, n_m, ok) or None, (i_m0, gu, gv, u0, v0, ok_c) or None)``."""
+    ``((v_m, n_m, ok) or None, (i_m0, gu, gv, u0, v0, ok_c) or None)``.
+
+    A programmatic dependent launch: it reads ``depth`` and ``vertices``
+    before the kernel ahead of it in the stream has finished (everything
+    else after), so that kernel must not write them.  ``track`` launches it
+    after a solve or after ``level_inputs``, whose last kernel writes the
+    model vector."""
     if not (geometric or photo) or (photo and words is None):
         raise ValueError("icp_associate: needs a term, and the words for the photometric one")
     _check_live(depth, "icp_associate live", vectors=(vertices,))
@@ -786,6 +798,29 @@ def icp_associate(depth: torch.Tensor, vertices: torch.Tensor, pose: torch.Tenso
     return corr, samples
 
 
+def _check_rows(what: str, depth, vertices, normals, intensity, pose, model, corr,
+                samples, geometric: bool, photo: bool) -> None:
+    """The inputs of a rows pass (H1b, ``icp_rows_solve``): the live level,
+    the pose and model vectors, each present term's correspondences or
+    samples."""
+    if not (geometric or photo) or (geometric and corr is None) or (
+            photo and (samples is None or intensity is None)):
+        raise ValueError(f"{what}: a term lacks its correspondences or samples")
+    _check_live(depth, f"{what} live", *((intensity,) if photo else ()),
+                vectors=(vertices, normals))
+    _check_vector(pose, f"{what} pose", ICP_POSE)
+    _check_vector(model, f"{what} model", ICP_MODEL)
+    if geometric:
+        _check_live(depth, f"{what} correspondences", vectors=corr[:2])
+        _check(corr[2], f"{what} ok", (torch.bool,))
+    if photo:
+        _check_live(depth, f"{what} samples", *samples[:5])
+        _check(samples[5], f"{what} sample ok", (torch.bool,))
+    for ok in (corr[2] if geometric else None, samples[5] if photo else None):
+        if ok is not None and ok.shape != depth.shape:
+            raise ValueError(f"{what}: a validity mask is {tuple(ok.shape)}")
+
+
 def icp_rows(depth: torch.Tensor, vertices: torch.Tensor, normals: torch.Tensor,
              intensity: torch.Tensor | None, pose: torch.Tensor, model: torch.Tensor,
              corr, samples, camera: tuple[float, float, float, float],
@@ -795,22 +830,8 @@ def icp_rows(depth: torch.Tensor, vertices: torch.Tensor, normals: torch.Tensor,
     (zeros for an absent term), of the live level's rows at ``pose``.
     ``scalars``: depth_min, depth_max, icp_dist_thresh ** 2,
     icp_normal_thresh, icp_huber_delta, rgb_huber_delta, rgb_weight."""
-    if not (geometric or photo) or (geometric and corr is None) or (
-            photo and (samples is None or intensity is None)):
-        raise ValueError("icp_rows: a term lacks its correspondences or samples")
-    _check_live(depth, "icp_rows live", *((intensity,) if photo else ()),
-                vectors=(vertices, normals))
-    _check_vector(pose, "icp_rows pose", ICP_POSE)
-    _check_vector(model, "icp_rows model", ICP_MODEL)
-    if geometric:
-        _check_live(depth, "icp_rows correspondences", vectors=corr[:2])
-        _check(corr[2], "icp_rows ok", (torch.bool,))
-    if photo:
-        _check_live(depth, "icp_rows samples", *samples[:5])
-        _check(samples[5], "icp_rows sample ok", (torch.bool,))
-    for ok in (corr[2] if geometric else None, samples[5] if photo else None):
-        if ok is not None and ok.shape != depth.shape:
-            raise ValueError(f"icp_rows: a validity mask is {tuple(ok.shape)}")
+    _check_rows("icp_rows", depth, vertices, normals, intensity, pose, model, corr,
+                samples, geometric, photo)
     lib = load()
     n = depth.numel()
     out = depth.new_empty((2, ICP_SUMS))
@@ -844,6 +865,33 @@ def icp_solve(sums: torch.Tensor, pose: torch.Tensor, damping: float,
                   launch_counter(sums, "icp_solve"))
     _raise_on(err, "icp_solve")
     return out
+
+
+def icp_rows_solve(depth: torch.Tensor, vertices: torch.Tensor, normals: torch.Tensor,
+                   intensity: torch.Tensor | None, pose: torch.Tensor, model: torch.Tensor,
+                   corr, samples, camera: tuple[float, float, float, float],
+                   scalars: tuple[float, ...], damping: float, geometric: bool,
+                   photo: bool, detect: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch H1b and H1c as one kernel: the (2, 29) sums of the live
+    level's rows at ``pose`` (``icp_rows``; with ``detect`` the detector's,
+    from the live normals) and the next (16,) pose vector solved from them
+    on the cluster's rank 0 (``icp_solve``).  Returns ``(sums, pose)``."""
+    _check_rows("icp_rows_solve", depth, vertices, normals, intensity, pose, model, corr,
+                samples, geometric, photo)
+    lib = load()
+    sums = depth.new_empty((2, ICP_SUMS))
+    out = pose.new_empty(ICP_POSE)
+    err = _launch(
+        lib.vulcan_icp_rows_solve, depth, depth.data_ptr(), vertices.data_ptr(),
+        normals.data_ptr(), _ptr(intensity), pose.data_ptr(), model.data_ptr(),
+        *((c.data_ptr() for c in corr) if geometric else (None,) * 3),
+        *((s.data_ptr() for s in samples) if photo else (None,) * 6),
+        depth.numel(), *camera, *scalars, damping, int(geometric), int(photo),
+        int(detect), sums.data_ptr(), out.data_ptr(),
+        launch_counter(depth, "icp_rows_solve"),
+    )
+    _raise_on(err, "icp_rows_solve")
+    return sums, out
 
 
 # Conditional IF nodes of a graph capture (csrc/graph.cu; utils/sync.py).

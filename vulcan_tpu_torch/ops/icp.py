@@ -5,12 +5,13 @@ coarse-to-fine point-to-plane Gauss-Newton with Huber weights ("depth"),
 photometric rows on the model intensity ("color"), both summed
 ("combined"), and both with the model intensity scaled by a spherical-
 harmonics gain field refitted every association round ("light",
-``ops/light.py``).  The Gauss-Newton loop runs on three entry points,
-``icp_associate`` (H1a), ``icp_rows`` (H1b) and ``icp_solve`` (H1c): on
-the card the hand kernels of ``csrc/icp.cu`` (one launch a round, one a
-GN step's rows, one a solve and pose update), on the CPU their plain
-versions; the pose stays on the device, so a whole track needs no host
-read.
+``ops/light.py``).  The Gauss-Newton loop runs on ``icp_associate`` (H1a,
+one launch a round) and ``icp_rows_solve`` (one launch a GN step: H1b's
+rows and H1c's solve and pose update), or, where a ``Reducer`` adds other
+processes' sums between the two, ``icp_rows`` (H1b) and ``icp_solve``
+(H1c): on the card the hand kernels of ``csrc/icp.cu``, on the CPU their
+plain versions; the pose stays on the device, so a whole track needs no
+host read.
 
 Update convention: left-multiplicative, ``T <- exp(xi) @ T`` with twist
 ``xi = (omega, v)``; point-to-plane rows have ``J = [v x n, n]``.
@@ -475,16 +476,19 @@ def _photo_here(mode: str, level: int, config: Config) -> bool:
     )
 
 
-# --- the Gauss-Newton loop's three entry points (H1a-H1c) -----------------
+# --- the Gauss-Newton loop's entry points (H1a-H1c, the fused step) ------
 #
-# ``track`` runs every association round through ``icp_associate`` (H1a),
-# every GN step's rows through ``icp_rows`` (H1b) and its solve through
-# ``icp_solve`` (H1c), on either device: a CPU tensor takes the plain
-# PyTorch version beside each, a CUDA tensor launches the kernel of
-# ``csrc/icp.cu`` (an eager launch counted in ``<entry>.launches``, every
-# launch on the card: ``cuda_kernels.launch_counts``) or raises.  The pose
+# ``track`` runs every association round through ``icp_associate`` (H1a)
+# and every GN step (and level score) through ``icp_rows_solve`` (H1b and
+# H1c in one launch) where its reducer is ``LOCAL``, or through ``icp_rows``
+# (H1b), the reducer, then ``icp_solve`` (H1c) with any other reducer, on
+# either device: a CPU tensor takes the plain PyTorch version beside each,
+# a CUDA tensor launches the kernel of ``csrc/icp.cu`` (an eager launch
+# counted in ``<entry>.launches``, every launch on the card:
+# ``cuda_kernels.launch_counts``) or raises.  The pose
 # travels as a (16,) vector, ``[R row-major (9), t (3), err, inliers, level
-# score, geometric score]``, that H1c writes and H1a/H1b read on the device.
+# score, geometric score]``, that H1c (or the fused step) writes and H1a/H1b
+# read on the device.
 # The plain versions write each per-pixel operation out element by element
 # in the order the kernels repeat it, one rounding each, so that the card
 # checks kernel against plain version bit for bit up to the sums' order.
@@ -518,6 +522,10 @@ def _model_vector(model: ModelMaps) -> torch.Tensor:
 
 def level_inputs(live: FrameMaps, model: ModelMaps, stride: int,
                  reduce: Reducer, photo: bool) -> LevelInputs:
+    """A level's inputs.  The model vector is made last: the level's first
+    ``icp_associate`` reads the live maps before the kernel just ahead of
+    it has finished (``cuda_kernels.icp_associate``), so that kernel must
+    not be one that writes them."""
     def rows(x):
         return reduce.rows(x[::stride, ::stride]).contiguous()
 
@@ -701,6 +709,13 @@ def _rows_plain(lv: LevelInputs, pose: torch.Tensor, corr, samples,
     return torch.stack([geo, pho])
 
 
+def _rows_scalars(config: Config) -> tuple[float, ...]:
+    """The rows kernels' per-level scalars (``cuda_kernels.icp_rows``)."""
+    return (config.depth_min, config.depth_max, config.icp_dist_thresh**2,
+            config.icp_normal_thresh, config.icp_huber_delta,
+            config.rgb_huber_delta, config.rgb_weight)
+
+
 def icp_rows(lv: LevelInputs, pose: torch.Tensor, corr, samples, config: Config,
              geometric: bool, photo: bool, live_normals: bool = False) -> torch.Tensor:
     """H1b, one GN step's rows (or the detector's, ``live_normals``): the
@@ -709,12 +724,10 @@ def icp_rows(lv: LevelInputs, pose: torch.Tensor, corr, samples, config: Config,
     if lv.depth.is_cpu:
         return _rows_plain(lv, pose, corr, samples, config, geometric, photo,
                            live_normals)
-    scalars = (config.depth_min, config.depth_max, config.icp_dist_thresh**2,
-               config.icp_normal_thresh, config.icp_huber_delta,
-               config.rgb_huber_delta, config.rgb_weight)
     out = cuda_kernels.icp_rows(
         lv.depth, lv.vertices, lv.normals, lv.intensity, pose, lv.model, corr,
-        samples, _camera4(lv.camera), scalars, geometric, photo, live_normals)
+        samples, _camera4(lv.camera), _rows_scalars(config), geometric, photo,
+        live_normals)
     if not sync.capturing():
         icp_rows.launches += 1
     return out
@@ -766,6 +779,40 @@ def icp_solve(sums: torch.Tensor, pose: torch.Tensor, config: Config,
 icp_solve.launches = 0
 
 
+def icp_rows_solve(lv: LevelInputs, pose: torch.Tensor, corr, samples, config: Config,
+                   geometric: bool, photo: bool, detect: bool = False):
+    """H1b and H1c in one launch, for a track whose reducer is ``LOCAL``:
+    ``(sums, pose)``, the (2, 29) sums of ``icp_rows`` (with ``detect`` the
+    detector's rows, from the live normals) and ``icp_solve``'s next pose
+    vector from them; kernel ``icp_rows_solve`` of ``csrc/icp.cu`` on a
+    CUDA tensor, ``_solve_plain(_rows_plain(...))`` on a CPU one."""
+    if lv.depth.is_cpu:
+        sums = _rows_plain(lv, pose, corr, samples, config, geometric, photo, detect)
+        return sums, _solve_plain(sums, pose, config.icp_damping, geometric, photo, detect)
+    out = cuda_kernels.icp_rows_solve(
+        lv.depth, lv.vertices, lv.normals, lv.intensity, pose, lv.model, corr, samples,
+        _camera4(lv.camera), _rows_scalars(config), config.icp_damping, geometric,
+        photo, detect)
+    if not sync.capturing():
+        icp_rows_solve.launches += 1
+    return out
+
+
+icp_rows_solve.launches = 0
+
+
+def _gn_step(lv: LevelInputs, pose: torch.Tensor, corr, samples, config: Config,
+             geometric: bool, photo: bool, reduce: Reducer, detect: bool = False):
+    """One GN step's next pose vector (``detect``: the level's scores).
+    A local reducer takes the fused launch; another one adds its
+    processes' sums between the rows and the solve."""
+    if reduce is LOCAL:
+        return icp_rows_solve(lv, pose, corr, samples, config, geometric, photo, detect)[1]
+    sums = reduce(icp_rows(lv, pose, corr, samples, config, geometric, photo,
+                           live_normals=detect))
+    return icp_solve(sums, pose, config, geometric, photo, detect)
+
+
 def track(
     live_pyramid: tuple[FrameMaps, ...],
     model_pyr: tuple[ModelMaps, ...],
@@ -781,7 +828,7 @@ def track(
     intensity scaled by an SH gain field refitted every round).  Per level:
     ``icp_assoc[level]`` association rounds (``icp_associate``), each
     followed by ``ceil(iters / rounds)`` GN steps on the fixed
-    correspondences and samples (``icp_rows``, then ``icp_solve``); then
+    correspondences and samples (``_gn_step``); then
     the level's observability score from the LIVE normals (plus the
     photometric rows where present) over the last round's correspondences.
     ``geo_degen`` is the geometric-only score, taken before the
@@ -790,7 +837,9 @@ def track(
 
     ``reduce`` picks the live rows this process sums at every level and
     combines the stacked sums before every solve (``Reducer``); the model
-    maps stay whole.
+    maps stay whole.  ``LOCAL`` has nothing to combine, so each step is one
+    ``icp_rows_solve``; any other reducer runs ``icp_rows``, ``reduce``,
+    ``icp_solve``.
     """
     from . import light as light_ops
 
@@ -821,15 +870,13 @@ def track(
                 )
                 samples = light_ops.scale_photo_samples(samples, n_m, coeffs)
             for _ in range(inner):
-                sums = reduce(icp_rows(lv, state, corr, samples, config, geometric,
-                                       photo_here))
-                state = icp_solve(sums, state, config, geometric, photo_here)
+                state = _gn_step(lv, state, corr, samples, config, geometric, photo_here,
+                                 reduce)
         lvl_err[level], lvl_inl[level] = torch.sqrt(state[12]), state[13]
         if config.degen_min_eig <= 0.0:
             continue
-        sums = reduce(icp_rows(lv, state, corr, samples, config, geometric, photo_here,
-                               live_normals=True))
-        state = icp_solve(sums, state, config, geometric, photo_here, detect=True)
+        state = _gn_step(lv, state, corr, samples, config, geometric, photo_here, reduce,
+                         detect=True)
         lvl_deg[level], lvl_deg_geo[level] = state[14], state[15]
 
     err, inl = state[12], state[13]

@@ -31,9 +31,19 @@ the eager step:
     ``icp.track`` each run under a profiler of its own for 5 steady frames:
     the CUDA kernels, copies and fills they launch);
 
-and H1b's kernel ms (``timing.device_and_host``) at every level in depth
-and combined mode, on chip_smoke phase 2's inputs, through the checkout's
-own ``icp.icp_rows``: two kernel designs timed in one call.
+and the track's kernels at every level in depth and combined mode, on
+chip_smoke phase 2's inputs, through the checkout's own entry points
+(``timing.device_and_host``): H1a, H1b, H1c (a step and the scores) and,
+where the checkout has it, the fused step ``icp_rows_solve``; a level's
+whole launch sequence at the default ``Config`` (its association rounds,
+each followed by its GN steps, each step's pose read by the next launch,
+then the level score: the fused step, or H1b + H1c) between CUDA events,
+and their sum, H1's device ms a frame; the solve's outputs (H1c's step
+and scores on the plain sums, and the checkout's step and scores from
+the rows), compared bit for bit with the first root's.
+
+Beside each root, the registers, stack and spills of every function of
+its ``csrc/icp.cu`` (``nvcc -Xptxas -v``, built here for the purpose).
 
 Prints a table and writes every run's report as JSON.  Needs the card; a
 root without ``chip_smoke.py`` or the package raises.
@@ -44,8 +54,10 @@ import argparse
 import inspect
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 
 from . import timing
 
@@ -134,11 +146,13 @@ def cell(config, mode, cell_poses, cell_frames, k_profile=10):
                 graph=getattr(pipe, "graph_stats", {}))
 
 
-def rows_ms():
-    """H1b's kernel ms at every level, depth and combined mode: the orbit's
-    first frame fused at its pose is the model, its own pyramid the live
-    side at a pose moved 2 cm and 1 degree (chip_smoke phase 2's inputs),
-    through the checkout's own ``icp.icp_rows``."""
+def h1_ms():
+    """The track's kernels at every level, depth and combined mode: the
+    orbit's first frame fused at its pose is the model, its own pyramid
+    the live side at a pose moved 2 cm and 1 degree (chip_smoke phase 2's
+    inputs), through the checkout's own entry points.  Each kernel's
+    device ms; the level's launch sequence at the default Config; the
+    solve's outputs as exact hex strings."""
     from vulcan_tpu_torch.core.frame import Frame
     from vulcan_tpu_torch.core.se3 import SE3
     from vulcan_tpu_torch.ops import preprocess
@@ -155,16 +169,61 @@ def rows_ms():
                               flat_thresh=max(0.05, 6.0 * cfg.voxel_size))
     moved = SE3.exp(torch.tensor([0.0, 0.0174533, 0.0, 0.02, 0.0, 0.0], device=dev))
     pv = icp._pose_vector(moved @ poses[0].to(dev))
-    out = {}
+    fused = getattr(icp, "icp_rows_solve", None)
+
+    def step(lv, pose, corr, samples, photo, detect=False):
+        if fused is not None:
+            return fused(lv, pose, corr, samples, cfg, True, photo, detect)[1]
+        sums = icp.icp_rows(lv, pose, corr, samples, cfg, True, photo, live_normals=detect)
+        return icp.icp_solve(sums, pose, cfg, True, photo, detect)
+
+    def hexes(x):
+        return [float(v).hex() for v in x.tolist()]
+
+    out, solve = {}, {}
     for mode in ("depth", "combined"):
         for level in range(cfg.pyramid_levels):
             photo = icp._photo_here(mode, level, cfg)
             lv = icp.level_inputs(live[level], model[level], icp._level_strides(cfg)[level],
                                   icp.LOCAL, photo)
             corr, samples = icp._associate_plain(lv, pv, cfg, True, photo)
-            out[f"{mode}/level {level}"] = device_and_host(
-                lambda: icp.icp_rows(lv, pv, corr, samples, cfg, True, photo))[0]
-    return out
+            sums = icp._rows_plain(lv, pv, corr, samples, cfg, True, photo)
+            det_sums = icp._rows_plain(lv, pv, corr, samples, cfg, True, photo, True)
+            iters = cfg.icp_iters[level]
+            rounds = max(1, min(cfg.icp_assoc[level], iters))
+            inner = -(-iters // rounds)
+
+            def sequence(lv=lv, photo=photo, rounds=rounds, inner=inner):
+                pose = pv
+                for _ in range(rounds):
+                    c_, s_ = icp.icp_associate(lv, pose, cfg, True, photo)
+                    for _ in range(inner):
+                        pose = step(lv, pose, c_, s_, photo)
+                return step(lv, pose, c_, s_, photo, True)
+
+            def dah(fn):
+                return device_and_host(fn)[0]
+
+            key = f"{mode}/level {level}"
+            out[key] = dict(
+                live=list(lv.depth.shape), rounds=rounds, steps=rounds * inner,
+                associate=dah(lambda: icp.icp_associate(lv, pv, cfg, True, photo)),
+                rows=dah(lambda: icp.icp_rows(lv, pv, corr, samples, cfg, True, photo)),
+                solve=dah(lambda: icp.icp_solve(sums, pv, cfg, True, photo)),
+                solve_scores=dah(lambda: icp.icp_solve(det_sums, pv, cfg, True, photo, True)),
+                fused=dah(lambda: fused(lv, pv, corr, samples, cfg, True, photo))
+                if fused else None,
+                fused_scores=dah(lambda: fused(lv, pv, corr, samples, cfg, True, photo, True))
+                if fused else None,
+                sequence=device_and_host(sequence, reps=20)[0])
+            solve[key] = dict(
+                h1c_step=hexes(icp.icp_solve(sums, pv, cfg, True, photo)),
+                h1c_scores=hexes(icp.icp_solve(det_sums, pv, cfg, True, photo, True)),
+                step=hexes(step(lv, pv, corr, samples, photo)),
+                scores=hexes(step(lv, pv, corr, samples, photo, True)))
+    frame = {mode: sum(v["sequence"] for k, v in out.items() if k.startswith(mode))
+             for mode in ("depth", "combined")}
+    return dict(by_level=out, frame_ms=frame, fused=fused is not None), solve
 
 
 desk_poses = orbit_poses(245, center=(0.0, 0.0, -0.25), radius=1.5, height=0.55,
@@ -177,7 +236,7 @@ out = {"device": cs.nvidia_smi(), "root": os.getcwd(), "cells": {
     "desk/combined": cell(P.Config(), "combined", desk_poses, desk_frames),
 }}
 del desk_frames
-out["h1b_kernel_ms"] = rows_ms()
+out["h1"], out["solve_outputs"] = h1_ms()
 eager = getattr(cs, "eager_pipeline", lambda P: P.Pipeline)(P)
 for mode in ("depth", "combined"):
     res = cs.run_pipeline(P, P.Config(), cam, poses, frames, 480, 640, dev,
@@ -196,6 +255,60 @@ def _helpers() -> str:
                       inspect.getsource(timing._device_work),
                       inspect.getsource(timing.device_spans),
                       inspect.getsource(timing.busy_ms)])
+
+
+def ptxas_report(root: str) -> dict:
+    """{function: registers, stack frame, spill stores and loads} of every
+    function in ``root``'s ``csrc/icp.cu``, from ``nvcc -Xptxas -v`` with
+    the build's flags (an object file thrown away)."""
+    from ..ops import cuda_kernels
+
+    src = os.path.join(root, "vulcan_tpu_torch", "csrc", "icp.cu")
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [cuda_kernels._nvcc(), *cuda_kernels.NVCC_FLAGS, "-I", os.path.dirname(src),
+             "-c", "-o", os.path.join(tmp, "icp.o"), src], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+    out, name = {}, None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            name = _demangle(m.group(1))
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def _demangle(name: str) -> str:
+    """A mangled name made readable with ``c++filt`` where the machine has
+    it (as is otherwise)."""
+    try:
+        return subprocess.run(["c++filt", name], capture_output=True, text=True,
+                              check=True).stdout.strip() or name
+    except (OSError, subprocess.CalledProcessError):
+        return name
+
+
+def compare_solves(first: dict, other: dict) -> dict:
+    """Each solve output of ``other`` against ``first``'s: entries that
+    differ, and the largest difference."""
+    out = {}
+    for key, outputs in first.items():
+        for what, want in outputs.items():
+            got = other[key][what]
+            diffs = [abs(float.fromhex(a) - float.fromhex(b))
+                     for a, b in zip(got, want) if a != b]
+            out[f"{key} {what}"] = dict(differ=len(diffs), max_abs=max(diffs, default=0.0))
+    return out
 
 
 def run_root(root: str) -> dict:
@@ -232,8 +345,23 @@ def summary(label: str, rep: dict) -> str:
             f"{_ms(r['device_busy_ms_per_frame'])}, idle {_ms(r['device_idle_share'])}, "
             f"{r['device_ops_per_frame']:7.0f} ops; track synced {track['synced_wall_ms']:8.3f}"
             f" ms, kernels {track['kernel_ms']:7.3f} ms, {r['track_ops_per_frame']:7.0f} ops")
-    rows.append(f"{label:>14s} H1b kernel ms " + ", ".join(
-        f"{k} {v:.6f}" for k, v in rep["h1b_kernel_ms"].items()))
+    h1 = rep["h1"]
+    for key, v in h1["by_level"].items():
+        fused = ("" if v["fused"] is None else
+                 f", fused step {v['fused']:.6f} / scores {v['fused_scores']:.6f}")
+        rows.append(
+            f"{label:>14s} {key:17s} {v['live'][0]}x{v['live'][1]}: H1a {v['associate']:.6f}, "
+            f"H1b {v['rows']:.6f}, H1c step {v['solve']:.6f} / scores "
+            f"{v['solve_scores']:.6f}{fused} ms; the level's {v['rounds']} rounds, "
+            f"{v['steps']} steps and score {v['sequence']:.6f} ms")
+    rows.append(f"{label:>14s} H1 device ms a frame: " + ", ".join(
+        f"{k} {v:.6f}" for k, v in h1["frame_ms"].items())
+        + f" ({'fused step' if h1['fused'] else 'H1b + H1c'})")
+    for fn, r in rep["registers"].items():
+        if any(k in fn for k in ("kernel", "gn_solve")):
+            rows.append(f"{label:>14s} {fn[:90]}: {r.get('registers')} registers, stack "
+                        f"{r.get('stack')}, spills {r.get('spill_stores')} / "
+                        f"{r.get('spill_loads')} B")
     return "\n".join(rows)
 
 
@@ -246,9 +374,17 @@ def main(argv=None) -> None:
     reports = []
     for k, root in enumerate(args.roots):
         rep = run_root(os.path.abspath(root))
+        rep["registers"] = ptxas_report(os.path.abspath(root))
+        if reports:
+            rep["solve_vs_run_0"] = compare_solves(reports[0]["solve_outputs"],
+                                                   rep["solve_outputs"])
         reports.append(rep)
         print(f"run {k}: {root} on {rep['device']}", flush=True)
         print(summary(os.path.basename(os.path.abspath(root)) or root, rep), flush=True)
+        if "solve_vs_run_0" in rep:
+            print(f"run {k} against run 0, the solve's outputs: " + ", ".join(
+                f"{key} {v['differ']} differ (max {v['max_abs']:.3e})"
+                for key, v in rep["solve_vs_run_0"].items()), flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(reports, f, indent=1)
