@@ -41,9 +41,12 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      to ``_associate_plain`` at that pose); each twice and bit-identical
      (OUT_DIR/track_kernels.json), and each timed like K1 at the
      finest level in depth mode (H1b and the fused step: one
-     thread-block cluster of 16 CTAs, ``cluster_ctas``).  Then the IF
-     nodes' kernel (``graph_if_kernel``), with one IF node's own cost
-     against an empty kernel node;
+     thread-block cluster of 16 CTAs, ``cluster_ctas``).  Then the
+     conditional nodes' kernels (``graph_node_kernels``): WHILE and IF/ELSE
+     nodes nested 3 deep against the eager form, their iterations and
+     nodes counted on the card, and their own costs (a WHILE node of 1, 8
+     and 32 iterations against as many IF nodes, an IF/ELSE node against
+     two IF nodes, an empty kernel node the floor);
   3. main path: Pipeline(Config(), tum_default(), 480, 640) in depth mode
      over the 35-frame synthetic orbit (uint16 depth / uint8 colour in),
      5 warm-up + 30 timed frames.  The pipeline runs its first two frames
@@ -55,7 +58,8 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      a graph, that no replayed frame read on the host or launched
      anything eagerly, and that every replayed frame launched K1 and K2
      once, H1a 12 times and the fused step 29 (H1b and H1c alone 0;
-     ``want_per_frame``); the run's
+     ``want_per_frame``), 3 WHILE nodes and auto-photo's 2 IF/ELSE nodes
+     (``want_nodes``); the run's
      counts are the kernels line's ``launches`` and a replayed frame's its
      ``launches_per_replayed_frame``; zero overflows, zero track failures
      and ATE < 0.01 m; then the same run with the track's entry points on
@@ -80,9 +84,12 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      poses a frame and every array of the final state must equal the
      eager ones wherever the eager runs agree (GRAPH_TOL); the replayed
      frames read nothing; every frame of each run launches exactly K1 and
-     K2 once, H1a 12 times and the fused step 29 on the card; the last 10
-     frames run under torch.profiler: device busy ms (the union of the
-     trace's kernel, copy and fill intervals; discarded where the trace
+     K2 once, H1a 12 times and the fused step 29 on the card, and every
+     replayed frame as many WHILE iterations as the eager run took
+     chunk-loop bodies on that frame and as many IF/ELSE nodes as its
+     ``cond``s; the last 10 frames run under torch.profiler: device busy
+     ms (the union of the trace's kernel, copy and fill intervals;
+     discarded where the trace
      holds fewer hand kernels than the card launched or more busy time
      than wall time), operations and the idle share of each path; the
      graph's capture ms and memory pool MiB.  Written to OUT_DIR/graph.json;
@@ -438,118 +445,230 @@ def icp_sums_err(got, want, magnitudes) -> float:
     return worst
 
 
-IF_NODES = 50   # nodes a graph when one IF node's cost is timed
+NODE_REPS = 20          # IF/ELSE nodes a graph when one node's cost is timed
+WHILE_TRIPS = (1, 8, 32)  # iterations of the timed WHILE nodes
+# WHILE iterations (or IF nodes) a timed graph: a replay of many more queues
+# more launches than the card holds pending, and the host waits.
+NODE_BUDGET = 48
+GRAPH_NODES = ("graph_while", "graph_while_next", "graph_ifelse")
 
 
-def graph_if_kernel(torch, dev) -> dict:
-    """Phase 2, the IF nodes' kernel (``csrc/graph.cu``): a graph with a
-    guarded chunk (``sync.run_if``), a nested one and a ``sync.cond``,
-    replayed at predicates 0, 1 and 2 against the same work run eagerly
-    (its plain version: the branch the host reads); timed as one replay of
-    a graph of one IF node around one add, beside that add under a host
-    read of its predicate, and one IF node's own cost: a graph of IF_NODES
-    IF nodes with empty bodies (predicate true and false) and one of
-    IF_NODES empty kernels, each replay over the node count.  Returns its
-    kernels-line entry."""
+def graph_node_kernels(torch, dev) -> list[dict]:
+    """Phase 2, the conditional nodes' kernels (``csrc/graph.cu``): a graph
+    with a chunk loop (``sync.chunk_loop``: one WHILE node), a ``sync.cond``
+    (one IF/ELSE node) whose true branch holds a second chunk loop, whose
+    body holds a third-level ``cond``, replayed at loop counts 0, 1, 3, 4,
+    5, 16 and 21 (past the capacity of 16, in chunks of 4) and predicates 0
+    and 1 against the same work run eagerly (its plain version: the counts
+    and branches read on the host), with each replay's WHILE nodes,
+    iterations and IF/ELSE nodes counted on the card against the eager
+    form's loops, bodies and conds.  Timed: a replay of one WHILE node (one
+    chunk of a 4-float add) and of one IF/ELSE node around such adds,
+    beside the same work eagerly; one more chunk of the add, graph against
+    eager (its device ms, call ms and host us, each the replay's reading at
+    32 iterations less that at 1, over 31); and the nodes' own costs from graphs of nodes with empty bodies:
+    one WHILE node of k = 1, 8 and 32 iterations against k IF nodes (graphs
+    of NODE_BUDGET // k WHILE nodes and NODE_BUDGET IF nodes), one IF/ELSE
+    node against two IF nodes (one on the predicate, one on its negation;
+    graphs of NODE_REPS), and an empty kernel node, the floor.
+    Returns the three kernels' entries of the kernels line."""
     from vulcan_tpu_torch.tools.timing import call_ms, device_and_host
     from vulcan_tpu_torch.utils import sync
 
-    x = torch.zeros(4, device=dev)
+    cap, chunk = 16, 4
+    count = torch.zeros((), dtype=torch.int32, device=dev)
     flag = torch.zeros((), dtype=torch.int32, device=dev)
+    y = torch.zeros(cap, device=dev)
+    z = torch.zeros(cap, device=dev)
+    lanes = torch.arange(chunk, device=dev)
 
-    def work(x):
-        sync.run_if(flag > 0, lambda: x.add_(1.0))
+    def outer(offset):
+        rows = offset + lanes
+        y.index_add_(0, rows, (rows < count).float())
 
-        def nested():
-            x[1:2].add_(10.0)
-            sync.run_if(flag > 1, lambda: x[2:3].add_(100.0))
+    def inner(offset):
+        rows = offset + lanes
+        add = sync.cond(offset == 0, lambda: torch.full((chunk,), 100.0, device=dev),
+                        lambda: torch.full((chunk,), 10.0, device=dev))
+        z.index_add_(0, rows, add * (rows < count))
 
-        sync.run_if(flag >= 0, nested)
-        return sync.cond(flag, lambda: x * 2.0, lambda: x * 3.0)
+    def work():
+        sync.chunk_loop(count, cap, chunk, outer)
 
-    def plain(v):
-        want = torch.zeros(4, device=dev)
-        if v > 0:
-            want += 1.0
-        want[1] += 10.0
-        if v > 1:
-            want[2] += 100.0
-        return want, want * (2.0 if v else 3.0)
+        def on():
+            sync.chunk_loop(count, cap, chunk, inner)
+            return y * 2.0
 
-    x.add_(0.0)
+        return sync.cond(flag, on, lambda: y * 3.0)
+
+    def counters():
+        c = launch_counts()
+        return {k: c[k] for k in GRAPH_NODES}
+
+    y.add_(0.0)
     g = torch.cuda.CUDAGraph()
     with sync.capture(g, dev) as _pool:
-        out = torch.zeros(4, device=dev)
-        out.copy_(work(x))
-    err = 0.0
-    ifs = []
-    for v in (0, 1, 2, 0):
+        out = torch.zeros(cap, device=dev)
+        out.copy_(work())
+    err, nodes_ok = 0.0, True
+    for n, v in itertools.product((0, 1, 3, 4, 5, 16, 21), (0, 1)):
+        count.fill_(n)
         flag.fill_(v)
-        x.zero_()
-        before = launch_counts()["graph_if"]
+        y.zero_()
+        z.zero_()
+        torch.cuda.synchronize()
+        before = counters()
         g.replay()
         torch.cuda.synchronize()
-        ifs.append(launch_counts()["graph_if"] - before)
-        want_x, want_out = plain(v)
-        err = max(err, float((x - want_x).abs().max()), float((out - want_out).abs().max()))
-    # A replay sets 5 IF nodes: two guarded chunks, the one nested in the
-    # second (whose body always runs), the cond's two.
-    if ifs != [5] * 4:
-        fail(f"graph_if: the card counted {ifs} IF-node launches a replay, expected 5")
-    one = torch.cuda.CUDAGraph()
-    with sync.capture(one, dev) as _pool1:
-        sync.run_if(flag > 0, lambda: x.add_(1.0))
+        card = {k: c - before[k] for k, c in counters().items()}
+        got = (y.clone(), z.clone(), out.clone())
+        y.zero_()
+        z.zero_()
+        bodies0, conds0 = sync.chunk_loop.count, sync.cond.count
+        want_out = work()
+        eager = {"graph_while_next": sync.chunk_loop.count - bodies0,
+                 "graph_ifelse": sync.cond.count - conds0}
+        trips = -(-min(n, cap) // chunk)
+        want_nodes = {"graph_while": 1 + v, "graph_while_next": trips * (1 + v),
+                      "graph_ifelse": 1 + v * trips}
+        err = max(err, *(float((a - b).abs().max())
+                         for a, b in zip(got, (y, z, want_out))))
+        if card != want_nodes or any(card[k] != c for k, c in eager.items()):
+            nodes_ok = False
+            print(f"count {n} flag {v}: the card counted {card}, expected {want_nodes}, "
+                  f"the eager form {eager}", flush=True)
+    if not nodes_ok:
+        fail("graph nodes: a replay ran another count of WHILE iterations or IF/ELSE "
+             "nodes than the eager form")
+
+    # One node around one 4-float add, graph and eager, and one more chunk.
+    x = torch.zeros(chunk, device=dev)
+    one_count = torch.ones((), dtype=torch.int32, device=dev)
+
+    def add_chunk(offset):
+        x.add_(1.0)
+
+    loop = torch.cuda.CUDAGraph()
+    with sync.capture(loop, dev) as _pool1:
+        sync.chunk_loop(one_count, 32, 1, add_chunk)
+    branch = torch.cuda.CUDAGraph()
+    with sync.capture(branch, dev) as _pool2:
+        picked = torch.zeros(chunk, device=dev)
+        picked.copy_(sync.cond(flag, lambda: x * 2.0, lambda: x * 3.0))
     flag.fill_(1)
-    kernel_ms, host_us = device_and_host(one.replay)
-    # One IF node's own cost: a graph of IF_NODES IF nodes with empty bodies
-    # on one predicate, against one of IF_NODES empty kernels, each replay
-    # between CUDA events over the node count.
+    timed = {}
+    for k in (1, 32):
+        one_count.fill_(k)
+        timed[f"while_{k}_add_ms"], timed[f"while_{k}_add_host_us"] = (
+            device_and_host(loop.replay))
+        timed[f"while_{k}_add_call_ms"] = call_ms(loop.replay)
+        timed[f"eager_loop_{k}_add_ms"] = call_ms(
+            lambda: sync.chunk_loop(one_count, 32, 1, add_chunk))
+    one_count.fill_(1)
+    while_ms, while_host_us = device_and_host(loop.replay)
+    while_call_ms = call_ms(loop.replay)
+    ifelse_ms, ifelse_host_us = device_and_host(branch.replay)
+    ifelse_call_ms = call_ms(branch.replay)
+
+    # The nodes' own costs, empty bodies, each graph's replay over its count
+    # of WHILE nodes (against as many groups of k IF nodes) or IF/ELSE nodes.
     pred = flag > 0
-    ifs = torch.cuda.CUDAGraph()
-    with sync.capture(ifs, dev) as _pool2:
-        for _ in range(IF_NODES):
-            sync.run_if(pred, lambda: None)
+    reps = {k: NODE_BUDGET // k for k in WHILE_TRIPS}
+
+    def graph_of(build):
+        gr = torch.cuda.CUDAGraph()
+        with sync.capture(gr, dev) as pool:
+            build()
+        return gr, pool
+
+    whiles = {k: graph_of(lambda k=k: [sync.chunk_loop(one_count, 32, 1, lambda o: None)
+                                       for _ in range(reps[k])])
+              for k in WHILE_TRIPS}
+    ifs = {k: graph_of(lambda k=k: [sync._cond_node(pred, lambda: None)
+                                    for _ in range(reps[k] * k)])
+           for k in WHILE_TRIPS}
+    ifelse = graph_of(lambda: [sync._cond_node(pred, lambda: None, lambda: None)
+                               for _ in range(NODE_REPS)])
+    two_ifs = graph_of(lambda: [(sync._cond_node(pred, lambda: None),
+                                 sync._cond_node(~pred, lambda: None))
+                                for _ in range(NODE_REPS)])
     empty = torch.cuda.CUDAGraph()
     with torch.cuda.graph(empty):
-        for _ in range(IF_NODES):
+        for _ in range(NODE_REPS):
             torch.cuda._sleep(0)
-    before = launch_counts()["graph_if"]
-    node = {}
+    node = {"empty_kernel_node_ms": device_and_host(empty.replay)[0] / NODE_REPS}
+    for k in WHILE_TRIPS:
+        one_count.fill_(k)
+        torch.cuda.synchronize()
+        before = counters()
+        whiles[k][0].replay()
+        torch.cuda.synchronize()
+        if counters()["graph_while_next"] - before["graph_while_next"] != reps[k] * k:
+            fail(f"graph nodes: a WHILE node of {k} iterations ran another count")
+        node[f"while_node_{k}_iterations_ms"] = (
+            device_and_host(whiles[k][0].replay)[0] / reps[k])
+        node[f"{k}_if_nodes_ms"] = device_and_host(ifs[k][0].replay)[0] / reps[k]
     for v in (1, 0):
         flag.fill_(v)
         pred.copy_(flag > 0)
-        node[f"if_node_ms_pred_{v}"] = device_and_host(ifs.replay)[0] / IF_NODES
-    node["empty_kernel_node_ms"] = device_and_host(empty.replay)[0] / IF_NODES
-    node["if_node_excess_ms"] = node["if_node_ms_pred_1"] - node["empty_kernel_node_ms"]
-    torch.cuda.synchronize()
-    if (launch_counts()["graph_if"] - before) % IF_NODES:
-        fail("a replay of the IF-node graph ran another count of IF nodes")
+        node[f"ifelse_node_ms_pred_{v}"] = device_and_host(ifelse[0].replay)[0] / NODE_REPS
+        node[f"two_if_nodes_ms_pred_{v}"] = device_and_host(two_ifs[0].replay)[0] / NODE_REPS
     flag.fill_(1)
+    pred.copy_(flag > 0)
+    k_lo, k_hi = WHILE_TRIPS[0], WHILE_TRIPS[-1]
+    node["while_iteration_ms"] = (node[f"while_node_{k_hi}_iterations_ms"]
+                                  - node[f"while_node_{k_lo}_iterations_ms"]) / (k_hi - k_lo)
+    node["while_node_ms"] = node[f"while_node_{k_lo}_iterations_ms"] - node["while_iteration_ms"]
+    node["if_node_ms"] = node[f"{k_lo}_if_nodes_ms"]
+    node["if_node_excess_ms"] = node["if_node_ms"] - node["empty_kernel_node_ms"]
+    node["ifelse_node_excess_ms"] = node["ifelse_node_ms_pred_1"] - node["empty_kernel_node_ms"]
 
-    def eager_add():
-        if sync.read_int(flag) > 0:
-            x.add_(1.0)
+    def eager_cond():
+        return sync.cond(flag, lambda: x * 2.0, lambda: x * 3.0)
 
-    entry = dict(name="graph_if", route="cuda", source="vulcan_tpu_torch/csrc/graph.cu",
-                 replaces="vulcan_tpu/pipeline/fusion.py:308 lax.cond, "
-                          "vulcan_tpu/ops/sparse.py:377 lax.while_loop",
-                 launches=0, max_abs_err=err, ms=call_ms(one.replay),
-                 kernel_ms=kernel_ms, call_ms=call_ms(one.replay), host_us=host_us,
-                 launches_per_call=1, plain_ms=call_ms(eager_add),
-                 bound_ms=bound(1.0, 0.0)[0], bound_by="bytes", library_ms=None,
-                 library_kernel_ms=None, library_host_us=None,
-                 shape="one IF node around one 4-float add", **node)
-    print(f"graph_if: IF nodes (guarded, nested, cond) against the eager branches "
-          f"max_abs_err {err:.3e} (tol 0); a replay of one IF node around an add "
-          f"{kernel_ms:.4f} ms device, host {host_us:.2f} us, call {entry['ms']:.4f} ms; "
-          f"the add under a host read {entry['plain_ms']:.4f} ms; one IF node with an "
-          f"empty body (a graph of {IF_NODES}) {node['if_node_ms_pred_1']:.6f} ms "
-          f"(predicate false {node['if_node_ms_pred_0']:.6f}), one empty kernel node "
-          f"{node['empty_kernel_node_ms']:.6f} ms, an IF node's excess "
-          f"{node['if_node_excess_ms']:.6f} ms", flush=True)
+    replaces = {"graph_while": "vulcan_tpu/ops/sparse.py:377 lax.while_loop, "
+                               "vulcan_tpu/ops/splat.py:434,536",
+                "graph_while_next": "vulcan_tpu/ops/sparse.py:377 lax.while_loop, "
+                                    "vulcan_tpu/ops/splat.py:434,536",
+                "graph_ifelse": "vulcan_tpu/pipeline/fusion.py:147,308 lax.cond"}
+    common = dict(route="cuda", source="vulcan_tpu_torch/csrc/graph.cu", launches=0,
+                  max_abs_err=err, launches_per_call=1, bound_by="bytes", library_ms=None,
+                  library_kernel_ms=None, library_host_us=None, **node, **timed)
+    # One more iteration: each reading at 32 iterations less the same at 1.
+    more = {key: (timed[f"while_32_add_{key}"] - timed[f"while_1_add_{key}"]) / 31
+            for key in ("ms", "call_ms", "host_us")}
+    per_chunk = more["ms"]
+    eager_per_chunk = (timed["eager_loop_32_add_ms"] - timed["eager_loop_1_add_ms"]) / 31
+    entries = [
+        dict(name="graph_while", replaces=replaces["graph_while"],
+             ms=while_call_ms, kernel_ms=while_ms, call_ms=while_call_ms,
+             host_us=while_host_us, plain_ms=timed["eager_loop_1_add_ms"],
+             bound_ms=bound(4 + 8, 0.0)[0],
+             shape="one WHILE node, one iteration of a 4-float add", **common),
+        dict(name="graph_while_next", replaces=replaces["graph_while_next"],
+             ms=more["call_ms"], kernel_ms=per_chunk, call_ms=more["call_ms"],
+             host_us=more["host_us"],
+             plain_ms=eager_per_chunk, bound_ms=bound(4 + 8 + 8, 0.0)[0],
+             shape="one more iteration of a 4-float add (32 against 1)", **common),
+        dict(name="graph_ifelse", replaces=replaces["graph_ifelse"],
+             ms=ifelse_call_ms, kernel_ms=ifelse_ms, call_ms=ifelse_call_ms,
+             host_us=ifelse_host_us, plain_ms=call_ms(eager_cond), bound_ms=bound(1, 0.0)[0],
+             shape="one IF/ELSE node, a 4-float multiply a branch", **common),
+    ]
+    print(f"graph nodes: WHILE, IF/ELSE (nested 3 deep) against the eager form "
+          f"max_abs_err {err:.3e} (tol 0), iterations and nodes as the eager form's "
+          f"loops and conds; a replay of one WHILE node around an add {while_ms:.4f} ms "
+          f"device (32 iterations {timed['while_32_add_ms']:.4f}; eager "
+          f"{timed['eager_loop_1_add_ms']:.4f} / {timed['eager_loop_32_add_ms']:.4f} ms "
+          f"call), one more iteration {per_chunk:.6f} ms device, {more['call_ms']:.6f} ms "
+          f"call, {more['host_us']:.3f} us host (eager {eager_per_chunk:.6f} ms call); "
+          f"one IF/ELSE node around a multiply {ifelse_ms:.4f} ms device, eager "
+          f"{entries[2]['plain_ms']:.4f} ms call", flush=True)
+    print("graph nodes, empty bodies, ms a node: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in node.items()), flush=True)
     if err != 0.0:
-        fail("the IF nodes ran other branches than the eager form")
-    return entry
+        fail("the conditional nodes ran other work than the eager form")
+    return entries
 
 
 def track_kernels(P, torch, dev, cam, poses, frames) -> list[dict]:
@@ -1045,9 +1164,11 @@ def eager_pipeline(P):
 
 def launch_counts() -> dict[str, int]:
     """The main path's kernels' launches on the card: K1, K2's kernel
-    launches, H1a-H1c, the fused step and the IF nodes' kernel, each counted by the kernel
-    itself at every launch, eager or replayed from a CUDA graph
-    (``cuda_kernels.launch_counts``; a capture launches nothing)."""
+    launches, H1a-H1c, the fused step and the conditional nodes' kernels
+    (a WHILE node's set-up, its iterations, an IF/ELSE node's set-up), each
+    counted by the kernel itself at every launch, eager or replayed from a
+    CUDA graph (``cuda_kernels.launch_counts``; a capture launches
+    nothing)."""
     from vulcan_tpu_torch.ops import cuda_kernels
 
     return cuda_kernels.launch_counts()
@@ -1064,7 +1185,8 @@ def host_counts() -> dict[str, int]:
 
 def reset_counts() -> None:
     """Every count a main-path run reads set to 0: the launches on the card
-    and on the host, and the host reads."""
+    and on the host, the host reads, and the eager step's chunk-loop bodies
+    and ``cond``s."""
     from vulcan_tpu_torch.ops import cuda_kernels, preprocess, splat
     from vulcan_tpu_torch.utils import sync
 
@@ -1074,6 +1196,8 @@ def reset_counts() -> None:
     splat._fill_and_smooth.kernel_launches = 0
     icp_counts(reset=True)
     sync.read_int.count = 0
+    sync.chunk_loop.count = 0
+    sync.cond.count = 0
 
 
 def per_frame(counts: list[dict]) -> list[dict]:
@@ -1095,27 +1219,47 @@ def want_per_frame(config, known=False, k2_per_frame=1) -> dict[str, int]:
     return {"bilateral": 1, "fill_smooth": k2_per_frame, **h1}
 
 
-def check_launches(label, frames, want, captured) -> dict:
+def want_nodes(config, mode="depth", known=False) -> dict[str, int]:
+    """The conditional nodes a replayed frame evaluates: a WHILE node for
+    the integrate loop and one for each splat tier (the render's luma or
+    depth pass), and an IF/ELSE node for each of auto-photo's two
+    ``cond``s (depth mode, tracked)."""
+    if config.model_color != "luma":
+        raise ValueError("want_nodes counts the luma render's loops")
+    auto = (mode == "depth" and config.auto_photo and config.degen_min_eig > 0.0
+            and not known)
+    return {"graph_while": 3, "graph_ifelse": 2 if auto else 0}
+
+
+def check_launches(label, frames, want, captured, nodes=None, eager=None) -> dict:
     """Each frame's launches on the card (``per_frame``) against ``want``.
-    Eager, every frame takes exactly ``want``.  Captured, the warm-up
-    frames run eagerly with both sides of every ``sync.cond`` (at least
-    ``want``), and every later frame is a replay that
-    takes exactly ``want`` and at least one IF node.  Returns the mean
-    launches of the frames held to exactly ``want``."""
+    Eager, every frame takes exactly ``want`` and no conditional node.
+    Captured, the warm-up frames run eagerly with both sides of every
+    ``sync.cond`` (at least ``want``, no conditional node), and every later
+    frame is a replay that takes exactly ``want``, the WHILE and IF/ELSE
+    nodes of ``nodes`` and at least one WHILE iteration; given ``eager``,
+    the chunk-loop bodies and ``cond``s of an eager run of the same frames
+    (``run_pipeline``'s ``chunks`` and ``conds``), exactly its bodies as
+    WHILE iterations and its ``cond``s as IF/ELSE nodes on every frame.
+    Returns the mean launches of the frames held to exactly ``want``."""
     from vulcan_tpu_torch.pipeline.graphs import WARMUP_FRAMES
 
     first = WARMUP_FRAMES if captured else 0
     for i, got in enumerate(frames):
-        if i < first:
-            kind = "warm-up"
-            ok = all(got[k] >= v for k, v in want.items())
-        else:
-            kind = "replayed" if captured else "eager"
-            ok = all(got[k] == v for k, v in want.items()) and (
-                got["graph_if"] > 0 if captured else got["graph_if"] == 0)
+        kind = "warm-up" if i < first else "replayed" if captured else "eager"
+        ok = all(got[k] >= v if i < first else got[k] == v for k, v in want.items())
+        graph = dict.fromkeys(GRAPH_NODES, 0)
+        if kind == "replayed":
+            graph = dict(nodes)
+            if eager is not None:
+                graph.update(graph_while_next=eager["chunks"][i],
+                             graph_ifelse=eager["conds"][i])
+            else:
+                ok = ok and got["graph_while_next"] >= 1
+        ok = ok and all(got[k] == v for k, v in graph.items())
         if not ok:
             fail(f"{label}: {kind} frame {i} launched {got} on the card, expected "
-                 f"{want} a frame")
+                 f"{want} and the conditional nodes {graph} a frame")
     held = frames[first:]
     return {k: sum(f[k] for f in held) / len(held) for k in frames[0]} if held else {}
 
@@ -1125,33 +1269,39 @@ def run_pipeline(P, config, camera, poses, frames, h, w, device, sync,
     """Returns (pipe, translations, ms per frame, armed frames, run): a
     frame is armed when auto-photo tracked it in combined mode (the
     countdown carried into it was positive); ``run`` holds each frame's
-    host reads, the launch counts after each frame and the (n, 12) poses
-    (R row-major, t).  ``eager`` runs the eager step on the card too
+    host reads, the launch counts after each frame, the (n, 12) poses
+    (R row-major, t), and each frame's eager chunk-loop bodies and
+    ``cond``s (``sync.chunk_loop.count``, ``sync.cond.count``; ``chunks``
+    and ``conds``).  ``eager`` runs the eager step on the card too
     (``eager_pipeline``); otherwise ``Pipeline`` decides (a captured graph
     on the card where ``fusion.capturable`` says so).  ``known`` fuses each
     frame at its true pose (``process(..., pose=...)``).  The launch
     counts after each frame are the card's (``launch_counts``) in
     ``run["counts"]`` and the wrappers' own (``host_counts``) in
     ``run["host"]``."""
-    from vulcan_tpu_torch.utils.sync import read_int
+    from vulcan_tpu_torch.utils.sync import chunk_loop, cond, read_int
 
     cls = eager_pipeline(P) if eager else P.Pipeline
     pipe = cls(config, camera, h, w, init_pose=poses[0], mode=mode, device=device)
     est, ms, armed, reads, counts, host, full = [], [], 0, [], [], [], []
+    chunks, conds = [], []
     for i, (d16, c8) in enumerate(frames):
         armed += int(pipe.state.photo_cnt) > 0
-        r0 = read_int.count
+        r0, b0, c0 = read_int.count, chunk_loop.count, cond.count
         t0 = time.perf_counter()
         pipe.process(d16, c8, pose=poses[i] if known else None)
         if sync:
             sync()
         ms.append((time.perf_counter() - t0) * 1e3)
         reads.append(read_int.count - r0)
+        chunks.append(chunk_loop.count - b0)
+        conds.append(cond.count - c0)
         counts.append(launch_counts())
         host.append(host_counts())
         full.append(torch_cat_pose(pipe.pose))
         est.append(pipe.pose.translation.cpu().numpy())
-    run = dict(reads=reads, counts=counts, host=host, poses=np.stack(full))
+    run = dict(reads=reads, counts=counts, host=host, poses=np.stack(full),
+               chunks=chunks, conds=conds)
     return pipe, np.stack(est), ms, armed, run
 
 
@@ -1161,12 +1311,15 @@ def torch_cat_pose(pose) -> np.ndarray:
                            pose.translation.cpu().numpy()])
 
 
-def check_graph_run(label, pipe, run, config, known=False, k2_per_frame=1) -> dict:
+def check_graph_run(label, pipe, run, config, known=False, k2_per_frame=1, mode="depth",
+                    eager=None) -> dict:
     """A captured run: every frame after the warm-up read nothing on the
     host and launched nothing eagerly (the wrappers' own counts stand
     still: the capture frame records, the replays launch on the card), and
-    ``check_launches`` holds each frame's launches on the card.  Returns
-    the launches a replayed frame."""
+    ``check_launches`` holds each frame's launches on the card, the
+    conditional nodes of ``mode`` (``want_nodes``) among them, and, given
+    the ``run`` of the eager step on the same frames, its chunk-loop bodies
+    and ``cond``s.  Returns the launches a replayed frame."""
     from vulcan_tpu_torch.pipeline.graphs import WARMUP_FRAMES
 
     if not pipe.captured or not pipe.graph_stats:
@@ -1178,7 +1331,8 @@ def check_graph_run(label, pipe, run, config, known=False, k2_per_frame=1) -> di
     if warm != end:
         fail(f"{label}: a wrapper launched eagerly after the warm-up ({warm} -> {end})")
     return check_launches(label, per_frame(run["counts"]),
-                          want_per_frame(config, known, k2_per_frame), True)
+                          want_per_frame(config, known, k2_per_frame), True,
+                          want_nodes(config, mode, known), eager)
 
 
 def check_eager_run(label, run, config, known=False, k2_per_frame=1) -> None:
@@ -1187,7 +1341,7 @@ def check_eager_run(label, run, config, known=False, k2_per_frame=1) -> None:
     card counted."""
     check_launches(label, per_frame(run["counts"]),
                    want_per_frame(config, known, k2_per_frame), False)
-    card = {k: v for k, v in run["counts"][-1].items() if k != "graph_if"}
+    card = {k: v for k, v in run["counts"][-1].items() if k not in GRAPH_NODES}
     if card != run["host"][-1]:
         fail(f"{label}: the card counted {card} launches, the wrappers {run['host'][-1]}")
 
@@ -1295,7 +1449,7 @@ def run_cell(P, torch, label, config, mode, camera, poses, frames, ate_limit,
           f"degenerate frames {diag['track_degen_frames']}", flush=True)
     if pipe.captured:
         out["launches_per_replayed_frame"] = check_graph_run(
-            label, pipe, run, config, k2_per_frame=k2_per_frame)
+            label, pipe, run, config, k2_per_frame=k2_per_frame, mode=mode)
     else:
         check_eager_run(label, run, config, k2_per_frame=k2_per_frame)
     if diag["alloc_overflow"] or diag["visible_overflow"]:
@@ -1311,12 +1465,13 @@ def run_cell(P, torch, label, config, mode, camera, poses, frames, ate_limit,
     return out
 
 
-# Kernel names in a profiler trace: the main path's hand kernels and the IF
-# nodes' one-thread kernel (csrc/graph.cu).
+# Kernel names in a profiler trace: the main path's hand kernels and the
+# conditional nodes' one-thread kernels (csrc/graph.cu).
 KERNEL_NAMES = {"bilateral": "bilateral_kernel", "fill_smooth": "fill_smooth_kernel",
                 "icp_associate": "associate_kernel", "icp_rows": "rows_kernel",
                 "icp_solve": "solve_kernel", "icp_rows_solve": "gn_step_kernel",
-                "graph_if": "set_if_kernel"}
+                "graph_while": "while_begin_kernel", "graph_while_next": "while_next_kernel",
+                "graph_ifelse": "set_cond_kernel"}
 
 
 def replay_profile(pipe, frames, torch, poses=None) -> dict:
@@ -1325,20 +1480,21 @@ def replay_profile(pipe, frames, torch, poses=None) -> dict:
     (``launch_counts``, read before and after) and as the trace shows them
     by name; the device's busy ms a frame, the union of the trace's
     kernel, copy and fill intervals (``timing.busy_ms``), and its
-    operations a frame; the host reads a frame and the frame ms.  Where the
-    trace holds fewer of a hand kernel than the card launched (CUPTI has
-    dropped the events of IF bodies in a process that had profiled several
-    graphs; it has also reported more IF-node kernels than ran), or its
+    operations a frame; the host reads, eager chunk-loop bodies and eager
+    ``cond``s a frame and the frame ms.  Where the trace holds fewer of a
+    hand kernel than the card launched (CUPTI has dropped the events of
+    conditional bodies in a process that had profiled several graphs; it
+    has also reported more of the nodes' kernels than ran), or its
     busy time exceeds the same frames' wall time, the busy reading is
     discarded (``busy_valid`` False, busy None) and both counts are kept.
     With ``poses``, each frame is fused at its pose."""
     from torch.profiler import ProfilerActivity, profile
     from vulcan_tpu_torch.tools.timing import busy_ms, device_spans
-    from vulcan_tpu_torch.utils.sync import read_int
+    from vulcan_tpu_torch.utils.sync import chunk_loop, cond, read_int
 
     torch.cuda.synchronize()
     before = launch_counts()
-    r0, ms = read_int.count, []
+    r0, b0, c0, ms = read_int.count, chunk_loop.count, cond.count, []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i, (d16, c8) in enumerate(frames):
             t0 = time.perf_counter()
@@ -1359,6 +1515,8 @@ def replay_profile(pipe, frames, torch, poses=None) -> dict:
                 device_busy_ms=busy if valid else None,
                 device_busy_ms_read=busy, device_ops_per_frame=len(spans) / k,
                 host_reads_per_frame=(read_int.count - r0) / k,
+                chunks_per_frame=(chunk_loop.count - b0) / k,
+                conds_per_frame=(cond.count - c0) / k,
                 profiled_ms_median=float(np.median(ms)),
                 profiled_ms_mean=float(np.mean(ms)))
 
@@ -1418,7 +1576,8 @@ def graph_against_eager(P, torch, label, config, mode, cam, poses, frames, dev,
         if eager:
             check_eager_run(f"{label} ({tag})", run, config, known)
         else:
-            check_graph_run(label, pipe, run, config, known)
+            check_graph_run(label, pipe, run, config, known, mode=mode,
+                            eager=runs["eager"]["run"])
         rest = poses[len(timed):] if known else None
         prof = replay_profile(pipe, frames[len(timed):], torch, rest)
         poses_all = np.concatenate([run["poses"], np.stack(
@@ -1442,6 +1601,7 @@ def graph_against_eager(P, torch, label, config, mode, cam, poses, frames, dev,
     ate = {t: float(ate_rmse(r["poses"][:len(timed), 9:], gt[:len(timed)]))
            for t, r in runs.items()}
     want = want_per_frame(config, known)
+    nodes = want_nodes(config, mode, known)
     got = g["prof"]["launches_per_frame"]
     out = dict(cell=label, mode=mode, frames=n, path="graph",
                graph=g["pipe"].graph_stats,
@@ -1481,10 +1641,13 @@ def graph_against_eager(P, torch, label, config, mode, cam, poses, frames, dev,
                   f"{r['prof']['device_busy_ms_read']:.3f} ms against "
                   f"{r['prof']['profiled_ms_mean']:.3f} ms a frame)", flush=True)
         got_r = r["prof"]["launches_per_frame"]
-        if any(got_r[k] != v for k, v in want.items()) or (
-                (got_r["graph_if"] > 0) != (tag == "graph")):
+        graph = dict.fromkeys(GRAPH_NODES, 0.0)
+        if tag == "graph":
+            graph.update(nodes, graph_while_next=e1["prof"]["chunks_per_frame"],
+                         graph_ifelse=e1["prof"]["conds_per_frame"])
+        if any(got_r[k] != v for k, v in {**want, **graph}.items()):
             fail(f"{label} ({tag}): a profiled frame launched {got_r} on the card, "
-                 f"expected {want}")
+                 f"expected {want} and the conditional nodes {graph}")
     if g["prof"]["host_reads_per_frame"]:
         fail(f"{label}: the replays read on the host")
     if poses_eager_same and not poses_same:
@@ -2162,12 +2325,13 @@ def finish_cli(run):
     return json.loads(lines[-1]), None, secs
 
 
-def check_cli_run(label, rep, counts, n, reads_per_frame, ate_limit) -> dict:
+def check_cli_run(label, rep, counts, n, reads_per_frame, ate_limit, nodes) -> dict:
     """A CLI run's report and loop counts: every frame, no failure or
     overflow, the ATE under its limit, none of the host reads added by the
-    loop; K1 and K2 once a frame on the card (``check_launches`` over the
-    run's ``launches_by_frame``); on a captured pipeline no step read after
-    the warm-up frames, on the eager path the step's ``reads_per_frame``.
+    loop; K1 and K2 once a frame on the card and, replayed, the conditional
+    nodes ``nodes`` (``check_launches`` over the run's
+    ``launches_by_frame``); on a captured pipeline no step read after the
+    warm-up frames, on the eager path the step's ``reads_per_frame``.
     Returns its numbers."""
     from vulcan_tpu_torch.pipeline.graphs import WARMUP_FRAMES
 
@@ -2200,7 +2364,7 @@ def check_cli_run(label, rep, counts, n, reads_per_frame, ate_limit) -> dict:
     if counts["loop_transfers"]:
         fail(f"{label}: the loop read on the host ({counts})")
     check_launches(label, counts["launches_by_frame"], {"bilateral": 1, "fill_smooth": 1},
-                   counts["captured"])
+                   counts["captured"], nodes)
     if counts["captured"]:
         if sum(counts["step_reads_by_frame"][WARMUP_FRAMES:]):
             fail(f"{label}: a replayed step read on the host ({counts})")
@@ -2246,9 +2410,10 @@ def entry_points(P, torch, cfg, cam, poses, frames, dev, reads, snap, snap_tris)
                 os.path.join(tmp, f"{name}.txt")]
 
     def check_dataset(label, rep, counts, secs, want, tol, ref_name):
+        at_pose = label == "known poses"
         out = check_cli_run(f"dataset/{label}", rep, counts, n,
-                            reads["known poses" if label == "known poses" else "combined"],
-                            1e-4 if label == "known poses" else 0.01)
+                            reads["known poses" if at_pose else "combined"],
+                            1e-4 if at_pose else 0.01, want_nodes(cfg, "combined", at_pose))
         traj = np.loadtxt(os.path.join(tmp, f"{label.replace(' ', '_')}.txt"),
                           comments="#", ndmin=2)
         wait = np.asarray(counts["feed_wait_ms"])
@@ -2285,7 +2450,7 @@ def entry_points(P, torch, cfg, cam, poses, frames, dev, reads, snap, snap_tris)
         path, run = synth[mode]
         rep, counts, secs = finish_cli(run)
         out = check_cli_run(f"(a) synthetic/{mode} (3 runs sharing the card)", rep,
-                            counts, n, reads[mode], 0.01)
+                            counts, n, reads[mode], 0.01, want_nodes(cfg, mode))
         with open(path["mesh"], "rb") as f:
             head = f.read(80)
         traj = np.loadtxt(path["traj"], comments="#", ndmin=2)
@@ -2569,7 +2734,7 @@ def main() -> None:
     k1_inputs_and_radii(P, preprocess, torch, dev, frames[0][0])
     k2_rounds_and_shapes(P, splat, torch, dev)
     kernels += track_kernels(P, torch, dev, cam, poses, frames)
-    kernels.append(graph_if_kernel(torch, dev))
+    kernels += graph_node_kernels(torch, dev)
 
     phase("3 main path: Pipeline.process, default Config, depth mode, 480x640")
     torch.cuda.synchronize()

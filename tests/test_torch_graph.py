@@ -1,15 +1,25 @@
-"""The step's capture form on the CPU: the loops that run to a static bound
-with every chunk an IF node (``utils.sync.run_if``), held against the JAX
-package and against the port's eager form, the eager ``cond``, the host
-reads a frame, and the state-buffer helpers of ``pipeline/graphs.py``.
+"""The step's capture form on the CPU: the loops whose bodies take their
+chunk's start as a device offset (``utils.sync.chunk_loop``, one WHILE
+node each when captured) and the ``cond`` that is one IF/ELSE node, held
+against the JAX package and against the port's eager form, the eager
+``cond``, the host reads a frame, and the state-buffer helpers of
+``pipeline/graphs.py``.
 
 A CUDA graph cannot be captured here.  ``sync.capturing`` is forced true
-and the IF node replaced by a stand-in: ``skip`` runs a chunk where its
-predicate holds (what a replay does), ``all`` runs every chunk up to the
-bound (what the masks alone must make harmless: a chunk past the count
-writes its rows' old values and scatters into the trash slot)."""
+and the conditional nodes replaced by stand-ins.  ``skip`` is the WHILE
+node's rule (``csrc/graph.cu``): the body runs while its offset, set to 0
+and moved on by a chunk after each body, is below min(count, capacity), so
+the chunks past the count are skipped.  ``all`` runs every chunk up to the
+capacity (what the masks alone must make harmless: a chunk past the count
+writes its rows' old values and scatters into the trash slot).  The
+IF/ELSE stand-in runs the true body, as its capture allocates the cond's
+outputs, and the false body after it where the predicate is false: for
+branches that write only their outputs, as ``cond`` requires, that leaves
+what a replay leaves."""
 import dataclasses
+import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,22 +45,46 @@ from ._torch_port import (
     se3_t, t,
 )
 
-STAND_INS = {
-    "skip": lambda pred, fn: fn() if bool(pred) else None,
-    "all": lambda pred, fn: fn(),
-}
+
+def while_node(count, bound, chunk, body):
+    """The WHILE node's rule: offset 0, then ``chunk`` more after each body,
+    while below min(count, bound)."""
+    offset = torch.zeros((), dtype=torch.int64)
+    while offset < torch.clamp(count, max=bound):
+        body(offset)
+        offset += chunk
+
+
+def while_all(count, bound, chunk, body):
+    """Every chunk up to the capacity."""
+    for offset in torch.arange(0, bound, chunk):
+        body(offset)
+
+
+def cond_node(pred, *branches):
+    """One IF/ELSE node: the true body, then the false one where ``pred``
+    is false (see the module's docstring)."""
+    assert pred.dtype == torch.bool and pred.ndim == 0 and len(branches) == 2
+    branches[0]()
+    if not bool(pred):
+        branches[1]()
+
+
+STAND_INS = {"skip": while_node, "all": while_all}
 
 
 @pytest.fixture(params=sorted(STAND_INS))
 def captured(request, monkeypatch):
-    """``sync.capturing()`` true, IF nodes replaced by a stand-in."""
+    """``sync.capturing()`` true, the conditional nodes replaced by
+    stand-ins."""
     monkeypatch.setattr(sync, "capturing", lambda: True)
-    monkeypatch.setattr(sync, "_if_node", STAND_INS[request.param])
+    monkeypatch.setattr(sync, "_while_node", STAND_INS[request.param])
+    monkeypatch.setattr(sync, "_cond_node", cond_node)
     return request.param
 
 
-@pytest.fixture(scope="module")
-def band_frame():
+@functools.lru_cache(maxsize=None)
+def _band_frame():
     """The reference's volume after allocation and visibility of orbit
     frame 1, with the frame and its band list (the integrate inputs)."""
     pose = orbit(2)[1]
@@ -62,30 +96,51 @@ def band_frame():
     return jv, frame, np.asarray(band), int(n_band), d, c, pose
 
 
-# Work counts: none, one partial chunk of 64, an exact multiple of 64 (two
-# chunks), the frame's own count, and the list's whole capacity (entries
-# past the band are block 0, masked by ``ids > 0``).
-COUNTS = ("zero", "partial", "multiple", "band", "capacity")
+@pytest.fixture
+def band_frame():
+    return _band_frame()
+
+
+# Work counts at ``integrate_chunk=64``: none, one row, one partial chunk,
+# a chunk less one row, one chunk, one row into the second chunk, an exact
+# multiple (two chunks), the frame's own count, the list's whole capacity
+# (entries past the band are block 0, masked by ``ids > 0``), and a count
+# past the capacity.
+CHUNK = 64
+COUNTS = ("zero", "one", "partial", "chunk-1", "chunk", "chunk+1", "multiple", "band",
+          "capacity", "overflow")
 
 
 def _count(name: str, n_band: int, capacity: int) -> int:
-    return {"zero": 0, "partial": 37, "multiple": 128, "band": n_band,
-            "capacity": capacity}[name]
+    return {"zero": 0, "one": 1, "partial": 37, "chunk-1": CHUNK - 1, "chunk": CHUNK,
+            "chunk+1": CHUNK + 1, "multiple": 2 * CHUNK, "band": n_band,
+            "capacity": capacity, "overflow": capacity + CHUNK + 1}[name]
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_integrate(count: int):
+    """The reference's integrate of ``band_frame`` at ``count`` (capped at
+    the list's capacity: past it the reference's clamped slice would fuse
+    its last chunk again, where the port's loop stops at the list's end)."""
+    jv, frame_j, band, *_ = _band_frame()
+    count = min(count, band.shape[0])
+    return jflat(jsp.integrate_sparse(jv, frame_j, CFG_J, ids=jnp.asarray(band),
+                                      count=jnp.asarray(count, jnp.int32)))
 
 
 @pytest.mark.parametrize("which", COUNTS)
 def test_integrate_upper_bound_form_matches_reference(band_frame, captured, which):
-    """The capture form of the integrate loop (alloc_capacity / 64 = 128
-    chunks at ``integrate_chunk=64``, every one an IF node on
-    ``start < count``) fuses what the reference's while_loop fuses, at the
-    test_torch_volume tolerances, and is bit-equal to the port's eager
-    form (the chunk count read on the host)."""
+    """The capture form of the integrate loop (at most alloc_capacity / 64 =
+    128 chunks at ``integrate_chunk=64``, one WHILE node whose body reads
+    its rows at a device offset) fuses what the reference's while_loop
+    fuses at every boundary count, at the test_torch_volume tolerances, and
+    is bit-equal to the port's eager form (the chunk count read on the
+    host)."""
     jv, frame_j, band, n_band, d, c, pose_j = band_frame
-    assert n_band > 128
+    assert n_band > 2 * CHUNK
     count = _count(which, n_band, band.shape[0])
-    ref = jflat(jsp.integrate_sparse(jv, frame_j, CFG_J, ids=jnp.asarray(band),
-                                     count=jnp.asarray(count, jnp.int32)))
-    cfg = dataclasses.replace(CFG_T, integrate_chunk=64)
+    ref = _reference_integrate(count)
+    cfg = dataclasses.replace(CFG_T, integrate_chunk=CHUNK)
     frame = Frame(t(d), t(c), CAM_T, se3_t(pose_j))
 
     def fuse():
@@ -138,11 +193,11 @@ def splat_inputs():
 
 @pytest.mark.parametrize("cap", [CFG_T.max_visible, 512])
 def test_surfel_tiers_upper_bound_form_match_reference(splat_inputs, captured, cap):
-    """Both surfel tiers in capture form (max_visible / 2048 and / 512
-    chunks, each an IF node on ``start < length``) for the depth, packed
-    luma and rgb z-buffers: bit-equal to the eager form (one counted read
-    of the two tier lengths) and within test_torch_splat's tolerances of
-    the reference."""
+    """Both surfel tiers in capture form (at most max_visible / 2048 and /
+    512 chunks, one WHILE node each) for the depth, packed luma and rgb
+    z-buffers: bit-equal to the eager form (one counted read of the two
+    tier lengths) and within test_torch_splat's tolerances of the
+    reference."""
     by_cap, pose_j, pose_t = splat_inputs
     jv, tv, cfg_j, cfg_t = by_cap[cap]
     ids, n_surf = tsplat._surfel_block_list(tv, cfg_t)
@@ -172,6 +227,143 @@ def test_surfel_tiers_upper_bound_form_match_reference(splat_inputs, captured, c
     assert np.mean(np.abs(zt[both] - zj[both]) > 1e-5) < 1e-3
     assert np.mean(wt != wj) < 1e-3
     np.testing.assert_array_equal(ct >= 0, np.isfinite(zt))
+
+
+# Tier list lengths: the boundaries of tier 1's chunks of 2048 and tier 2's
+# of 512, the list's capacity and a length past it.
+TIER_COUNTS = (0, 1, 511, 512, 513, 2047, 2048, 2049, CFG_T.max_visible,
+               CFG_T.max_visible + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _tier_list():
+    """A surfel block list of the whole capacity holding only blocks that
+    use tier 2's slots (each of the fused orbit's such blocks, again and
+    again): at every length both tiers then scatter that many blocks.  A
+    block scattered twice writes the same minimum."""
+    jv, tv, pose_j, pose_t = fused_orbit_volumes()
+    ids, n = tsplat._surfel_block_list(tv, CFG_T)
+    full = ids[:int(n)][tv.surf_count[ids[:int(n)].long()] > CFG_T.surfel_slots // 2]
+    assert 0 < full.numel() < 512
+    cap = ids.shape[0]
+    return full.repeat(-(-cap // full.numel()))[:cap].clone(), jv, tv, pose_j, pose_t
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_tiers():
+    """The reference's depth z-buffer of ``_tier_list`` at a given length,
+    one compile for every length."""
+    @jax.jit
+    def zbuf(jv, pose_j, ids, n):
+        saved = jsplat._surfel_block_list
+        jsplat._surfel_block_list = lambda volume, config: (ids, n)
+        try:
+            return jsplat._splat_zbuf_surfels(jv, CAM_J, pose_j, H, W, CFG_J)
+        finally:
+            jsplat._surfel_block_list = saved
+
+    return zbuf
+
+
+@pytest.mark.parametrize("count", TIER_COUNTS)
+def test_surfel_tier_bodies_match_reference_at_boundary_counts(count, monkeypatch):
+    """Both tiers' device-offset bodies at every boundary length of their
+    lists, a length past the capacity among them: the depth z-buffer of
+    each form (the WHILE stand-in, every chunk, eager) within
+    test_torch_splat's tolerances of the reference's at that length (at
+    most the capacity), and the three forms' depth, luma and rgb z-buffers
+    bit-equal."""
+    ids, jv, tv, pose_j, pose_t = _tier_list()
+    n = torch.tensor(count, dtype=torch.int32)
+    monkeypatch.setattr(tsplat, "_surfel_block_list", lambda volume, config: (ids, n))
+
+    def zbufs():
+        return (tsplat._splat_zbuf_surfels(tv, CAM_T, pose_t, H, W, CFG_T),
+                tsplat._splat_zbuf_surfels(tv, CAM_T, pose_t, H, W, CFG_T, luma=True),
+                *tsplat._splat_zbuf_surfels(tv, CAM_T, pose_t, H, W, CFG_T,
+                                            with_color=True))
+
+    eager = zbufs()
+    monkeypatch.setattr(sync, "capturing", lambda: True)
+    for stand_in in STAND_INS.values():
+        monkeypatch.setattr(sync, "_while_node", stand_in)
+        for a, b in zip(zbufs(), eager):
+            assert torch.equal(a, b)
+    zj = np.asarray(_reference_tiers()(jv, pose_j, jnp.asarray(ids.numpy()),
+                                       jnp.asarray(min(count, ids.shape[0]), jnp.int32)))
+    zt = eager[0].numpy()
+    assert np.mean(np.isfinite(zt) != np.isfinite(zj)) < 1e-3
+    assert np.isfinite(zt).any() == (count > 0)
+    both = np.isfinite(zt) & np.isfinite(zj)
+    assert np.sum(np.abs(zt[both] - zj[both]) > 1e-5) <= 1e-3 * both.sum()
+
+
+LOOP_CAP, LOOP_CHUNK = 16, 4
+
+
+@pytest.mark.parametrize("form", ["eager", "skip", "all"])
+@pytest.mark.parametrize("count", [0, 1, LOOP_CHUNK - 1, LOOP_CHUNK, LOOP_CHUNK + 1,
+                                   LOOP_CAP, LOOP_CAP + 1, 10 * LOOP_CAP])
+def test_chunk_loop_runs_a_body_a_chunk_below_the_capped_count(monkeypatch, form, count):
+    """``sync.chunk_loop`` eager (the count read once on the host) and the
+    WHILE node's rule run ceil(min(count, capacity) / chunk) bodies, at
+    offsets 0, chunk, ... as 0-d int64 tensors, a count past the capacity
+    included; every chunk to the capacity runs capacity / chunk."""
+    if form != "eager":
+        monkeypatch.setattr(sync, "capturing", lambda: True)
+        monkeypatch.setattr(sync, "_while_node", STAND_INS[form])
+    seen = []
+
+    def body(offset):
+        assert offset.dtype == torch.int64 and offset.ndim == 0
+        seen.append(int(offset))
+
+    reads, bodies = sync.read_int.count, sync.chunk_loop.count
+    sync.chunk_loop(torch.tensor(count, dtype=torch.int32), LOOP_CAP, LOOP_CHUNK, body)
+    trips = (LOOP_CAP if form == "all" else min(count, LOOP_CAP)) + LOOP_CHUNK - 1
+    assert seen == list(range(0, trips // LOOP_CHUNK * LOOP_CHUNK, LOOP_CHUNK))
+    if form == "eager":
+        assert sync.read_int.count - reads == 1
+        assert sync.chunk_loop.count - bodies == len(seen)
+        want, bodies = list(seen), sync.chunk_loop.count
+        seen.clear()
+        sync.chunk_loop(torch.tensor(count, dtype=torch.int32), LOOP_CAP, LOOP_CHUNK,
+                        body, host_count=count)
+        assert seen == want and sync.chunk_loop.count - bodies == len(want)
+        assert sync.read_int.count - reads == 1
+    with pytest.raises(ValueError):
+        sync.chunk_loop(torch.tensor(count, dtype=torch.int32), LOOP_CAP, 3, body)
+
+
+@dataclasses.dataclass
+class _Tree:
+    a: torch.Tensor
+    b: tuple
+
+
+@pytest.mark.parametrize("value", [0, 1, 5])
+def test_cond_through_ifelse_node_matches_eager(monkeypatch, value):
+    """``cond`` captured as one IF/ELSE node (on ``pred != 0``, a 0-d bool)
+    returns the tree the eager ``cond`` returns: fresh tensors from either
+    branch, and an input tensor that both return at the same place, in the
+    true branch's buffers."""
+    x = torch.arange(6, dtype=torch.float32)
+    shared = torch.full((2,), 7.0)
+
+    def branch(scale):
+        return lambda: _Tree(x * scale, (shared, (x + scale).to(torch.int32)))
+
+    pred = torch.tensor(value, dtype=torch.int32)
+    want = sync.cond(pred, branch(2.0), branch(-3.0))
+    nodes = []
+    monkeypatch.setattr(sync, "capturing", lambda: True)
+    monkeypatch.setattr(sync, "_cond_node",
+                        lambda p, *bodies: (nodes.append(p), cond_node(p, *bodies)))
+    got = sync.cond(pred, branch(2.0), branch(-3.0))
+    assert len(nodes) == 1 and bool(nodes[0]) == bool(value)
+    assert got.b[0] is shared
+    for g, w in zip(sync.tensor_leaves(got), sync.tensor_leaves(want)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def test_cond_picks_the_branch_eagerly():

@@ -199,10 +199,13 @@ _HOST_READS = ("item", "tolist", "numpy", "cpu", "__bool__", "__int__", "__float
 def test_captured_branches_read_nothing(monkeypatch, mode, known):
     """What a capture traces of ``fusion.step`` (every mode, auto-photo's
     two ``cond``s in depth mode) and of ``step_known_pose``, with
-    ``sync.capturing()`` true and every IF node's body run as a capture
-    runs it, reaches no host read: ``read_int`` / ``read_ints`` and every
-    tensor method that copies to the host raise, through
-    ``sparse.integrate_sparse`` and ``splat._splat_zbuf_surfels`` too."""
+    ``sync.capturing()`` true and every conditional node's body run as a
+    capture runs it (each WHILE body once a chunk to the capacity, both
+    bodies of each IF/ELSE), reaches no host read: ``read_int`` /
+    ``read_ints`` and every tensor method that copies to the host raise,
+    through ``sparse.integrate_sparse`` and ``splat._splat_zbuf_surfels``
+    too.  Every loop is one WHILE node on a 0-d int32 device count and
+    every ``cond`` one IF/ELSE node on a 0-d bool."""
     from vulcan_tpu_torch.ops import sparse
     from vulcan_tpu_torch.utils import sync
 
@@ -213,11 +216,17 @@ def test_captured_branches_read_nothing(monkeypatch, mode, known):
         state = fusion.step(state, torch.from_numpy(d.copy()), torch.from_numpy(c.copy()), CFG_T,
                             mode)
     d, c = (torch.from_numpy(x.copy()) for x in frames[2])
-    nodes, calls = [], {"integrate": 0, "zbuf": 0}
+    loops, conds, calls = [], [], {"integrate": 0, "zbuf": 0}
 
-    def node(pred, fn):
-        nodes.append(pred)
-        fn()
+    def while_node(count, bound, chunk, body):
+        loops.append((count, bound, chunk))
+        for offset in torch.arange(0, bound, chunk):
+            body(offset)
+
+    def cond_node(pred, *bodies):
+        conds.append((pred, len(bodies)))
+        for body in bodies:
+            body()
 
     def counted(name, fn):
         def run(*a, **k):
@@ -229,7 +238,8 @@ def test_captured_branches_read_nothing(monkeypatch, mode, known):
         raise AssertionError("a host read in the captured step")
 
     monkeypatch.setattr(sync, "capturing", lambda: True)
-    monkeypatch.setattr(sync, "_if_node", node)
+    monkeypatch.setattr(sync, "_while_node", while_node)
+    monkeypatch.setattr(sync, "_cond_node", cond_node)
     monkeypatch.setattr(sparse, "integrate_sparse",
                         counted("integrate", sparse.integrate_sparse))
     monkeypatch.setattr(splat, "_splat_zbuf_surfels",
@@ -246,9 +256,13 @@ def test_captured_branches_read_nothing(monkeypatch, mode, known):
         fusion.step(state, d, c, CFG_T, mode)
     monkeypatch.undo()
     assert calls["integrate"] == 1 and calls["zbuf"] >= 1
-    bound = CFG_T.alloc_capacity // CFG_T.integrate_chunk
-    assert len(nodes) >= bound + (2 if mode == "depth" and not known else 0)
-    assert all(p.dtype == torch.bool and p.ndim == 0 for p in nodes)
+    # The integrate loop and the two tiers of each render (both of the
+    # auto-photo render's branches are captured).
+    assert len(loops) == (5 if mode == "depth" and not known else 3)
+    assert (CFG_T.alloc_capacity, CFG_T.integrate_chunk) in [(b, c) for _, b, c in loops]
+    assert all(n.dtype == torch.int32 and n.ndim == 0 and b % c == 0 for n, b, c in loops)
+    assert len(conds) == (2 if mode == "depth" and not known else 0)
+    assert all(p.dtype == torch.bool and p.ndim == 0 and k == 2 for p, k in conds)
 
 
 def test_uint16_uint8_input_equals_float_input():

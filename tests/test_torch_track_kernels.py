@@ -395,15 +395,18 @@ def test_associate_grid_fills_the_card_at_the_finest_level():
 
 def test_kernel_signatures_match_the_c_entry_points():
     """Every ctypes binding has the C entry point's parameters, in order
-    (a pointer as c_void_p, int, float): a wrong count or kind would pass
-    garbage to the card, and nothing here compiles the sources."""
+    (a pointer as c_void_p, int, float, a WHILE node's handle as unsigned
+    long long): a wrong count or kind would pass garbage to the card, and
+    nothing here compiles the sources."""
     text = "".join(p.read_text() for p in sorted(cuda_kernels.CSRC.glob("*.cu")))
-    kinds = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
+    kinds = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float,
+             "unsigned long long": ctypes.c_ulonglong}
     assert {"vulcan_icp_associate", "vulcan_icp_rows", "vulcan_icp_solve",
-            "vulcan_icp_rows_solve"} <= set(cuda_kernels._SIGNATURES)
+            "vulcan_icp_rows_solve", "vulcan_graph_while", "vulcan_graph_while_next",
+            "vulcan_graph_cond"} <= set(cuda_kernels._SIGNATURES)
     for name, argtypes in cuda_kernels._SIGNATURES.items():
         m = re.search(rf'extern "C" int {name}\((.*?)\)\s*\{{', text, re.S)
         assert m, name
         params = [p.strip() for p in m.group(1).split(",")]
-        got = [kinds["ptr" if "*" in p else p.split()[0]] for p in params]
+        got = [kinds["ptr" if "*" in p else " ".join(p.split()[:-1])] for p in params]
         assert got == list(argtypes), name

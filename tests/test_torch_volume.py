@@ -18,7 +18,9 @@ from vulcan_tpu_torch.ops import blocks as tB
 from vulcan_tpu_torch.ops import hashing as th
 from vulcan_tpu_torch.ops import sparse as tsp
 
-from ._torch_port import CAM_J, CAM_T, CFG_J, CFG_T, H, W, jflat, orbit, scene, se3_t, t
+from ._torch_port import (
+    CAM_J, CAM_T, CFG_J, CFG_T, H, W, fused_orbit_volumes, jflat, orbit, scene, se3_t, t,
+)
 
 INT_FIELDS = (
     "hash_codes", "hash_values", "free_count", "block_coords", "visible_ids",
@@ -187,3 +189,69 @@ def test_integrate_sparse_matches_reference(two_frames):
                 getattr(tv, name).numpy(), ref[name], err_msg=name
             )
         assert ref["mesh_dirty"].sum() > 0 and ref["surf_count"].sum() > 0
+
+
+@pytest.fixture(scope="module")
+def query_points():
+    """World points (N, 3) on the fused orbit volume, from a seed: inside
+    its allocated blocks, in the last voxel row of a block along one to
+    three axes (the trilinear corners then lie in the next blocks), on
+    voxel centres (the nearest sample's rounding), and in a far box with
+    no block allocated."""
+    jv, tv, _, _ = fused_orbit_volumes()
+    rng = np.random.default_rng(13)
+    coords = np.asarray(jv.block_coords)[1:int(jv.free_count)]
+    bs, vs = CFG_T.block_size, CFG_T.voxel_size
+    n = 512
+    blocks = coords[rng.integers(0, len(coords), n)]
+    local = rng.integers(0, bs, (n, 3)).astype(np.float64)
+    across = local.copy()
+    across[rng.random((n, 3)) < 0.5] = bs - 1
+    across[np.arange(n), rng.integers(0, 3, n)] = bs - 1
+    frac = rng.random((n, 3))
+    inside = (blocks * bs + local + frac) * vs
+    faces = (blocks * bs + across + frac) * vs
+    centres = (blocks * bs + local) * vs
+    far = rng.uniform(-20.0, 20.0, (n, 3)) + np.where(rng.random((n, 1)) < 0.5, 40.0, -40.0)
+    pts = np.concatenate([inside, faces, centres, far]).astype(np.float32)
+    return jv, tv, pts
+
+
+def test_point_queries_match_reference(query_points):
+    """The seven point queries of ``ops/blocks.py`` against the reference's:
+    voxel coordinates, block and local indices, flat offsets, the voxels
+    read and the nearest sample exact; the trilinear tsdf and rgb within
+    2e-6 (f32 rounding of eight weighted terms of magnitude <= 1) with
+    their ``ok`` flags exact, on points inside the volume, across block
+    faces and far outside it (the null block: tsdf 1, weight 0)."""
+    jv, tv, pts = query_points
+    p_j, p_t = jnp.asarray(pts), t(pts)
+    q_j, q_t = jB.world_to_voxel(p_j, CFG_J), tB.world_to_voxel(p_t, CFG_T)
+    np.testing.assert_array_equal(q_t.numpy(), np.asarray(q_j))
+    g = np.floor(np.asarray(q_j)).astype(np.int32)
+    (jblock, jlocal), (tblock, tlocal) = (jB.voxel_block_local(jnp.asarray(g), CFG_J),
+                                          tB.voxel_block_local(t(g), CFG_T))
+    np.testing.assert_array_equal(tblock.numpy(), np.asarray(jblock))
+    np.testing.assert_array_equal(tlocal.numpy(), np.asarray(jlocal))
+    assert (np.asarray(jblock) < 0).any() and (np.asarray(jlocal) == 7).any()
+    np.testing.assert_array_equal(tB.local_flat(tlocal, CFG_T).numpy(),
+                                  np.asarray(jB.local_flat(jlocal, CFG_J)))
+    for name, jf, tf, arg in (("read_voxels", jB.read_voxels, tB.read_voxels, g),
+                              ("nearest", jB.sample_tsdf_nearest,
+                               tB.sample_tsdf_nearest, pts)):
+        (jt, jw), (tt, tw) = jf(jv, jnp.asarray(arg), CFG_J), tf(tv, t(arg), CFG_T)
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt), err_msg=name)
+        np.testing.assert_array_equal(tw.numpy(), np.asarray(jw), err_msg=name)
+        observed = np.asarray(jw) > 0
+        assert 0 < observed.sum() < len(pts), name
+        np.testing.assert_array_equal(np.asarray(jt)[-512:], 1.0)
+    jval, jok = jB.sample_tsdf_trilinear(jv, p_j, CFG_J)
+    tval, tok = tB.sample_tsdf_trilinear(tv, p_t, CFG_T)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    np.testing.assert_allclose(tval.numpy(), np.asarray(jval), rtol=0, atol=2e-6)
+    assert 0 < np.asarray(jok).sum() < len(pts)
+    jrgb, jcok = jB.sample_color_trilinear(jv, p_j, CFG_J)
+    trgb, tcok = tB.sample_color_trilinear(tv, p_t, CFG_T)
+    np.testing.assert_array_equal(tcok.numpy(), np.asarray(jcok))
+    np.testing.assert_allclose(trgb.numpy(), np.asarray(jrgb), rtol=0, atol=2e-6)
+    assert 0 < np.asarray(jcok).sum() < len(pts)

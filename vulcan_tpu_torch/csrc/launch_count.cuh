@@ -2,8 +2,9 @@
 // counter (a device word of ops/cuda_kernels.py's launch counters, or null)
 // and adds one to it from the first thread of its first block, so that
 // every launch counts where it runs: eagerly, and in each replay of a CUDA
-// graph that holds it (a capture launches nothing; an IF node's body that
-// does not run launches nothing).
+// graph that holds it (a capture launches nothing; a kernel in a
+// conditional node's body counts each time the body runs, and not at all
+// where it does not).
 #pragma once
 
 __device__ __forceinline__ void count_launch(unsigned int* launches) {

@@ -187,6 +187,21 @@ def coords_in_bounds(coords: torch.Tensor) -> torch.Tensor:
     return torch.all((coords >= -COORD_BOUND) & (coords < COORD_BOUND), dim=-1)
 
 
+# --- sparse voxel access -------------------------------------------------
+
+
+def world_to_voxel(p: torch.Tensor, config: Config) -> torch.Tensor:
+    """World points (..., 3) -> continuous voxel coords."""
+    return p / config.voxel_size
+
+
+def voxel_block_local(g: torch.Tensor, config: Config):
+    """Integer voxel indices (..., 3) -> (block_coords, local_idx)."""
+    bs = config.block_size
+    block = torch.div(g, bs, rounding_mode="floor")
+    return block, g - block * bs
+
+
 def lookup_blocks(volume: VolumeState, block_coords: torch.Tensor,
                   config: Config) -> torch.Tensor:
     """Hash-lookup block coords (..., 3) -> block index (0 = null/missing)."""
@@ -194,6 +209,84 @@ def lookup_blocks(volume: VolumeState, block_coords: torch.Tensor,
         volume.hash_codes, volume.hash_values, block_coords, config
     )
     return torch.where(found, idx, 0)
+
+
+def local_flat(local: torch.Tensor, config: Config) -> torch.Tensor:
+    """Local voxel coords (..., 3) -> flat index (lx*8 + ly)*8 + lz."""
+    bs = config.block_size
+    return (local[..., 0] * bs + local[..., 1]) * bs + local[..., 2]
+
+
+def _voxel_rows(volume: VolumeState, g: torch.Tensor, config: Config):
+    """(block index, flat local index) of integer voxel coords g (..., 3),
+    as int64 indices into the (num_blocks, 512) voxel arrays; an
+    unallocated voxel's block is the null block 0."""
+    block, local = voxel_block_local(g, config)
+    b = lookup_blocks(volume, block, config)
+    return b.to(torch.int64), local_flat(local, config).to(torch.int64)
+
+
+def read_voxels(volume: VolumeState, g: torch.Tensor, config: Config):
+    """TSDF and weight at integer voxel coords g (..., 3); unallocated
+    voxels read the null block: tsdf 1, weight 0."""
+    b, li = _voxel_rows(volume, g, config)
+    return volume.tsdf[b, li], volume.weight[b, li]
+
+
+def sample_tsdf_nearest(volume: VolumeState, p_world: torch.Tensor, config: Config):
+    """Nearest-voxel (tsdf, weight) at world points (..., 3)."""
+    g = torch.round(world_to_voxel(p_world, config)).to(torch.int32)
+    return read_voxels(volume, g, config)
+
+
+def _corners(p_world: torch.Tensor, config: Config):
+    """The 8 voxels around world points (..., 3), each with its trilinear
+    weight: yields (integer voxel coords, weight) in the reference's
+    order, x outermost."""
+    q = world_to_voxel(p_world, config)
+    q0 = torch.floor(q)
+    frac = q - q0
+    q0 = q0.to(torch.int32)
+    for dx in (0, 1):
+        wx = frac[..., 0] if dx else 1.0 - frac[..., 0]
+        for dy in (0, 1):
+            wy = frac[..., 1] if dy else 1.0 - frac[..., 1]
+            for dz in (0, 1):
+                wz = frac[..., 2] if dz else 1.0 - frac[..., 2]
+                step = torch.stack([q0[..., 0] + dx, q0[..., 1] + dy, q0[..., 2] + dz], -1)
+                yield step, wx * wy * wz
+
+
+def sample_tsdf_trilinear(volume: VolumeState, p_world: torch.Tensor, config: Config):
+    """Trilinear TSDF at world points (..., 3) -> (value, all_observed):
+    8 hash lookups a point (one a corner, across blocks), ``ok`` only
+    where every corner was observed (weight > 0)."""
+    val = torch.zeros(p_world.shape[:-1], dtype=volume.tsdf.dtype, device=p_world.device)
+    ok = torch.ones(p_world.shape[:-1], dtype=torch.bool, device=p_world.device)
+    for g, w in _corners(p_world, config):
+        f, weight = read_voxels(volume, g, config)
+        val = val + w * f
+        ok = ok & (weight > 0.0)
+    return val, ok
+
+
+def sample_color_trilinear(volume: VolumeState, p_world: torch.Tensor, config: Config):
+    """Trilinear colour at world points (..., 3) -> (rgb, any_observed):
+    an unobserved corner (colour weight 0) weighs 0, so colour bleeds less
+    at boundaries; ``ok`` where the weights sum above 1e-6 (rgb 0
+    elsewhere)."""
+    shape = p_world.shape[:-1]
+    rgb = torch.zeros(shape + (3,), dtype=torch.float32, device=p_world.device)
+    wsum = torch.zeros(shape, dtype=torch.float32, device=p_world.device)
+    for g, w in _corners(p_world, config):
+        b, li = _voxel_rows(volume, g, config)
+        c, cw = unpack_voxel_color(volume.colorpack[b, li])
+        w = w * torch.where(cw > 0.0, 1.0, 0.0)
+        rgb = rgb + w[..., None] * c
+        wsum = wsum + w
+    ok = wsum > 1e-6
+    rgb = rgb / torch.clamp(wsum, min=1e-6)[..., None]
+    return torch.where(ok[..., None], rgb, 0.0), ok
 
 
 def pack_voxel_color(rgb: torch.Tensor, cweight: torch.Tensor) -> torch.Tensor:

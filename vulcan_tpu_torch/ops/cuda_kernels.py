@@ -148,8 +148,11 @@ _SIGNATURES = {
     "vulcan_icp_rows_solve": [_P] * 15 + [_I] + [_F] * 12 + [_I] * 3 + [_P] * 4,
     "vulcan_graph_prepare": [_P],
     "vulcan_graph_stream": [_P],
-    "vulcan_graph_if_begin": [_P, _P, _P, _P],
-    "vulcan_graph_if_end": [_P],
+    "vulcan_graph_while": [_P, _I, _P, _P, _P, _P, _P],
+    "vulcan_graph_while_next": [ctypes.c_ulonglong, _P, _I, _I, _P, _P, _P],
+    "vulcan_graph_cond": [_P, _I, _P, _P, _P],
+    "vulcan_graph_body_begin": [_P, _P],
+    "vulcan_graph_body_end": [_P],
 }
 
 
@@ -215,7 +218,7 @@ def _launch(fn, x: torch.Tensor, *args) -> int:
 # eagerly or in a replay of a CUDA graph (whose launches the host never
 # sees).  ``launch_counts`` reads them, ``reset_launch_counts`` zeroes them.
 COUNTED = ("bilateral", "fill_smooth", "icp_associate", "icp_rows", "icp_solve",
-           "icp_rows_solve", "graph_if")
+           "icp_rows_solve", "graph_while", "graph_while_next", "graph_ifelse")
 _counters: dict[int, torch.Tensor] = {}
 
 
@@ -894,12 +897,12 @@ def icp_rows_solve(depth: torch.Tensor, vertices: torch.Tensor, normals: torch.T
     return sums, out
 
 
-# Conditional IF nodes of a graph capture (csrc/graph.cu; utils/sync.py).
+# Conditional nodes of a graph capture (csrc/graph.cu; utils/sync.py).
 def graph_prepare(device: torch.device) -> None:
-    """Load the IF nodes' one-thread kernel on ``device`` and make its
-    launch counters, before a capture."""
+    """Load the conditional nodes' one-thread kernels on ``device`` and make
+    the launch counters, before a capture."""
     x = torch.empty(0, device=device)
-    launch_counter(x, "graph_if")
+    launch_counter(x, "graph_while")
     _raise_on(_launch(load().vulcan_graph_prepare, x), "graph_prepare")
 
 
@@ -907,7 +910,7 @@ _graph_streams: dict = {}
 
 
 def graph_streams(device: torch.device, n: int) -> list:
-    """``n`` streams of the IF bodies' own on ``device`` (created once; a
+    """``n`` streams of the node bodies' own on ``device`` (created once; a
     capture may not create streams), as ``torch.cuda.ExternalStream``s."""
     have = _graph_streams.setdefault(device.index, [])
     while len(have) < n:
@@ -918,17 +921,54 @@ def graph_streams(device: torch.device, n: int) -> list:
     return have[:n]
 
 
-def graph_if_begin(pred: torch.Tensor, body: torch.cuda.Stream) -> None:
-    """Add an IF node on the 0-d bool ``pred`` to the graph that the current
-    stream is capturing, and start capturing ``body`` into its body."""
-    if pred.dtype != torch.bool or pred.ndim != 0 or not pred.is_cuda:
-        raise ValueError("an IF node needs a 0-d bool CUDA predicate")
-    _raise_on(_launch(load().vulcan_graph_if_begin, pred, pred.data_ptr(),
-                      launch_counter(pred, "graph_if"), body.cuda_stream),
-              "graph_if_begin")
+def _check_scalar(x: torch.Tensor, dtype: torch.dtype, what: str) -> None:
+    if x.dtype != dtype or x.ndim != 0 or not x.is_cuda:
+        raise ValueError(f"{what}: expected a 0-d {dtype} CUDA tensor, got "
+                         f"{x.dtype} of shape {tuple(x.shape)} on {x.device}")
 
 
-def graph_if_end(body: torch.cuda.Stream) -> None:
-    """End the capture of an IF node's body."""
-    _raise_on(load().vulcan_graph_if_end(body.cuda_stream), "graph_if_end")
+def graph_while(count: torch.Tensor, bound: int, offset: torch.Tensor) -> tuple[int, int]:
+    """Add a WHILE node over the 0-d int32 ``count`` (capped at ``bound``) to
+    the graph that the current stream is capturing, after a launch that sets
+    the 0-d int64 ``offset`` to 0.  Returns the node's handle and its body
+    graph (``graph_body_begin``), whose last node is ``graph_while_next``."""
+    _check_scalar(count, torch.int32, "graph_while count")
+    _check_scalar(offset, torch.int64, "graph_while offset")
+    handle, body = ctypes.c_ulonglong(), ctypes.c_void_p()
+    _raise_on(_launch(load().vulcan_graph_while, count, count.data_ptr(), bound,
+                      offset.data_ptr(), launch_counter(count, "graph_while"),
+                      ctypes.byref(handle), ctypes.byref(body)), "graph_while")
+    return handle.value, body.value
 
+
+def graph_while_next(handle: int, count: torch.Tensor, bound: int, chunk: int,
+                     offset: torch.Tensor) -> None:
+    """The last node of a WHILE body, on the current (body) stream: ``offset``
+    moves on by ``chunk`` and the loop goes on while it is below
+    ``min(count, bound)``."""
+    _raise_on(_launch(load().vulcan_graph_while_next, count, handle, count.data_ptr(), bound,
+                      chunk, offset.data_ptr(), launch_counter(count, "graph_while_next")),
+              "graph_while_next")
+
+
+def graph_cond(pred: torch.Tensor, size: int) -> list[int]:
+    """Add an IF/ELSE node (``size`` 2; 1: a plain IF node) on the 0-d bool
+    ``pred`` to the graph that the current stream is capturing.  Returns its
+    body graphs: the true branch's, then the false one's."""
+    _check_scalar(pred, torch.bool, "graph_cond pred")
+    bodies = (ctypes.c_void_p * size)()
+    _raise_on(_launch(load().vulcan_graph_cond, pred, pred.data_ptr(), size,
+                      launch_counter(pred, "graph_ifelse"), ctypes.byref(bodies)),
+              "graph_cond")
+    return list(bodies)
+
+
+def graph_body_begin(graph: int, body: torch.cuda.Stream) -> None:
+    """Start capturing the stream ``body`` into a conditional node's body
+    graph."""
+    _raise_on(load().vulcan_graph_body_begin(graph, body.cuda_stream), "graph_body_begin")
+
+
+def graph_body_end(body: torch.cuda.Stream) -> None:
+    """End the capture of a conditional node's body."""
+    _raise_on(load().vulcan_graph_body_end(body.cuda_stream), "graph_body_end")

@@ -13,7 +13,6 @@ buffer donation; copying the ~0.45 GB volume every frame would dominate.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import torch
 
@@ -120,35 +119,30 @@ def integrate_sparse(
 
     Default work list: ``volume.visible_ids``; the online pipeline passes
     the frame's truncation-band list from allocation instead.  The
-    reference's ``lax.while_loop`` over chunks of the list: eager, the
-    chunk count follows the list's length, read on the host once per call
-    (``utils.sync.read_int``) unless the caller has read it already
-    (``host_count``); while a CUDA graph is captured, the loop
-    runs to the list's capacity and each chunk is an IF node on
-    ``start < count`` (``utils.sync.run_if``).  Rows past the count are
-    masked and write back their old values, so the two forms fuse the same
-    volume.
+    reference's ``lax.while_loop`` over chunks of the list
+    (``utils.sync.chunk_loop``): eager, the chunk count follows the list's
+    length, read on the host once per call unless the caller has read it
+    already (``host_count``); while a CUDA graph is captured, the loop is
+    one WHILE node on the device count.  A chunk's rows are the list's
+    entries at its device offset; rows past the count (or the list's
+    capacity) are masked and write back their old values.
     """
     work_ids = volume.visible_ids if ids is None else ids
     work_count = volume.num_visible if count is None else count
     V = work_ids.shape[0]
     C = min(config.integrate_chunk, V)
-    if sync.capturing():
-        bound = V
-    else:
-        bound = sync.read_int(work_count) if host_count is None else host_count
     packed_dc = _pack_depth_color(frame.depth, frame.color, config)
     work_ids = work_ids.to(torch.int64)
+    lanes = torch.arange(C, device=work_ids.device)
 
     # surf_overflow is a per-frame gauge: it resets here, and the chunks
-    # add to it in place (a chunk an IF node skips adds nothing).
+    # add to it in place.
     surf_overflow = torch.zeros((), dtype=torch.int32, device=work_ids.device)
 
-    def chunk_at(start: int) -> None:
-        chunk = work_ids[start:start + C]
-        row_valid = (
-            start + torch.arange(C, device=chunk.device) < work_count
-        ) & (chunk > 0)
+    def chunk_at(offset: torch.Tensor) -> None:
+        rows = offset + lanes
+        chunk = work_ids[rows]
+        row_valid = (rows < work_count) & (chunk > 0)
         tsdf, weight, cpack, surf, s_count, s_drop, mark = _integrate_batch(
             volume, frame, packed_dc, chunk, row_valid, config
         )
@@ -162,6 +156,5 @@ def integrate_sparse(
         volume.mesh_dirty.index_copy_(0, chunk, volume.mesh_dirty[chunk] | mark)
         surf_overflow.add_(s_drop.to(torch.int32))
 
-    for start in range(0, bound, C):
-        sync.run_if(start < work_count, functools.partial(chunk_at, start))
+    sync.chunk_loop(work_count, V, C, chunk_at, host_count)
     return dataclasses.replace(volume, surf_overflow=surf_overflow)

@@ -125,12 +125,12 @@ def _splat_zbuf_surfels(
     """Z-buffer (H*W,) from the persistent surfel lists.  Tier 1 scatters
     slots [0, S/2) of every surface block in chunks of 2048 blocks, tier 2
     slots [S/2, S) of the blocks that use them in chunks of 512: the
-    reference's two ``lax.while_loop``s.  Eager, the tiers' lengths are
-    read on the host (one counted read) to size the chunk loops; while a
-    CUDA graph is captured, each loop runs to the list's capacity with
-    every chunk an IF node on ``start < length``
-    (``utils.sync.run_if``): a chunk past the length would scatter only
-    masked lanes into the trash slot.
+    reference's two ``lax.while_loop``s (``utils.sync.chunk_loop``).
+    Eager, the tiers' lengths are read on the host (one counted read) to
+    size the chunk loops; while a CUDA graph is captured, each loop is one
+    WHILE node on the device length.  A chunk's blocks are the list's
+    entries at its device offset; lanes past the length scatter into the
+    trash slot.
 
     Returns the float32 z-buffer (+inf = empty); with ``with_color``
     (zbuf, rgb888 int32 buffer, -1 = no colour), whose second pass
@@ -153,23 +153,25 @@ def _splat_zbuf_surfels(
     rowv = (torch.arange(V, device=dev) < n_surf) & full
     ids2 = compact_mask(rowv, render_ids, V, 0)
     n2 = torch.sum(rowv).to(torch.int32)
-    bounds = (V, V) if sync.capturing() else read_ints(n_surf, n2)
+    lengths = (None, None) if sync.capturing() else read_ints(n_surf, n2)
 
-    def scatter_tier(buf, ids_list, n_list, bound, s_lo, s_hi, chunk, zref=None):
+    def scatter_tier(buf, ids_list, n_list, host_n, s_lo, s_hi, chunk, zref=None):
         """Scatter surfel slots [s_lo, s_hi) of the first ``n_list`` listed
         blocks into ``buf`` (index npix is a trash slot for masked lanes),
-        in chunks up to ``bound`` blocks: min-z, or the packed luma word,
-        or (``zref`` given) the rgb888 colour of the surfels whose depth
-        won ``zref``."""
-        C = min(chunk, ids_list.shape[0])
-        for start in range(0, bound, C):
-            sync.run_if(start < n_list, functools.partial(
-                scatter_chunk, buf, ids_list, n_list, start, C, s_lo, s_hi, zref))
+        in chunks of ``chunk`` blocks: min-z, or the packed luma word, or
+        (``zref`` given) the rgb888 colour of the surfels whose depth won
+        ``zref``.  ``host_n``: ``n_list`` read on the host (eager)."""
+        C = min(chunk, V)
+        lanes = torch.arange(C, device=dev)
+        sync.chunk_loop(n_list, V, C, functools.partial(
+            scatter_chunk, buf, ids_list, n_list, lanes, s_lo, s_hi, zref), host_n)
 
-    def scatter_chunk(buf, ids_list, n_list, start, C, s_lo, s_hi, zref):
-        """One chunk of ``scatter_tier``: blocks [start, start + C)."""
-        ids = ids_list[start:start + C].to(torch.int64)
-        rv = (start + torch.arange(C, device=dev) < n_list) & (ids > 0)
+    def scatter_chunk(buf, ids_list, n_list, lanes, s_lo, s_hi, zref, offset):
+        """One chunk of ``scatter_tier``: the blocks listed at
+        ``offset + lanes``."""
+        listed = offset + lanes
+        ids = ids_list[listed].to(torch.int64)
+        rv = (listed < n_list) & (ids > 0)
         rows = volume.surfpack[ids][:, s_lo:s_hi]
         lidx, t, valid, (gx, gy, gz) = B.unpack_surfels(rows)
         valid = valid & rv[:, None]
@@ -230,8 +232,8 @@ def _splat_zbuf_surfels(
         )
 
     def tiers(buf, zref=None):
-        scatter_tier(buf, render_ids, n_surf, bounds[0], 0, s1, 2048, zref)
-        scatter_tier(buf, ids2, n2, bounds[1], s1, S, 512, zref)
+        scatter_tier(buf, render_ids, n_surf, lengths[0], 0, s1, 2048, zref)
+        scatter_tier(buf, ids2, n2, lengths[1], s1, S, 512, zref)
         return buf[:npix]
 
     if luma:

@@ -12,7 +12,7 @@ the configuration reads nothing on the host, as one CUDA graph that
 dependent loops and branches go through ``utils.sync``: eager, the
 integrate chunk count, the splat's tier lengths and the auto-photo
 branches are read on the host (counted by ``utils.sync.read_int``);
-captured, they are IF nodes on the device values.
+captured, they are WHILE and IF/ELSE nodes on the device values.
 
 Auto-photo (depth mode, ``Config.auto_photo``): a frame whose geometric
 conditioning is weak arms combined tracking for ``auto_photo_hold``

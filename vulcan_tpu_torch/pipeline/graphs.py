@@ -80,7 +80,7 @@ def copy_leaves(dst: list[torch.Tensor], src: list[torch.Tensor]) -> bool:
 class _Graph:
     graph: torch.cuda.CUDAGraph
     inputs: list[torch.Tensor]      # the frame's buffers, in input order
-    body_pool: object               # what the IF nodes' bodies allocate
+    body_pool: object               # what the conditional nodes' bodies allocate
 
 
 class StepGraphs:

@@ -1,7 +1,7 @@
 """Where a frame's time goes, for one checkout or several compared in turns.
 
     python -m vulcan_tpu_torch.tools.stage_profile [--roots DIR ...]
-        [--out chiprun_out/stage_profile.json]
+        [--cells CELL ...] [--out chiprun_out/stage_profile.json]
 
 For each checkout root, in the order given (e.g. a parent's tree unpacked
 under ``build/``, then this one, this one, the parent: two versions
@@ -16,9 +16,14 @@ that checkout's own ``chip_smoke.py`` and ``vulcan_tpu_torch``:
     reads a frame over those frames; the last 10 frames under
     torch.profiler for the device's busy ms (the union of the kernels',
     copies' and fills' intervals: this tool's own ``timing.busy_ms`` in
-    every root; a reading above the median frame is discarded) and
-    operations a frame, and the idle share (1 - busy / median ms); the
-    graph's capture ms and
+    every root) and operations a frame, and the idle share (1 - busy /
+    median ms), with each counted kernel's launches a frame on the card
+    over those frames (the root's ``chip_smoke.launch_counts``, its
+    conditional nodes' set kernels and iterations among them) and in the
+    trace (by the root's ``chip_smoke.KERNEL_NAMES``): a busy reading above
+    the median frame, or from a trace that holds fewer of a counted
+    kernel than the card launched (CUPTI drops the kernels of conditional
+    bodies in some processes), is discarded; the graph's capture ms and
     memory pool MiB (``Pipeline.graph_stats``);
 
 and, on the 35-frame 480x640 orbit in depth and in combined mode, through
@@ -44,6 +49,9 @@ the rows), compared bit for bit with the first root's.
 
 Beside each root, the registers, stack and spills of every function of
 its ``csrc/icp.cu`` (``nvcc -Xptxas -v``, built here for the purpose).
+
+``--cells`` profiles the cells it names, in that order, in each root's
+process, and nothing else: no eager step, track kernels or registers.
 
 Prints a table and writes every run's report as JSON.  Needs the card; a
 root without ``chip_smoke.py`` or the package raises.
@@ -128,22 +136,29 @@ def cell(config, mode, cell_poses, cell_frames, k_profile=10):
         ms.append((time.perf_counter() - t0) * 1e3)
         reads.append(read_int.count - r0)
     torch.cuda.synchronize()
+    before = cs.launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for d16, c8 in cell_frames[n - k_profile:]:
             pipe.process(d16, c8)
             torch.cuda.synchronize()
+    after = cs.launch_counts()
     spans = device_spans(prof)
     timed = ms[cs.N_WARM:]
     busy = busy_ms(spans) / k_profile
     med = statistics.median(timed)
-    valid = busy <= med
+    card = {k: (after[k] - before[k]) / k_profile for k in after}
+    traced = {k: sum(pat in s[0] for s in spans) / k_profile
+              for k, pat in cs.KERNEL_NAMES.items()}
+    complete = all(traced[k] >= v for k, v in card.items() if k in traced)
+    valid = complete and busy <= med
     return dict(ms_median=med, ms_p90=statistics.quantiles(timed, n=10)[-1],
                 host_reads_per_frame=sum(reads[cs.N_WARM:]) / len(timed),
                 device_busy_ms=busy if valid else None, device_busy_ms_read=busy,
                 idle_share=1.0 - busy / med if valid else None,
                 device_ops_per_frame=len(spans) / k_profile,
                 armed_frames=armed, captured=getattr(pipe, "captured", False),
-                graph=getattr(pipe, "graph_stats", {}))
+                graph=getattr(pipe, "graph_stats", {}), launches_per_frame=card,
+                traced_launches_per_frame=traced, trace_complete=complete)
 
 
 def h1_ms():
@@ -226,16 +241,25 @@ def h1_ms():
     return dict(by_level=out, frame_ms=frame, fused=fused is not None), solve
 
 
-desk_poses = orbit_poses(245, center=(0.0, 0.0, -0.25), radius=1.5, height=0.55,
-                         span=2.0 * 3.141592653589793)
-desk_frames = cs.make_desk_frames(P, cam, desk_poses, 480, 640, dev)
-out = {"device": cs.nvidia_smi(), "root": os.getcwd(), "cells": {
-    "orbit/depth": cell(P.Config(), "depth", poses, frames),
-    "orbit/combined": cell(P.Config(), "combined", poses, frames),
-    "orbit/depth armed": cell(P.Config(auto_photo_enter=0.99), "depth", poses, frames),
-    "desk/combined": cell(P.Config(), "combined", desk_poses, desk_frames),
-}}
-del desk_frames
+def desk():
+    desk_poses = orbit_poses(245, center=(0.0, 0.0, -0.25), radius=1.5, height=0.55,
+                             span=2.0 * 3.141592653589793)
+    return cell(P.Config(), "combined", desk_poses,
+                cs.make_desk_frames(P, cam, desk_poses, 480, 640, dev))
+
+
+cells = {
+    "orbit/depth": lambda: cell(P.Config(), "depth", poses, frames),
+    "orbit/combined": lambda: cell(P.Config(), "combined", poses, frames),
+    "orbit/depth armed": lambda: cell(P.Config(auto_photo_enter=0.99), "depth", poses, frames),
+    "desk/combined": desk,
+}
+only = sys.argv[1:]
+out = {"device": cs.nvidia_smi(), "root": os.getcwd(),
+       "cells": {name: cells[name]() for name in (only or cells)}}
+if only:
+    print("STAGE_PROFILE " + json.dumps(out), flush=True)
+    raise SystemExit(0)
 out["h1"], out["solve_outputs"] = h1_ms()
 eager = getattr(cs, "eager_pipeline", lambda P: P.Pipeline)(P)
 for mode in ("depth", "combined"):
@@ -248,6 +272,9 @@ for mode in ("depth", "combined"):
     out[mode] = rep
 print("STAGE_PROFILE " + json.dumps(out), flush=True)
 '''
+
+
+CELLS = ("orbit/depth", "orbit/combined", "orbit/depth armed", "desk/combined")
 
 
 def _helpers() -> str:
@@ -311,9 +338,10 @@ def compare_solves(first: dict, other: dict) -> dict:
     return out
 
 
-def run_root(root: str) -> dict:
-    """One root's report (its own process, cwd = the root)."""
-    proc = subprocess.run([sys.executable, "-c", _helpers() + _CHILD], cwd=root,
+def run_root(root: str, cells=()) -> dict:
+    """One root's report (its own process, cwd = the root); with ``cells``,
+    those cells alone, in that order."""
+    proc = subprocess.run([sys.executable, "-c", _helpers() + _CHILD, *cells], cwd=root,
                           capture_output=True, text=True)
     sys.stderr.write(proc.stderr[-4000:])
     for line in proc.stdout.splitlines():
@@ -327,15 +355,26 @@ def _ms(x) -> str:
     return "discarded" if x is None else f"{x:7.3f}"
 
 
+def _node_launches(cell: dict) -> dict:
+    """A cell's launches a frame of the conditional nodes' kernels (the
+    counters named ``graph_*``, whatever the root's design)."""
+    return {k: v for k, v in cell.get("launches_per_frame", {}).items()
+            if k.startswith("graph")}
+
+
 def summary(label: str, rep: dict) -> str:
     rows = []
     for name, c in rep["cells"].items():
         rows.append(
             f"{label:>14s} {name:18s} {'graph' if c['captured'] else 'eager'} frame "
             f"{c['ms_median']:8.3f} ms (p90 {c['ms_p90']:8.3f}), busy "
-            f"{_ms(c['device_busy_ms'])}, idle {_ms(c['idle_share'])}, "
+            f"{_ms(c['device_busy_ms'])} (read {c['device_busy_ms_read']:.3f}, trace "
+            f"complete {c.get('trace_complete')}), idle {_ms(c['idle_share'])}, "
             f"{c['device_ops_per_frame']:7.0f} ops, reads {c['host_reads_per_frame']:.2f}, "
-            f"armed {c['armed_frames']}, graph {c['graph']}")
+            f"armed {c['armed_frames']}, graph {c['graph']}, conditional-node kernels a "
+            f"frame {_node_launches(c)}")
+    if "h1" not in rep:
+        return "\n".join(rows)
     for mode in ("depth", "combined"):
         r = rep[mode]
         track = r["stages"]["track"]
@@ -369,13 +408,16 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--roots", nargs="+", default=["."],
                         help="checkout roots, run in this order")
+    parser.add_argument("--cells", nargs="+", default=[], choices=CELLS,
+                        help="profile these cells alone, in this order, and nothing else")
     parser.add_argument("--out", default=os.path.join("chiprun_out", "stage_profile.json"))
     args = parser.parse_args(argv)
     reports = []
     for k, root in enumerate(args.roots):
-        rep = run_root(os.path.abspath(root))
-        rep["registers"] = ptxas_report(os.path.abspath(root))
-        if reports:
+        rep = run_root(os.path.abspath(root), args.cells)
+        if not args.cells:
+            rep["registers"] = ptxas_report(os.path.abspath(root))
+        if reports and not args.cells:
             rep["solve_vs_run_0"] = compare_solves(reports[0]["solve_outputs"],
                                                    rep["solve_outputs"])
         reports.append(rep)
