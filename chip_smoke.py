@@ -78,8 +78,11 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      and ATE, recorded, not judged);
   3c. the captured graph against the eager step (``graph_against_eager``),
      each cell with the counts set to 0 just before it: the orbit in depth
-     and combined mode, armed (auto_photo_enter=0.99) and the desk in
-     combined mode (with --parity also light and depth mode).  The eager
+     and combined mode, armed (auto_photo_enter=0.99), in color mode and at
+     known poses, the desk in combined mode (with --parity also light and
+     depth mode), and the render settings off the default: the orbit under
+     render_mode="march" in depth and combined mode (K2 0 a frame), with
+     splat_source="direct" and with splat_polish=2.  The eager
      step runs twice (whether it repeats bit for bit), then ``Pipeline``:
      poses a frame and every array of the final state must equal the
      eager ones wherever the eager runs agree (GRAPH_TOL); the replayed
@@ -144,12 +147,15 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      trace; with --profile also the device busy ms and operations of one
      extraction, update and decode.  Written to chiprun_out/mesh.json;
   8. render paths at 640x480, each orbit run with the counts set to 0 just
-     before it: (a) the orbit under render_mode="march" in depth and in
-     combined mode, K1 once a frame and K2 never (the march has no
-     fill/smooth step); (b) the orbit in depth mode with
+     before it, through the replayed graph (``check_graph_run``: no host
+     read a replayed frame, the WHILE and IF/ELSE nodes of ``want_nodes``
+     counted on the card): (a) the orbit under render_mode="march" in
+     depth and in combined mode, K1 once a frame and K2 never (the march
+     has no fill/smooth step); (b) the orbit in depth mode with
      splat_source="direct" and with splat_polish=2, K1 and K2 once a
-     frame; each prints ms/frame median and p90, ATE, host reads a frame
-     and fails on ATE >= 0.01 m, a track failure or an overflow; (c)
+     frame; each prints ms/frame median and p90, ATE, host reads a frame,
+     the graph's capture ms and memory pool MiB, and fails on ATE >= 0.01
+     m, a track failure or an overflow; (c)
      Tracer.trace of phase 3's final volume under the march (cross and
      gradient normals) and the splat with gradient normals, each against
      the same call on a CPU copy of the volume (the tests' tolerances),
@@ -161,7 +167,8 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      raycast ms (CUDA events), valid pixels, the share of the pixels whose
      true surface lies in the grid that it hits (fails under 90%) and the
      depth error against the true depth.  With --profile also phase 5's
-     breakdown of the march path.  Written to OUT_DIR/render.json;
+     breakdown of each path of (a)-(b), against its graph's median frame.
+     Written to OUT_DIR/render.json;
   9. entry points at 640x480, each a subprocess of the CLI's ``main``
      (``python -m vulcan_tpu_torch.tools.cli_counts``, which counts around
      the loop: the step's host reads, the reads and syncs the CLI's own
@@ -1220,15 +1227,29 @@ def want_per_frame(config, known=False, k2_per_frame=1) -> dict[str, int]:
 
 
 def want_nodes(config, mode="depth", known=False) -> dict[str, int]:
-    """The conditional nodes a replayed frame evaluates: a WHILE node for
-    the integrate loop and one for each splat tier (the render's luma or
-    depth pass), and an IF/ELSE node for each of auto-photo's two
-    ``cond``s (depth mode, tracked)."""
+    """The conditional nodes a replayed frame evaluates, on a frame that
+    auto-photo has not armed: a WHILE node for the integrate loop and one
+    for each loop of the render the frame takes (the surfel splat's two
+    tiers; the direct z-buffer's chunks; the render cache's halo chunks,
+    and on the splat its cached z-buffer's), and an IF/ELSE node for each
+    of auto-photo's two ``cond``s (depth mode, tracked) and for each march
+    level's compaction branch.  The render has colour in the photometric
+    modes and at a known pose, not on an unarmed depth-mode frame."""
     if config.model_color != "luma":
         raise ValueError("want_nodes counts the luma render's loops")
     auto = (mode == "depth" and config.auto_photo and config.degen_min_eig > 0.0
             and not known)
-    return {"graph_while": 3, "graph_ifelse": 2 if auto else 0}
+    with_color = known or mode != "depth"
+    ifelse = 2 if auto else 0
+    if config.render_mode == "march":
+        render = 1
+        ifelse += (config.raycast_coarse_compact > 0) + (config.raycast_fine_compact > 0)
+    else:
+        surfels = config.splat_source == "surfels"
+        need_cache = config.splat_polish > 0 or (
+            with_color and not (surfels and config.splat_polish == 0))
+        render = 2 if need_cache or surfels else 1
+    return {"graph_while": 1 + render, "graph_ifelse": ifelse}
 
 
 def check_launches(label, frames, want, captured, nodes=None, eager=None) -> dict:
@@ -1274,7 +1295,7 @@ def run_pipeline(P, config, camera, poses, frames, h, w, device, sync,
     ``cond``s (``sync.chunk_loop.count``, ``sync.cond.count``; ``chunks``
     and ``conds``).  ``eager`` runs the eager step on the card too
     (``eager_pipeline``); otherwise ``Pipeline`` decides (a captured graph
-    on the card where ``fusion.capturable`` says so).  ``known`` fuses each
+    on the card at every supported setting).  ``known`` fuses each
     frame at its true pose (``process(..., pose=...)``).  The launch
     counts after each frame are the card's (``launch_counts``) in
     ``run["counts"]`` and the wrappers' own (``host_counts``) in
@@ -1447,6 +1468,9 @@ def run_cell(P, torch, label, config, mode, camera, poses, frames, ate_limit,
           f"{WARMUP_FRAMES}); K1 launches {k1}, K2 kernel launches {k2}, track {h1}; "
           f"graph {pipe.graph_stats}; track failures {diag['track_failures']}, "
           f"degenerate frames {diag['track_degen_frames']}", flush=True)
+    for key, st in pipe.graph_stats.items():
+        print(f"{label}: graph '{key}' captured in {st['capture_ms']:.1f} ms, memory "
+              f"pool {st['pool_mib']:.1f} MiB, {st['replays']} replays", flush=True)
     if pipe.captured:
         out["launches_per_replayed_frame"] = check_graph_run(
             label, pipe, run, config, k2_per_frame=k2_per_frame, mode=mode)
@@ -1549,7 +1573,7 @@ GRAPH_TOL = 0.0
 
 
 def graph_against_eager(P, torch, label, config, mode, cam, poses, frames, dev,
-                        ate_limit, known=False, k_profile=10) -> dict:
+                        ate_limit, known=False, k2_per_frame=1, k_profile=10) -> dict:
     """Phase 3c, one cell: the eager step twice on the card (whether it
     repeats bit for bit), then ``Pipeline`` (the captured graph) on the
     same frames.  Wherever the two eager runs agree, the graph's per-frame
@@ -1559,8 +1583,9 @@ def graph_against_eager(P, torch, label, config, mode, cam, poses, frames, dev,
     graph's replayed frames read nothing, and the last ``k_profile``
     frames of each run go under the profiler (``replay_profile``: busy ms
     and operations; its launches a frame, read on the card, again exactly
-    ``want_per_frame``); ``known`` fuses at the true poses (the known-pose
-    step: no track).  Returns the printed numbers."""
+    ``want_per_frame``, K2 ``k2_per_frame`` times: 0 on the march);
+    ``known`` fuses at the true poses (the known-pose step: no track).
+    Returns the printed numbers."""
     from vulcan_tpu_torch.utils.evaluate import ate_rmse
 
     n = len(frames)
@@ -1574,9 +1599,9 @@ def graph_against_eager(P, torch, label, config, mode, cam, poses, frames, dev,
             P, config, cam, poses[:len(timed)], timed, 480, 640, dev,
             torch.cuda.synchronize, mode, eager=eager, known=known)
         if eager:
-            check_eager_run(f"{label} ({tag})", run, config, known)
+            check_eager_run(f"{label} ({tag})", run, config, known, k2_per_frame)
         else:
-            check_graph_run(label, pipe, run, config, known, mode=mode,
+            check_graph_run(label, pipe, run, config, known, k2_per_frame, mode=mode,
                             eager=runs["eager"]["run"])
         rest = poses[len(timed):] if known else None
         prof = replay_profile(pipe, frames[len(timed):], torch, rest)
@@ -1600,7 +1625,7 @@ def graph_against_eager(P, torch, label, config, mode, cam, poses, frames, dev,
     pose_diff = float(np.abs(e1["poses"] - g["poses"]).max())
     ate = {t: float(ate_rmse(r["poses"][:len(timed), 9:], gt[:len(timed)]))
            for t, r in runs.items()}
-    want = want_per_frame(config, known)
+    want = want_per_frame(config, known, k2_per_frame)
     nodes = want_nodes(config, mode, known)
     got = g["prof"]["launches_per_frame"]
     out = dict(cell=label, mode=mode, frames=n, path="graph",
@@ -2085,15 +2110,15 @@ def hold_render(label, got, want) -> dict:
 
 
 def render_paths(P, torch, cfg, cam, poses, frames, pipe, dev, want_profile) -> dict:
-    """Phase 8: the render paths off the main line at 640x480.  (a) the
-    orbit under render_mode="march" in depth and combined mode; (b) the
-    orbit in depth mode with splat_source="direct" and with
-    splat_polish=2; (c) Tracer.trace of phase 3's final volume under the
+    """Phase 8: the render paths off the main line at 640x480, each a
+    captured graph.  (a) the orbit under render_mode="march" in depth and
+    combined mode; (b) the orbit in depth mode with splat_source="direct"
+    and with splat_polish=2; (c) Tracer.trace of phase 3's final volume under the
     march (cross and gradient normals) and the splat with gradient
     normals, each against a CPU copy, and the direct against the surfel
     z-buffer; (d) the dense backend at 256^3 over the orbit's frames at
     their true poses.  With ``want_profile`` also phase 5's stage
-    breakdown of the march path.  Returns the printed numbers."""
+    breakdown of each path of (a)-(b).  Returns the printed numbers."""
     import dataclasses as dc
 
     from vulcan_tpu_torch.io.synthetic import render_scene_depth
@@ -2110,21 +2135,19 @@ def render_paths(P, torch, cfg, cam, poses, frames, pipe, dev, want_profile) -> 
         print(f"phase 8 {part} took {report[f'{part}_s']:.1f} s", flush=True)
 
     # (a), (b): the orbit through each path, counts set to 0 around each.
-    cells = [
-        run_cell(P, torch, "orbit/march", P.Config(render_mode="march"), "depth", cam,
-                 poses, frames, 0.01, k2_per_frame=0, no_failures=True),
-        run_cell(P, torch, "orbit/march, combined", P.Config(render_mode="march"),
-                 "combined", cam, poses, frames, 0.01, k2_per_frame=0, no_failures=True),
-        run_cell(P, torch, "orbit/direct", P.Config(splat_source="direct"), "depth",
-                 cam, poses, frames, 0.01, no_failures=True),
-        run_cell(P, torch, "orbit/polish", P.Config(splat_polish=2), "depth", cam,
-                 poses, frames, 0.01, no_failures=True),
-    ]
+    march = P.Config(render_mode="march")
+    specs = [("orbit/march", march, "depth", 0), ("orbit/march, combined", march, "combined", 0),
+             ("orbit/direct", P.Config(splat_source="direct"), "depth", 1),
+             ("orbit/polish", P.Config(splat_polish=2), "depth", 1)]
+    cells = [run_cell(P, torch, label, config, mode, cam, poses, frames, 0.01,
+                      k2_per_frame=k2, no_failures=True)
+             for label, config, mode, k2 in specs]
     report["cells"] = cells
     if want_profile:
-        report["profile_march"] = profile_stages(
-            P, torch, P.Config(render_mode="march"), cam, poses, frames, dev,
-            cells[0]["ms_median"])
+        report["profiles"] = {
+            label: profile_stages(P, torch, config, cam, poses, frames, dev,
+                                  cell["ms_median"], mode)
+            for (label, config, mode, _), cell in zip(specs, cells)}
     took("(a)-(b)")
 
     # (c) traces of phase 3's final volume, card against a CPU copy.
@@ -2831,19 +2854,27 @@ def main() -> None:
 
     phase("3c the captured graph against the eager step (480x640)")
     armed_cfg = P.Config(auto_photo_enter=0.99)
+    march = P.Config(render_mode="march")
     graph_specs = [("orbit/depth", cfg, "depth", poses, frames, 0.01),
                    ("orbit/combined", cfg, "combined", poses, frames, 0.01),
                    ("orbit/depth, auto_photo_enter=0.99", armed_cfg, "depth", poses,
                     frames, 0.01),
                    ("orbit/color", cfg, "color", poses, frames, None),
                    ("orbit/known poses", cfg, "depth", poses, frames, 1e-6, True),
-                   ("desk/combined", cfg, "combined", desk_poses, desk_frames, DESK_ATE)]
+                   ("desk/combined", cfg, "combined", desk_poses, desk_frames, DESK_ATE),
+                   ("orbit/march", march, "depth", poses, frames, 0.01, False, 0),
+                   ("orbit/march, combined", march, "combined", poses, frames, 0.01,
+                    False, 0),
+                   ("orbit/direct", P.Config(splat_source="direct"), "depth", poses,
+                    frames, 0.01),
+                   ("orbit/polish", P.Config(splat_polish=2), "depth", poses, frames,
+                    0.01)]
     if want_parity:
         graph_specs += [("desk/light", cfg, "light", desk_poses, desk_frames, None),
                         ("desk/depth", cfg, "depth", desk_poses, desk_frames, None)]
     graph_cells = [graph_against_eager(P, torch, label, config, mode, cam, cell_poses,
-                                       cell_frames, dev, ate, *known)
-                   for label, config, mode, cell_poses, cell_frames, ate, *known
+                                       cell_frames, dev, ate, *rest)
+                   for label, config, mode, cell_poses, cell_frames, ate, *rest
                    in graph_specs]
     if not graph_cells[2]["armed_frames"]["graph"]:
         fail("phase 3c: auto-photo never armed in the graph")

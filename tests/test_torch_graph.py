@@ -1,9 +1,11 @@
 """The step's capture form on the CPU: the loops whose bodies take their
 chunk's start as a device offset (``utils.sync.chunk_loop``, one WHILE
-node each when captured) and the ``cond`` that is one IF/ELSE node, held
-against the JAX package and against the port's eager form, the eager
-``cond``, the host reads a frame, and the state-buffer helpers of
-``pipeline/graphs.py``.
+node each when captured: the integrate loop, the surfel tiers, the render
+cache's halo loop, the direct and cached z-buffers) and the ``cond`` that
+is one IF/ELSE node (the march's compaction), held against the JAX
+package and against the port's eager form, the eager ``cond``, the host
+reads a frame, ``Pipeline``'s choice of the graph on the card, and the
+state-buffer helpers of ``pipeline/graphs.py``.
 
 A CUDA graph cannot be captured here.  ``sync.capturing`` is forced true
 and the conditional nodes replaced by stand-ins.  ``skip`` is the WHILE
@@ -29,15 +31,19 @@ import vulcan_tpu_torch as P
 from vulcan_tpu.core.frame import make_frame
 from vulcan_tpu.ops import allocate as jal
 from vulcan_tpu.ops import blocks as jB
+from vulcan_tpu.ops import raycast as jray
+from vulcan_tpu.ops import render_cache as jrc
 from vulcan_tpu.ops import sparse as jsp
 from vulcan_tpu.ops import splat as jsplat
 from vulcan_tpu_torch.core.frame import Frame
 from vulcan_tpu_torch.core.se3 import SE3
 from vulcan_tpu_torch.ops import allocate as tal
 from vulcan_tpu_torch.ops import blocks as tB
+from vulcan_tpu_torch.ops import raycast as tray
+from vulcan_tpu_torch.ops import render_cache as trc
 from vulcan_tpu_torch.ops import sparse as tsp
 from vulcan_tpu_torch.ops import splat as tsplat
-from vulcan_tpu_torch.pipeline import fusion, graphs
+from vulcan_tpu_torch.pipeline import api, fusion, graphs
 from vulcan_tpu_torch.utils import sync
 
 from ._torch_port import (
@@ -298,6 +304,226 @@ def test_surfel_tier_bodies_match_reference_at_boundary_counts(count, monkeypatc
     assert np.sum(np.abs(zt[both] - zj[both]) > 1e-5) <= 1e-3 * both.sum()
 
 
+# --- the render paths' loops and the march's compaction branch -----------
+
+V = CFG_T.max_visible
+CACHE_C, ZBUF_C = min(2048, V), min(1024, V)   # the loops' chunks
+CACHE_FIELDS = ("grid", "grid_min", "tsdf", "march", "row_block", "overflow")
+
+
+def _boundaries(chunk: int) -> tuple:
+    """A loop's boundary counts: none, one row, a chunk less one, one
+    chunk, one row into the second chunk, the list's capacity."""
+    return 0, 1, chunk - 1, chunk, chunk + 1, V
+
+
+def _at_count(count: int):
+    """The fused orbit volume on both sides, its visible list's length set
+    to ``count``: the rows past the real list hold block 0, which
+    ``visible_rows`` leaves out (their halos are the null block's)."""
+    jv, tv, pose_j, pose_t = fused_orbit_volumes()
+    return (dataclasses.replace(jv, num_visible=jnp.asarray(count, jnp.int32)),
+            dataclasses.replace(tv, num_visible=torch.tensor(count, dtype=torch.int32)),
+            pose_j, pose_t)
+
+
+@jax.jit
+def _j_cache_and_zbuf(jv, pose_j):
+    cache = jrc.build(jv, CFG_J)
+    return cache, jsplat._splat_zbuf_cached(jv, cache, CAM_J, pose_j, H, W, CFG_J)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_cache_and_zbuf(count: int):
+    """The reference's render cache and cached z-buffer at a visible count,
+    one compile for every count."""
+    jv, _, pose_j, _ = _at_count(count)
+    cache, zbuf = _j_cache_and_zbuf(jv, pose_j)
+    return jflat(cache), np.asarray(zbuf)
+
+
+def _assert_zbuf_close(zt, zj, count):
+    """test_torch_splat_paths' z-buffer tolerances (hit masks and depths to
+    1e-5 m on 99.9% of pixels, the rest within 2 voxels), at any count of
+    blocks: none scatters nothing, more than one something (a single
+    block may face away)."""
+    hit = np.isfinite(zt)
+    assert hit.any() == (count > 0) or count == 1
+    assert np.mean(hit != np.isfinite(zj)) <= 1e-3
+    both = hit & np.isfinite(zj)
+    dz = np.abs(zt[both] - zj[both])
+    assert np.sum(dz > 1e-5) <= 1e-3 * both.sum()
+    assert not both.any() or dz.max() < 2 * CFG_T.voxel_size
+
+
+@pytest.mark.parametrize("count", _boundaries(CACHE_C))
+def test_render_cache_loop_forms_match_reference(captured, count):
+    """``render_cache.build``'s halo loop in capture form (chunks of 2048
+    visible rows at ``offset + arange(C)``, one WHILE node), at every
+    boundary count of the visible list: every array of the cache bit-equal
+    to the eager form's (one counted read) and to the reference's, the
+    halos of the listed blocks observed and none past them."""
+    _, tv, _, _ = _at_count(count)
+    got = trc.build(tv, CFG_T)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(sync, "capturing", lambda: False)
+        reads = sync.read_int.count
+        eager = trc.build(tv, CFG_T)
+        assert sync.read_int.count - reads == 1
+    ref, _ = _reference_cache_and_zbuf(count)
+    for name in CACHE_FIELDS:
+        assert torch.equal(getattr(got, name), getattr(eager, name)), name
+        np.testing.assert_array_equal(getattr(got, name).numpy(), ref[name], err_msg=name)
+    n = int(tB.visible_rows(tv).sum())
+    seen = (got.march.numpy()[729:] != trc.MARCH_UNSEEN).reshape(V, 729).any(axis=1)
+    assert seen[:n].sum() >= 0.5 * n and not seen[n:].any()
+
+
+@pytest.mark.parametrize("count", _boundaries(ZBUF_C))
+def test_cached_zbuffer_loop_forms_match_reference(captured, count):
+    """``_splat_zbuf_cached``'s loop in capture form (chunks of 1024 halo
+    rows, one past ``offset + arange(C)``, one WHILE node) on the cache of
+    the same form, at every boundary count of the visible list: bit-equal
+    to the eager form (one counted read each for the cache and the
+    z-buffer) and within test_torch_splat_paths' tolerances of the
+    reference."""
+    _, tv, _, pose_t = _at_count(count)
+
+    def zbuf():
+        return tsplat._splat_zbuf_cached(tv, trc.build(tv, CFG_T), CAM_T, pose_t, H, W,
+                                         CFG_T)
+
+    got = zbuf()
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(sync, "capturing", lambda: False)
+        reads = sync.read_int.count
+        eager = zbuf()
+        assert sync.read_int.count - reads == 2
+    assert torch.equal(got, eager)
+    _, zj = _reference_cache_and_zbuf(count)
+    _assert_zbuf_close(got.numpy(), zj, min(count, int(tB.visible_rows(tv).sum())))
+
+
+@functools.lru_cache(maxsize=None)
+def _surface_list():
+    """A surface block list of the whole capacity: the fused orbit's surface
+    blocks again and again (a block scattered twice writes the same
+    minimum), so that every count up to the capacity scatters real
+    blocks."""
+    _, tv, _, _ = fused_orbit_volumes()
+    ids, n = tsplat._surface_block_list(tv, CFG_T)
+    real = ids[:int(n)]
+    assert 0 < real.numel() < ZBUF_C
+    return real.repeat(-(-V // real.numel()))[:V].clone()
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_direct():
+    """The reference's direct z-buffer of ``_surface_list`` at a given
+    length, one compile for every length."""
+    @jax.jit
+    def zbuf(jv, pose_j, ids, n):
+        saved = jsplat._surface_block_list
+        jsplat._surface_block_list = lambda volume, config: (ids, n)
+        try:
+            return jsplat._splat_zbuf_direct(jv, CAM_J, pose_j, H, W, CFG_J)
+        finally:
+            jsplat._surface_block_list = saved
+
+    return zbuf
+
+
+@pytest.mark.parametrize("count", _boundaries(ZBUF_C))
+def test_direct_zbuffer_loop_forms_match_reference(captured, monkeypatch, count):
+    """``_splat_zbuf_direct``'s loop in capture form (chunks of 1024 listed
+    blocks at ``offset + arange(C)``, masked at the list's length, one
+    WHILE node), at every boundary length of the surface list: bit-equal
+    to the eager form (one counted read) and within test_torch_splat_paths'
+    tolerances of the reference's at that length."""
+    jv, tv, pose_j, pose_t = fused_orbit_volumes()
+    ids = _surface_list()
+    n = torch.tensor(count, dtype=torch.int32)
+    monkeypatch.setattr(tsplat, "_surface_block_list", lambda volume, config: (ids, n))
+    got = tsplat._splat_zbuf_direct(tv, CAM_T, pose_t, H, W, CFG_T)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(sync, "capturing", lambda: False)
+        reads = sync.read_int.count
+        eager = tsplat._splat_zbuf_direct(tv, CAM_T, pose_t, H, W, CFG_T)
+        assert sync.read_int.count - reads == 1
+    assert torch.equal(got, eager)
+    zj = np.asarray(_reference_direct()(jv, pose_j, jnp.asarray(ids.numpy()),
+                                        jnp.asarray(count, jnp.int32)))
+    _assert_zbuf_close(got.numpy(), zj, count)
+
+
+MARCH_DIV = 4     # M = max(H * W // 4, 256) = 7500 rays
+
+
+@functools.lru_cache(maxsize=None)
+def _march_inputs():
+    """The fused orbit's render caches on both sides and the rays of its
+    pose (numpy): every ray starts at ray_near with a half-voxel spacing,
+    so round 1 (64 samples) ends 0.58 m out, short of every surface, and
+    every active ray survives it; the later rounds reach the spheres."""
+    jv, tv, pose_j, pose_t = fused_orbit_volumes()
+    cj = jax.jit(jrc.build, static_argnums=1)(jv, CFG_J)
+    ct = trc.build(tv, CFG_T)
+    dirs = CAM_T.rays(H, W).numpy() @ pose_t.rotation.numpy().T
+    origin = pose_t.translation.numpy()
+    t0 = np.full((H, W), CFG_T.ray_near, np.float32)
+    spacing = np.full((H, W), 0.5 * CFG_T.voxel_size, np.float32)
+    t_limit = np.full((H, W), CFG_T.ray_far, np.float32)
+    order = np.random.default_rng(7).permutation(H * W).reshape(H, W)
+    return cj, ct, origin, dirs.astype(np.float32), t0, spacing, t_limit, order
+
+
+_j_march = jax.jit(jray._march, static_argnums=(1, 12, 13, 14))
+
+
+@pytest.mark.parametrize("side", ["compact", "full"])
+def test_march_compaction_cond_matches_reference(captured, monkeypatch, side):
+    """The march's compaction branch as one IF/ELSE node (``sync.cond`` on
+    ``n_undone <= M``): M active rays survive round 1 (compacted: the
+    remaining rounds over those M rays alone) or M + 1 (full width).  The
+    capture form (the IF/ELSE stand-in: the compaction branch, then the
+    full one where the predicate is false) is bit-equal to the eager form
+    (one counted read) and gives the reference's ``_march`` on the same
+    rays: hit masks, depths (1e-5 m) and bracket values on 99.9% of
+    rays."""
+    cj, ct, origin, dirs, t0, spacing, t_limit, order = _march_inputs()
+    S, n_rounds = CFG_T.raycast_chunk, 3
+    M = max(H * W // MARCH_DIV, 256)
+    active = order < (M if side == "compact" else M + 1)
+    preds = []
+    cond_node = sync._cond_node
+    monkeypatch.setattr(sync, "_cond_node",
+                        lambda p, *bodies: (preds.append(bool(p)), cond_node(p, *bodies)))
+    args = (*t(origin), *(t(dirs[..., i]) for i in range(3)), t(t0), t(spacing), t(t_limit),
+            t(active), S, n_rounds, MARCH_DIV)
+    got = tray._march(ct, CFG_T, *args)
+    assert preds == [side == "compact"]
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(sync, "capturing", lambda: False)
+        reads = sync.read_int.count
+        eager = tray._march(ct, CFG_T, *args)
+        assert sync.read_int.count - reads == 1
+    for a, b in zip(got, eager):
+        assert torch.equal(a, b)
+    ref = _j_march(cj, CFG_J, *(jnp.asarray(x) for x in origin),
+                   *(jnp.asarray(dirs[..., i]) for i in range(3)), jnp.asarray(t0),
+                   jnp.asarray(spacing), jnp.asarray(t_limit), jnp.asarray(active),
+                   S, n_rounds, MARCH_DIV)
+    t_hit, t_before, m_b, m_h, hit = (x.numpy() for x in got)
+    hj = np.asarray(ref[4])
+    assert hit.sum() > 1000 and not hit[~active].any()
+    assert np.mean(hit != hj) <= 1e-3
+    both = hit & hj
+    for a, b in ((t_hit, ref[0]), (t_before, ref[1])):
+        assert np.mean(np.abs(a[both] - np.asarray(b)[both]) > 1e-5) <= 1e-3
+    for a, b in ((m_b, ref[2]), (m_h, ref[3])):
+        assert np.mean(a[both] != np.asarray(b)[both]) <= 1e-3
+
+
 LOOP_CAP, LOOP_CHUNK = 16, 4
 
 
@@ -405,17 +631,39 @@ def test_cond_picks_the_branch_eagerly():
     assert not sync._warm_both
 
 
-@pytest.mark.parametrize("mode,known,reads", [
-    ("depth", False, 3), ("color", False, 2), ("combined", False, 2),
-    ("light", False, 2), ("depth", True, 2),
-])
-def test_step_reads_per_frame_on_cpu(mode, known, reads):
+# Each renderer's settings off the default (the march, the direct and the
+# polished splat) and their eager reads a frame: the track's branch (depth
+# mode), the integrate count with the colour branch, and the render's loop
+# counts and branches (the render cache's chunks and the march's two
+# compaction branches; the direct or cached z-buffer's chunks).
+RENDERERS = {"march": dict(render_mode="march"), "direct": dict(splat_source="direct"),
+             "polish": dict(splat_polish=2)}
+
+
+READS = [("default", "depth", False, 3), ("default", "color", False, 2),
+         ("default", "combined", False, 2), ("default", "light", False, 2),
+         ("default", "depth", True, 2),
+         ("march", "depth", False, 5), ("march", "combined", False, 4),
+         ("march", "depth", True, 4),
+         ("direct", "depth", False, 3), ("direct", "combined", False, 3),
+         ("direct", "depth", True, 3),
+         ("polish", "depth", False, 4), ("polish", "combined", False, 3),
+         ("polish", "depth", True, 3)]
+
+
+# (the default renderer's rows keep their ids from before the other rows)
+@pytest.mark.parametrize("renderer,mode,known,reads", READS, ids=[
+    "-".join(map(str, row if row[0] != "default" else row[1:])) for row in READS])
+def test_step_reads_per_frame_on_cpu(renderer, mode, known, reads):
     """The eager step reads as many values a frame on the CPU as it did
     before its loops and branches went through ``utils.sync``: the
     integrate count and the track/render branch in one transfer, the tier
-    lengths in another, and in depth mode the auto-photo track's branch."""
+    lengths in another, and in depth mode the auto-photo track's branch;
+    off the default renderer, the render's loop counts and branches
+    instead of the tier lengths."""
     poses = orbit(3)
-    pipe = P.Pipeline(CFG_T, CAM_T, H, W, init_pose=se3_t(poses[0]), mode=mode,
+    cfg = dataclasses.replace(CFG_T, **RENDERERS.get(renderer, {}))
+    pipe = P.Pipeline(cfg, CAM_T, H, W, init_pose=se3_t(poses[0]), mode=mode,
                       device="cpu")
     assert not pipe.captured and pipe.graph_stats == {}
     for pose in poses:
@@ -425,14 +673,36 @@ def test_step_reads_per_frame_on_cpu(mode, known, reads):
         assert sync.read_int.count - before == reads
 
 
-def test_capturable_follows_the_renderer():
-    for mode in ("depth", "color", "combined", "light"):
-        assert fusion.capturable(P.Config(), mode)
-    for override in (dict(render_mode="march"), dict(splat_source="direct"),
-                     dict(splat_polish=2)):
-        assert not fusion.capturable(P.Config(**override))
-    with pytest.raises(ValueError):
-        fusion.capturable(P.Config(), "stereo")
+@pytest.mark.parametrize("renderer", ["default", *RENDERERS])
+@pytest.mark.parametrize("mode", ["depth", "color", "combined", "light"])
+def test_pipeline_captures_every_supported_setting_on_the_card(monkeypatch, renderer,
+                                                               mode):
+    """``Pipeline`` on the card takes the captured graph at every setting
+    ``check_supported`` accepts, every renderer in every mode: no setting
+    runs the eager step there.  (The state is made on the CPU here: the
+    choice is the pipeline's.)"""
+    made = []
+    monkeypatch.setattr(fusion, "init_state", lambda *a, **k: None)
+    monkeypatch.setattr(api, "StepGraphs", lambda device: made.append(device) or "graphs")
+    cfg = P.Config(**RENDERERS.get(renderer, {}))
+    pipe = P.Pipeline(cfg, CAM_T, H, W, mode=mode, device="cuda:0")
+    assert pipe.captured and pipe._graphs == "graphs"
+    assert made == [torch.device("cuda:0")]
+    cpu = P.Pipeline(cfg, CAM_T, H, W, mode=mode, device="cpu")
+    assert not cpu.captured and cpu._graphs is None and len(made) == 1
+
+
+@pytest.mark.parametrize("override,mode,error", [
+    ({}, "stereo", ValueError),
+    (dict(integrate_gather="onehot"), "depth", NotImplementedError),
+    (dict(assoc_patch="on"), "depth", NotImplementedError),
+])
+def test_pipeline_refuses_unsupported_settings(override, mode, error):
+    """What ``check_supported`` refuses, ``Pipeline`` refuses on any device:
+    a loud stop, never an eager or partial run."""
+    for device in ("cuda:0", "cpu"):
+        with pytest.raises(error):
+            P.Pipeline(P.Config(**override), CAM_T, H, W, mode=mode, device=device)
 
 
 def test_state_buffers_copy_without_aliasing():

@@ -193,30 +193,56 @@ _HOST_READS = ("item", "tolist", "numpy", "cpu", "__bool__", "__int__", "__float
                "__index__")
 
 
-@pytest.mark.parametrize("mode,known", [
-    ("depth", False), ("color", False), ("combined", False), ("light", False),
-    ("depth", True)], ids=["depth", "color", "combined", "light", "known-pose"])
-def test_captured_branches_read_nothing(monkeypatch, mode, known):
+# (mode, known pose, Config overrides, WHILE nodes, IF/ELSE nodes, the
+# z-buffer or cache functions the render must reach).  Depth mode's
+# auto-photo colour render is a ``cond`` whose two branches are both
+# captured: the luma render (tiers, or the render cache and its cached
+# z-buffer off the surfel path) and the colourless one.  The march adds
+# its render cache's loop and one compaction branch a level to each.
+CAPTURED = {
+    "depth": ("depth", False, {}, 5, 2, ("_splat_zbuf_surfels",)),
+    "color": ("color", False, {}, 3, 0, ("_splat_zbuf_surfels",)),
+    "combined": ("combined", False, {}, 3, 0, ("_splat_zbuf_surfels",)),
+    "light": ("light", False, {}, 3, 0, ("_splat_zbuf_surfels",)),
+    "known-pose": ("depth", True, {}, 3, 0, ("_splat_zbuf_surfels",)),
+    "march": ("depth", False, dict(render_mode="march"), 3, 6, ("build",)),
+    "march-combined": ("combined", False, dict(render_mode="march"), 2, 2, ("build",)),
+    "direct": ("depth", False, dict(splat_source="direct"), 4, 2,
+               ("_splat_zbuf_direct", "_splat_zbuf_cached")),
+    "polish": ("depth", False, dict(splat_polish=2), 5, 2, ("_splat_zbuf_cached",)),
+}
+
+
+@pytest.mark.parametrize("case", list(CAPTURED))
+def test_captured_branches_read_nothing(monkeypatch, case):
     """What a capture traces of ``fusion.step`` (every mode, auto-photo's
-    two ``cond``s in depth mode) and of ``step_known_pose``, with
+    two ``cond``s in depth mode; every renderer: the march, the direct and
+    the polished splat) and of ``step_known_pose``, with
     ``sync.capturing()`` true and every conditional node's body run as a
     capture runs it (each WHILE body once a chunk to the capacity, both
-    bodies of each IF/ELSE), reaches no host read: ``read_int`` /
-    ``read_ints`` and every tensor method that copies to the host raise,
-    through ``sparse.integrate_sparse`` and ``splat._splat_zbuf_surfels``
-    too.  Every loop is one WHILE node on a 0-d int32 device count and
-    every ``cond`` one IF/ELSE node on a 0-d bool."""
-    from vulcan_tpu_torch.ops import sparse
+    bodies of each IF/ELSE), after two eager frames that ran both sides of
+    every ``cond`` (as ``Pipeline``'s warm-up does), reaches no host read
+    and makes no tensor from host data: ``read_int`` / ``read_ints``, every
+    tensor method that copies to the host, ``torch.tensor`` and
+    ``torch.as_tensor`` raise, through ``sparse.integrate_sparse``, the
+    render cache, the march and every z-buffer too.  Every loop is one
+    WHILE node on a 0-d int32 device count and every ``cond`` one IF/ELSE
+    node on a 0-d bool."""
+    from vulcan_tpu_torch.ops import render_cache, sparse
     from vulcan_tpu_torch.utils import sync
 
+    mode, known, override, n_loops, n_conds, renders = CAPTURED[case]
+    cfg = dataclasses.replace(CFG_T, **override)
     poses = orbit(3)
     frames = [scene(pose) for pose in poses]
-    state = fusion.init_state(CFG_T, CAM_T, H, W, se3_t(poses[0]), "cpu")
-    for d, c in frames[:2]:   # a model to track against, as after warm-up
-        state = fusion.step(state, torch.from_numpy(d.copy()), torch.from_numpy(c.copy()), CFG_T,
-                            mode)
+    state = fusion.init_state(cfg, CAM_T, H, W, se3_t(poses[0]), "cpu")
+    with sync.warm_both():  # a model to track against, as after warm-up
+        for d, c in frames[:2]:
+            state = fusion.step(state, torch.from_numpy(d.copy()),
+                                torch.from_numpy(c.copy()), cfg, mode)
     d, c = (torch.from_numpy(x.copy()) for x in frames[2])
-    loops, conds, calls = [], [], {"integrate": 0, "zbuf": 0}
+    loops, conds = [], []
+    calls = dict.fromkeys(("integrate", *renders), 0)
 
     def while_node(count, bound, chunk, body):
         loops.append((count, bound, chunk))
@@ -237,31 +263,37 @@ def test_captured_branches_read_nothing(monkeypatch, mode, known):
     def read(*_a, **_k):
         raise AssertionError("a host read in the captured step")
 
+    def upload(*_a, **_k):
+        raise AssertionError("a tensor made from host data in the captured step")
+
     monkeypatch.setattr(sync, "capturing", lambda: True)
     monkeypatch.setattr(sync, "_while_node", while_node)
     monkeypatch.setattr(sync, "_cond_node", cond_node)
     monkeypatch.setattr(sparse, "integrate_sparse",
                         counted("integrate", sparse.integrate_sparse))
-    monkeypatch.setattr(splat, "_splat_zbuf_surfels",
-                        counted("zbuf", splat._splat_zbuf_surfels))
+    for name in renders:
+        mod = render_cache if name == "build" else splat
+        monkeypatch.setattr(mod, name, counted(name, getattr(mod, name)))
     for mod in (sync, sparse, splat):
         for name in ("read_int", "read_ints"):
             if hasattr(mod, name):
                 monkeypatch.setattr(mod, name, read)
     for name in _HOST_READS:
         monkeypatch.setattr(torch.Tensor, name, read)
+    monkeypatch.setattr(torch, "tensor", upload)
+    monkeypatch.setattr(torch, "as_tensor", upload)
     if known:
-        fusion.step_known_pose(state, d, c, se3_t(poses[2]), CFG_T)
+        fusion.step_known_pose(state, d, c, se3_t(poses[2]), cfg)
     else:
-        fusion.step(state, d, c, CFG_T, mode)
+        fusion.step(state, d, c, cfg, mode)
     monkeypatch.undo()
-    assert calls["integrate"] == 1 and calls["zbuf"] >= 1
-    # The integrate loop and the two tiers of each render (both of the
-    # auto-photo render's branches are captured).
-    assert len(loops) == (5 if mode == "depth" and not known else 3)
-    assert (CFG_T.alloc_capacity, CFG_T.integrate_chunk) in [(b, c) for _, b, c in loops]
+    assert calls["integrate"] == 1 and all(calls[name] >= 1 for name in renders)
+    # The integrate loop, and the render's loops (both of the auto-photo
+    # render's branches are captured).
+    assert len(loops) == n_loops
+    assert (cfg.alloc_capacity, cfg.integrate_chunk) in [(b, c) for _, b, c in loops]
     assert all(n.dtype == torch.int32 and n.ndim == 0 and b % c == 0 for n, b, c in loops)
-    assert len(conds) == (2 if mode == "depth" and not known else 0)
+    assert len(conds) == n_conds
     assert all(p.dtype == torch.bool and p.ndim == 0 and k == 2 for p, k in conds)
 
 

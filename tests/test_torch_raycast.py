@@ -3,10 +3,13 @@ package: the range image, both branches of the survivor compaction, the
 raycast with cross and gradient normals, the renderer dispatch, the
 five-class ``Tracer`` and a short closed loop under ``render_mode="march"``."""
 import dataclasses
+import inspect
+import types
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 import vulcan_tpu as J
 import vulcan_tpu_torch as P
@@ -85,19 +88,24 @@ def test_march_branches_match_reference(volumes, monkeypatch, branch, divs):
     full-width one: both levels compact at divisors (2, 2); the default
     (2 coarse, 4 fine) compacts the coarse level only on this scene; a
     huge divisor compacts neither.  Each gives the reference's maps.  The
-    branch is read off the counted reads (round 1's survivors)."""
+    branch is read off ``sync.cond``'s predicate, and checked against
+    round 1's survivors."""
     jv, tv, pose_j, pose_t = volumes
     cfg_j, cfg_t = CFG_J, CFG_T
     if divs:
         kw = dict(raycast_coarse_compact=divs[0], raycast_fine_compact=divs[1])
         cfg_j, cfg_t = (dataclasses.replace(c, **kw) for c in (CFG_J, CFG_T))
-    survivors = []
+    survivors, taken = [], []
+    sync = tray.sync
 
-    def spy(x):
-        survivors.append(int(x))
-        return int(x)
+    def spy(pred, compact, full):
+        # Round 1's carry, from the compaction branch's closure.
+        carry = inspect.getclosurevars(compact).nonlocals["carry"]
+        survivors.append(int(torch.sum(~carry[-1])))
+        taken.append(bool(pred))
+        return sync.cond(pred, compact, full)
 
-    monkeypatch.setattr(tray, "read_int", spy)
+    monkeypatch.setattr(tray, "sync", types.SimpleNamespace(cond=spy))
     rt = tray.raycast(tv, CAM_T, pose_t, H, W, cfg_t)
     rj = _j_raycast(jv, CAM_J, pose_j, H, W, cfg_j, "cross", True)
     k = CFG_T.raycast_coarse
@@ -105,6 +113,7 @@ def test_march_branches_match_reference(volumes, monkeypatch, branch, divs):
     divs = (cfg_t.raycast_coarse_compact, cfg_t.raycast_fine_compact)
     assert len(survivors) == 2 and min(survivors) > 0
     compacted = [s <= max(n // div, 256) for n, div, s in zip(sizes, divs, survivors)]
+    assert taken == compacted
     assert compacted == {"compact": [True, True], "mixed": [True, False],
                          "full": [False, False]}[branch]
     assert_render_close(rt, rj)

@@ -17,10 +17,11 @@ Counterpart of ``vulcan_tpu/ops/raycast.py``:
   4. ``render``: the renderer ``Config.render_mode`` names (the march here,
      the surfel splat in ``ops/splat.py``).
 
-The reference's device-side loop bounds become host decisions: each march
-runs all ``n_rounds`` rounds (a finished ray's outputs never change, so
-the arrays equal the reference's early exit), and the compacted-survivor
-branch is taken on one counted read of the survivors' count.
+The reference's early exit becomes a fixed trip count: each march runs
+all ``n_rounds`` rounds (a finished ray's outputs never change, so the
+arrays equal the reference's early exit).  The compacted-survivor branch
+is the reference's ``lax.cond`` (``utils.sync.cond``: eager, one counted
+read of its predicate; captured, one IF/ELSE node on the device).
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ import torch
 from ..config import Config
 from ..core.camera import PinholeCamera
 from ..core.se3 import SE3
-from ..utils.sync import read_int
+from ..utils import sync
 from . import blocks as B
 from . import render_cache as RC
 from .dense import floor_to_int, round_to_int
@@ -152,9 +153,10 @@ def _march(cache, config, ox, oy, oz, dx_, dy_, dz_, t0, spacing, t_limit, activ
     Returns (t_hit, t_before, m_before, m_hit, hit).
 
     With ``compact_div`` > 0 only round 1 runs at full width; when at most
-    M = max(n // compact_div, 256) rays survive it (one counted read),
-    the remaining rounds run over those M rays alone and scatter back,
-    else at full width, as the reference's ``lax.cond`` picks.
+    M = max(n // compact_div, 256) rays survive it, the remaining rounds
+    run over those M rays alone and scatter back, else at full width: the
+    reference's ``lax.cond`` (``sync.cond``), whose two branches return
+    fresh arrays of the rays' shape.
     """
     inv_vs = 1.0 / config.voxel_size
     dev = t0.device
@@ -211,40 +213,42 @@ def _march(cache, config, ox, oy, oz, dx_, dy_, dz_, t0, spacing, t_limit, activ
     carry = round_step(full_sampler, spacing, t_limit, carry)
     n = t0.numel()
     M = max(n // compact_div, 256)
-    if read_int(torch.sum(~carry[-1])) > M:
-        carry = run(full_sampler, spacing, t_limit, carry, n_rounds - 1)
-        t_hit, t_before, m_b, m_h = carry[2:6]
-        return t_hit, t_before, m_b, m_h, t_hit > 0.0
 
-    # The first M undone rays, by cumsum + scatter (index M is a trash
-    # slot for the rest), then the remaining rounds on them alone.
-    undone = ~carry[-1].reshape(-1)
-    order = torch.cumsum(undone.to(torch.int64), 0) - 1
-    ids = torch.full((M + 1,), n, dtype=torch.int64, device=dev)
-    ids.index_put_((torch.where(undone & (order < M), order, M),),
-                   torch.arange(n, device=dev))
-    ids = ids[:M]
-    live = ids < n
-    ids = torch.where(live, ids, 0)
+    def full():
+        return run(full_sampler, spacing, t_limit, carry, n_rounds - 1)[2:6]
 
-    def g(a):
-        return a.reshape(-1)[ids]
+    def compact():
+        # The first M undone rays, by cumsum + scatter (index M is a trash
+        # slot for the rest), then the remaining rounds on them alone.
+        undone = ~carry[-1].reshape(-1)
+        order = torch.cumsum(undone.to(torch.int64), 0) - 1
+        ids = torch.full((M + 1,), n, dtype=torch.int64, device=dev)
+        ids.index_put_((torch.where(undone & (order < M), order, M),),
+                       torch.arange(n, device=dev))
+        ids = ids[:M]
+        live = ids < n
+        ids = torch.where(live, ids, 0)
 
-    spc, tlc = g(spacing), g(t_limit)
-    t_cur, last_m, t_hit, t_before, m_b, m_h, done = carry
-    carry_c = (g(t_cur), g(last_m), g(t_hit), g(t_before), g(m_b), g(m_h),
-               g(done) | ~live)
-    carry_c = run(make_sampler(g(dx_), g(dy_), g(dz_), spc), spc, tlc, carry_c,
-                  n_rounds - 1)
-    tgt = torch.where(live, ids, n)
+        def g(a):
+            return a.reshape(-1)[ids]
 
-    def scatter_back(full, comp):
-        out = torch.cat([full.reshape(-1), full.new_zeros(1)])
-        out[tgt] = comp
-        return out[:n].reshape(t0.shape)
+        spc, tlc = g(spacing), g(t_limit)
+        t_cur, last_m, t_hit, t_before, m_b, m_h, done = carry
+        carry_c = (g(t_cur), g(last_m), g(t_hit), g(t_before), g(m_b), g(m_h),
+                   g(done) | ~live)
+        carry_c = run(make_sampler(g(dx_), g(dy_), g(dz_), spc), spc, tlc, carry_c,
+                      n_rounds - 1)
+        tgt = torch.where(live, ids, n)
 
-    t_hit, t_before, m_b, m_h = (scatter_back(f, c) for f, c in
-                                 zip((t_hit, t_before, m_b, m_h), carry_c[2:6]))
+        def scatter_back(whole, comp):
+            out = torch.cat([whole.reshape(-1), whole.new_zeros(1)])
+            out[tgt] = comp
+            return out[:n].reshape(t0.shape)
+
+        return tuple(scatter_back(f, c) for f, c in
+                     zip((t_hit, t_before, m_b, m_h), carry_c[2:6]))
+
+    t_hit, t_before, m_b, m_h = sync.cond(torch.sum(~carry[-1]) <= M, compact, full)
     return t_hit, t_before, m_b, m_h, t_hit > 0.0
 
 

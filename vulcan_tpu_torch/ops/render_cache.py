@@ -16,17 +16,20 @@ from the visible list:
 
 Visible blocks outside the G^3 window are counted in ``overflow`` and not
 rendered this frame.  The halo build runs over ``ceil(num_visible / C)``
-chunks, a count read on the host once (``utils.sync.read_int``).  Every
-sampler takes per-axis coordinates (planar arrays), as the reference does.
+chunks, the reference's ``lax.while_loop`` (``utils.sync.chunk_loop``:
+eager, the count read on the host once; captured, one WHILE node on the
+device count).  Every sampler takes per-axis coordinates (planar arrays),
+as the reference does.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from ..config import Config
-from ..utils.sync import read_int
+from ..utils import sync
 from . import blocks as B
 from .dense import floor_to_int, round_to_int
 
@@ -36,6 +39,14 @@ MARCH_UNSEEN = -128  # sentinel in ``march`` for unobserved voxels
 # block to 9x9x9, in the reference's order.
 _NEIGHBOURS = ((1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 0), (1, 0, 1),
                (0, 1, 1), (1, 1, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _neighbour_offsets(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``_NEIGHBOURS`` as a (7, 3) tensor, built once a device and dtype:
+    built in the step it would be a host-to-device copy, which a CUDA
+    graph's capture refuses."""
+    return torch.tensor(_NEIGHBOURS, dtype=dtype, device=device)
 
 
 @dataclasses.dataclass
@@ -78,29 +89,34 @@ def build(volume: B.VolumeState, config: Config) -> RenderCache:
     dev = ids.device
     row_valid = B.visible_rows(volume)
     coords = volume.block_coords[ids.long()]                       # (V, 3)
-    offs = torch.tensor(_NEIGHBOURS, dtype=coords.dtype, device=dev)
+    offs = _neighbour_offsets(dev, coords.dtype)
     nbr = B.lookup_blocks(volume, coords[:, None, :] + offs, config)
     nbr = torch.where(row_valid[:, None], nbr, 0).long()           # (V, 7)
     own = torch.where(row_valid, ids, 0)
 
-    # The halo copies run over the actual visible count, in chunks.
+    # The halo copies run over the actual visible count, in chunks: a
+    # chunk's rows are its device offset + lanes, its halo rows one past.
     C = min(2048, V)
     halo_tsdf = torch.ones(((V + 1) * 729,), dtype=torch.float32, device=dev)
     march = torch.full(((V + 1) * 729,), MARCH_UNSEEN, dtype=torch.int32,
                        device=dev)
     own_l = own.long()
-    for i in range((read_int(volume.num_visible) + C - 1) // C):
-        start = i * C
-        o, nb = own_l[start:start + C], nbr[start:start + C]
+    lanes = torch.arange(C, device=dev)
+    halo_rows, march_rows = halo_tsdf.view(V + 1, 729), march.view(V + 1, 729)
+
+    def chunk(offset):
+        rows = offset + lanes
+        o, nb = own_l[rows], nbr[rows]
         et = _extend(volume.tsdf, o, nb)
         ew = _extend(volume.weight, o, nb)
         em = torch.where(
             ew > 0.0, torch.round(torch.clamp(et, -1.0, 1.0) * 127.0),
             float(MARCH_UNSEEN),
         ).to(torch.int32)
-        off = (start + 1) * 729
-        halo_tsdf[off:off + C * 729] = et.reshape(-1)
-        march[off:off + C * 729] = em.reshape(-1)
+        halo_rows.index_copy_(0, rows + 1, et.reshape(C, 729))
+        march_rows.index_copy_(0, rows + 1, em.reshape(C, 729))
+
+    sync.chunk_loop(volume.num_visible, V, C, chunk)
 
     G = config.render_grid_size
     big = 1 << 20

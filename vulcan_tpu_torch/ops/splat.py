@@ -38,7 +38,7 @@ from ..config import Config
 from ..core.camera import PinholeCamera
 from ..core.se3 import SE3
 from ..utils import sync
-from ..utils.sync import read_int, read_ints
+from ..utils.sync import read_ints
 from . import blocks as B
 from . import cuda_kernels
 from . import render_cache as RC
@@ -259,8 +259,10 @@ def _splat_zbuf_direct(
     from the voxel rows: every observed voxel with |tsdf| inside the splat
     band splats ``z_voxel + tsdf * mu`` at its own projected pixel, under
     the surfel path's back-face cull (the same quantized orientation,
-    computed here from the rows).  The chunk count over the surface list
-    is one counted read."""
+    computed here from the rows).  The chunks of 1024 listed blocks are
+    the reference's ``lax.while_loop`` (``utils.sync.chunk_loop``): a
+    chunk's blocks are the list's entries at its device offset + lanes,
+    masked at the list's length."""
     vs = config.voxel_size
     mu = config.trunc_dist
     w2c = pose.inverse()
@@ -269,14 +271,17 @@ def _splat_zbuf_direct(
     npix = height * width
 
     render_ids, n_surf = _surface_block_list(volume, config)
-    C = min(1024, render_ids.shape[0])
+    V = render_ids.shape[0]
+    C = min(1024, V)
+    lanes = torch.arange(C, device=dev)
     lx, ly, lz = _local_xyz(dev)
     band = B.surfel_band(config)
     zbuf = torch.full((npix + 1,), float("inf"), dtype=torch.float32, device=dev)
-    for i in range((read_int(n_surf) + C - 1) // C):
-        start = i * C
-        ids = render_ids[start:start + C].to(torch.int64)
-        rv = (start + torch.arange(C, device=dev) < n_surf) & (ids > 0)
+
+    def chunk(offset):
+        listed = offset + lanes
+        ids = render_ids[listed].to(torch.int64)
+        rv = (listed < n_surf) & (ids > 0)
         t = volume.tsdf[ids]                                  # (C, 512)
         obs = (volume.weight[ids] > 0.0) & rv[:, None]
         coords = volume.block_coords[ids].to(torch.float32)   # (C, 3)
@@ -307,6 +312,8 @@ def _splat_zbuf_direct(
             0, pix.reshape(-1), torch.where(inb, z_surf, float("inf")).reshape(-1),
             "amin",
         )
+
+    sync.chunk_loop(n_surf, V, C, chunk)
     return zbuf[:npix]
 
 
@@ -321,8 +328,11 @@ def _splat_zbuf_cached(
 ):
     """Z-buffer (H*W,) of the voxel-edge zero crossings of the render
     cache's halos (+x, +y, +z edges of every voxel), culled by the sign of
-    the crossing's axis normal against the ray.  One counted read sizes
-    the chunk loop over the visible rows."""
+    the crossing's axis normal against the ray.  The chunks of 1024
+    visible rows are the reference's ``lax.while_loop``
+    (``utils.sync.chunk_loop``): a chunk reads the halo rows one past its
+    device offset + lanes.  Rows past the visible count hold no observed
+    voxel, so they add no crossing."""
     vs = config.voxel_size
     w2c = pose.inverse()
     R = w2c.rotation
@@ -331,17 +341,19 @@ def _splat_zbuf_cached(
 
     V = volume.visible_ids.shape[0]
     C = min(1024, V)
+    lanes = torch.arange(C, device=dev)
     lx, ly, lz = _local_xyz(dev)
+    halo_t = cache.tsdf.view(V + 1, 9, 9, 9)
+    halo_m = cache.march.view(V + 1, 9, 9, 9)
     zbuf = torch.full((npix + 1,), float("inf"), dtype=torch.float32, device=dev)
-    for i in range((read_int(volume.num_visible) + C - 1) // C):
-        start = i * C
-        off = (start + 1) * 729
-        t = cache.tsdf[off:off + C * 729].reshape(C, 9, 9, 9)
-        obs = (cache.march[off:off + C * 729] != RC.MARCH_UNSEEN).reshape(C, 9, 9, 9)
+
+    def chunk(offset):
+        rows = offset + 1 + lanes
+        t = halo_t[rows]
+        obs = halo_m[rows] != RC.MARCH_UNSEEN
         f0 = t[:, :8, :8, :8].reshape(C, 512)
         o0 = obs[:, :8, :8, :8].reshape(C, 512)
-        rows = cache.row_block[start + 1:start + 1 + C].to(torch.int64)
-        coords = volume.block_coords[rows]                    # (C, 3) int32
+        coords = volume.block_coords[cache.row_block[rows].to(torch.int64)]  # (C, 3)
         bx = (coords[:, 0:1] * 8).to(torch.float32) + lx
         by = (coords[:, 1:2] * 8).to(torch.float32) + ly
         bz = (coords[:, 2:3] * 8).to(torch.float32) + lz
@@ -371,6 +383,8 @@ def _splat_zbuf_cached(
                 0, pix.reshape(-1), torch.where(inb, cz, float("inf")).reshape(-1),
                 "amin",
             )
+
+    sync.chunk_loop(volume.num_visible, V, C, chunk)
     return zbuf[:npix]
 
 

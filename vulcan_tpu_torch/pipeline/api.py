@@ -317,8 +317,8 @@ class Pipeline:
     ``mode`` is the tracking mode: "depth", "color", "combined" or
     "light".
 
-    On the card, where ``fusion.capturable(config, mode)`` holds (the
-    default ``Config`` in every mode), each kind of frame (tracked, known
+    On the card, at every configuration ``fusion.check_supported``
+    accepts (every renderer and mode), each kind of frame (tracked, known
     pose) runs as a captured CUDA graph after two eager warm-up frames
     (``graphs.StepGraphs``): a frame is then one replay with no host read.
     ``captured`` says which path the pipeline takes, ``graph_stats`` what
@@ -327,8 +327,8 @@ class Pipeline:
     out copies; clone whatever else of ``state`` you keep.  Whatever
     replaces a part of ``state`` between frames (a snapshot's volume, a
     re-meshed volume) is copied into the buffers before the next replay.
-    Elsewhere (the CPU, the march, the direct or polished splat) every
-    frame runs the eager step.
+    On the CPU every frame runs the eager step.  A capture that fails
+    raises; nothing on the card falls back to the eager step.
     """
 
     def __init__(
@@ -350,8 +350,7 @@ class Pipeline:
         self.state = fusion.init_state(
             config, camera, height, width, init_pose, self.device
         )
-        self.captured = (self.device.type == "cuda"
-                         and fusion.capturable(config, mode))
+        self.captured = self.device.type == "cuda"
         self._graphs = StepGraphs(self.device) if self.captured else None
 
     @property

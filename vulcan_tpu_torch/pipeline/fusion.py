@@ -6,13 +6,15 @@ or the hierarchical march): preprocess -> track -> fusion gate ->
 allocate + visibility -> integrate -> render, plus
 ``step_known_pose`` (fusion with a given pose) and ``Config.ablate``.  The
 reference runs this as one jitted, donated function.  Here it runs
-eagerly, with the volume updated in place, or, where ``capturable`` says
-the configuration reads nothing on the host, as one CUDA graph that
-``pipeline/api.py``'s ``Pipeline`` captures and replays.  Its data-
-dependent loops and branches go through ``utils.sync``: eager, the
-integrate chunk count, the splat's tier lengths and the auto-photo
-branches are read on the host (counted by ``utils.sync.read_int``);
-captured, they are WHILE and IF/ELSE nodes on the device values.
+eagerly, with the volume updated in place, or, at every configuration
+``check_supported`` accepts, as one CUDA graph that ``pipeline/api.py``'s
+``Pipeline`` captures and replays on the card.  Its data-dependent loops
+and branches go through ``utils.sync``: the integrate chunks, the
+splat's surfel tiers or its direct or cached z-buffer chunks, the render
+cache's halo chunks, the march's compaction branch a level and the
+auto-photo branches.  Eager, their counts and predicates are read on the
+host (counted by ``utils.sync.read_int``); captured, they are WHILE and
+IF/ELSE nodes on the device values.
 
 Auto-photo (depth mode, ``Config.auto_photo``): a frame whose geometric
 conditioning is weak arms combined tracking for ``auto_photo_hold``
@@ -60,18 +62,6 @@ def check_supported(config: Config, mode: str = "depth") -> None:
             f"assoc_patch={config.assoc_patch!r}: the one-hot patch "
             f"association {_TPU_ONLY}"
         )
-
-
-def capturable(config: Config, mode: str = "depth") -> bool:
-    """Whether ``step`` and ``step_known_pose`` at ``config`` read nothing
-    on the host, so that ``Pipeline`` on the card runs them as a captured
-    CUDA graph: the surfel splat, unpolished.  The march (its compaction
-    branches), the direct z-buffer and the render cache (polish) read their
-    loop bounds on the host and run eagerly; so does the sharded step
-    (``parallel/sharding.py``), whose collectives are host calls."""
-    check_supported(config, mode)
-    return (config.render_mode == "splat" and config.splat_source == "surfels"
-            and config.splat_polish == 0)
 
 
 def _ablated(config: Config) -> set[str]:

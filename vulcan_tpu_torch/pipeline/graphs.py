@@ -1,14 +1,15 @@
 """The online step as captured CUDA graphs: the port's counterpart of the
 reference's ``jax.jit(step, donate_argnums=...)``.
 
-``Pipeline`` on the card, for a configuration ``fusion.capturable``
-accepts, hands each frame to ``StepGraphs.run``.  The first
-``WARMUP_FRAMES`` frames of a kind (a tracked step, a known-pose step; per
-input dtype) run eagerly, with both sides of every ``utils.sync.cond``
-(``sync.warm_both``), so that every kernel and every one-time set-up has
-run once.  The next frame captures the step into a ``torch.cuda.CUDAGraph``
-(a capture executes nothing) and replays it; every later frame copies its
-inputs into the graph's input buffers and replays.
+``Pipeline`` on the card, at every configuration
+``fusion.check_supported`` accepts, hands each frame to
+``StepGraphs.run``.  The first ``WARMUP_FRAMES`` frames of a kind (a
+tracked step, a known-pose step; per input dtype) run eagerly, with both
+sides of every ``utils.sync.cond`` (``sync.warm_both``), so that every
+kernel and every one-time set-up has run once.  The next frame captures
+the step into a ``torch.cuda.CUDAGraph`` (a capture executes nothing) and
+replays it; every later frame copies its inputs into the graph's input
+buffers and replays.
 
 Donation: the step reads the state from one set of buffers and its graph
 writes the new state back into the same buffers at its end.  The voxel

@@ -52,6 +52,12 @@ its ``csrc/icp.cu`` (``nvcc -Xptxas -v``, built here for the purpose).
 
 ``--cells`` profiles the cells it names, in that order, in each root's
 process, and nothing else: no eager step, track kernels or registers.
+It also takes the render settings off the default, through ``Pipeline``
+like the rest (a checkout that runs them eagerly is measured eagerly):
+orbit/march and orbit/march-combined (``render_mode="march"`` in depth
+and combined mode), orbit/direct (``splat_source="direct"``) and
+orbit/polish (``splat_polish=2``).  The first cell a process profiles
+can be misread (CUPTI), so name a throwaway cell first.
 
 Prints a table and writes every run's report as JSON.  Needs the card; a
 root without ``chip_smoke.py`` or the package raises.
@@ -253,11 +259,17 @@ cells = {
     "orbit/combined": lambda: cell(P.Config(), "combined", poses, frames),
     "orbit/depth armed": lambda: cell(P.Config(auto_photo_enter=0.99), "depth", poses, frames),
     "desk/combined": desk,
+    "orbit/march": lambda: cell(P.Config(render_mode="march"), "depth", poses, frames),
+    "orbit/march-combined": lambda: cell(P.Config(render_mode="march"), "combined", poses,
+                                         frames),
+    "orbit/direct": lambda: cell(P.Config(splat_source="direct"), "depth", poses, frames),
+    "orbit/polish": lambda: cell(P.Config(splat_polish=2), "depth", poses, frames),
 }
-only = sys.argv[1:]
+# The render settings off the default run with --cells only.
+only = sys.argv[1:] or [name for name in cells if name not in RENDER_CELLS]
 out = {"device": cs.nvidia_smi(), "root": os.getcwd(),
-       "cells": {name: cells[name]() for name in (only or cells)}}
-if only:
+       "cells": {name: cells[name]() for name in only}}
+if sys.argv[1:]:
     print("STAGE_PROFILE " + json.dumps(out), flush=True)
     raise SystemExit(0)
 out["h1"], out["solve_outputs"] = h1_ms()
@@ -275,10 +287,14 @@ print("STAGE_PROFILE " + json.dumps(out), flush=True)
 
 
 CELLS = ("orbit/depth", "orbit/combined", "orbit/depth armed", "desk/combined")
+# The render settings off the default (``--cells`` only): the march in depth
+# and combined mode, the direct and the polished splat, in depth mode.
+RENDER_CELLS = ("orbit/march", "orbit/march-combined", "orbit/direct", "orbit/polish")
 
 
 def _helpers() -> str:
     return "\n".join(["import torch", f"DEVICE_WORK = {timing.DEVICE_WORK!r}",
+                      f"RENDER_CELLS = {RENDER_CELLS!r}",
                       inspect.getsource(timing._device_work),
                       inspect.getsource(timing.device_spans),
                       inspect.getsource(timing.busy_ms)])
@@ -408,7 +424,7 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--roots", nargs="+", default=["."],
                         help="checkout roots, run in this order")
-    parser.add_argument("--cells", nargs="+", default=[], choices=CELLS,
+    parser.add_argument("--cells", nargs="+", default=[], choices=CELLS + RENDER_CELLS,
                         help="profile these cells alone, in this order, and nothing else")
     parser.add_argument("--out", default=os.path.join("chiprun_out", "stage_profile.json"))
     args = parser.parse_args(argv)

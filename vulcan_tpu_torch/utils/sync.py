@@ -1,9 +1,10 @@
 """Device->host reads, and the step's data-dependent control flow.
 
 The reference runs its data-dependent loops (the integrate chunks, the two
-splat tiers) as ``lax.while_loop``s on device counts and its two mode
-switches (the auto-photo track, the colour render) as ``lax.cond``s, all
-inside one jitted step.  The port runs the same step two ways:
+splat tiers, the direct and cached z-buffers' chunks, the render cache's
+halo chunks) as ``lax.while_loop``s on device counts and its branches (the
+auto-photo track and colour render, each march level's compaction) as
+``lax.cond``s, all inside one jitted step.  The port runs the same step two ways:
 
 * eager: each trip count or branch is read on the host, which waits for
   the device.  Every such read goes through ``read_int`` / ``read_ints``
@@ -50,8 +51,9 @@ def capturing() -> bool:
 _body_pool = None       # the node bodies' memory pool of the capture under way
 _body_streams: list = []  # the bodies' capture streams, one a nesting depth
 _body_depth = 0         # node bodies being captured, nested
-# Bodies nest 2 deep on the step (a splat tier's WHILE inside the colour
-# render's IF/ELSE); chip_smoke's phase 2 nests 3.
+# Bodies nest 2 deep on the step (a render's WHILE or the march's
+# compaction IF/ELSE inside the colour render's IF/ELSE); chip_smoke's
+# phase 2 nests 3.
 MAX_DEPTH = 4
 
 
