@@ -1726,9 +1726,9 @@ def profile_stages(P, torch, config, camera, poses, frames, dev, wall_ms,
 
     stage_fns = [
         (fusion, "build_pyramid", "preprocess"), (icp, "model_pyramid", "track"),
-        (icp, "track", "track"), (fusion, "_gate", "gate"),
+        (icp, "track", "track"), (fusion, "_gate", "track"),
         (allocate, "allocate_for_frame", "allocate"),
-        (allocate, "update_visibility", "visibility"),
+        (allocate, "update_visibility", "allocate"),
         (sparse, "integrate_sparse", "integrate"), (raycast, "render", "render"),
     ]
     eager = eager_pipeline(P)

@@ -76,3 +76,88 @@ def test_kept_pose_survives_a_replay(card):
     for a, b in zip(snapshot, after):
         np.testing.assert_array_equal(a, b)
     assert not np.array_equal(snapshot[1], new.translation.cpu().numpy())
+
+
+REPLAYS = 3     # replayed frames of each kind, after the warm-up and the capture
+
+
+@pytest.fixture(scope="module")
+def marked():
+    """The same frames through an untraced and a traced pipeline on the
+    card: each kind's warm-up, capture and REPLAYS replays (tracked, then
+    at a given pose).  Per pipeline: the card's launch counts of each
+    replayed frame by kind, the final pose and volume, and the pipeline."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from vulcan_tpu_torch.ops import cuda_kernels
+
+    n = WARMUP_FRAMES + 1 + REPLAYS
+    poses, frames = _frames(2 * n, torch.device("cuda:0"))
+    out = {}
+    for trace in (False, True):
+        pipe = P.Pipeline(CFG, CAM, H, W, init_pose=poses[0], device="cuda:0", trace=trace)
+        counts = {"tracked": [], "known": []}
+        for k, (d, c) in enumerate(frames):
+            kind, i = ("tracked", k) if k < n else ("known", k - n)
+            before = cuda_kernels.launch_counts()
+            pipe.process(d, c, pose=poses[k] if kind == "known" else None)
+            after = cuda_kernels.launch_counts()
+            if i > WARMUP_FRAMES:
+                counts[kind].append({key: after[key] - before[key] for key in after})
+        volume = {f.name: getattr(pipe.state.volume, f.name).clone()
+                  for f in dataclasses.fields(pipe.state.volume)}
+        out[trace] = (counts, pipe.pose, volume, pipe)
+    return out
+
+
+@pytest.mark.cuda
+def test_marks_twice_a_span_and_nothing_else(marked):
+    """A replayed frame launches ``trace_mark`` twice a span (six spans
+    tracked, five at a given pose) with tracing on and never with it off,
+    and every other counted kernel as often either way."""
+    want = {"tracked": 12, "known": 10}
+    for kind in want:
+        off, on = marked[False][0][kind], marked[True][0][kind]
+        assert len(off) == len(on) == REPLAYS
+        for a, b in zip(off, on):
+            assert a["trace_mark"] == 0 and b["trace_mark"] == want[kind], (kind, a, b)
+            assert {k: v for k, v in a.items() if k != "trace_mark"} == \
+                {k: v for k, v in b.items() if k != "trace_mark"}, kind
+
+
+@pytest.mark.cuda
+def test_traced_replay_is_bit_identical(marked):
+    _, pose_off, vol_off, _ = marked[False]
+    _, pose_on, vol_on, _ = marked[True]
+    assert torch.equal(pose_off.rotation, pose_on.rotation)
+    assert torch.equal(pose_off.translation, pose_on.translation)
+    for name, t in vol_off.items():
+        assert torch.equal(t, vol_on[name]), name
+
+
+@pytest.mark.cuda
+def test_spans_of_replayed_frames_nest(marked):
+    """Every frame's stages lie inside its ``step``, in order, on the host
+    clock, and each frame's ``step`` inside its ``launch`` widened by the
+    calibration's error (the replay runs after the launch call returns, so
+    only its start is bound by it)."""
+    pipe = marked[True][3]
+    n = WARMUP_FRAMES + 1 + REPLAYS
+    got = pipe.trace_spans(0, 2 * n)
+    assert got is not None and 0 <= got["error_ns"] < 100_000
+    frames = {}
+    for f, name, parent, s, e in got["spans"]:
+        frames.setdefault(f, {})[name] = (parent, s, e)
+    assert sorted(frames) == list(range(2 * n))
+    for f, spans in frames.items():
+        stages = ["preprocess", "track", "allocate", "integrate", "render"]
+        if f >= n:
+            stages.remove("track")
+        assert [k for k in spans if k not in ("process", "upload", "launch")] == ["step", *stages]
+        _, s0, e0 = spans["step"]
+        prev = s0
+        for name in stages:
+            _, s, e = spans[name]
+            assert prev <= s <= e <= e0, (f, name)
+            prev = e
+        assert spans["launch"][1] - got["error_ns"] <= s0, f

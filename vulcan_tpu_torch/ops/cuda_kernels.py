@@ -153,6 +153,8 @@ _SIGNATURES = {
     "vulcan_graph_cond": [_P, _I, _P, _P, _P],
     "vulcan_graph_body_begin": [_P, _P],
     "vulcan_graph_body_end": [_P],
+    "vulcan_trace_prepare": [_P],
+    "vulcan_trace_mark": [_P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 
@@ -218,7 +220,7 @@ def _launch(fn, x: torch.Tensor, *args) -> int:
 # eagerly or in a replay of a CUDA graph (whose launches the host never
 # sees).  ``launch_counts`` reads them, ``reset_launch_counts`` zeroes them.
 COUNTED = ("bilateral", "fill_smooth", "icp_associate", "icp_rows", "icp_solve",
-           "icp_rows_solve", "graph_while", "graph_while_next", "graph_ifelse")
+           "icp_rows_solve", "graph_while", "graph_while_next", "graph_ifelse", "trace_mark")
 _counters: dict[int, torch.Tensor] = {}
 
 
@@ -972,3 +974,33 @@ def graph_body_begin(graph: int, body: torch.cuda.Stream) -> None:
 def graph_body_end(body: torch.cuda.Stream) -> None:
     """End the capture of a conditional node's body."""
     _raise_on(load().vulcan_graph_body_end(body.cuda_stream), "graph_body_end")
+
+
+# Span marks (csrc/trace.cu; utils/timing.py SpanTracer).
+TRACE_FIRST = 1     # the frame's first mark: clears and tags the frame's row
+TRACE_LAST = 2      # the frame's last mark: advances the frame counter
+
+
+def trace_prepare(device: torch.device) -> None:
+    """Load the mark's kernel on ``device`` and make the launch counters,
+    before a capture."""
+    x = torch.empty(0, device=device)
+    launch_counter(x, "trace_mark")
+    _raise_on(_launch(load().vulcan_trace_prepare, x), "trace_prepare")
+
+
+def trace_mark(ring: torch.Tensor, frame: torch.Tensor, slot: int, flags: int = 0,
+               counted: bool = True) -> None:
+    """One launch on the current stream that writes the card's
+    ``%globaltimer`` into slot ``slot`` of the row of frame ``frame`` (a 0-d
+    int64) of the (frames, width) int64 ``ring``; ``flags``: ``TRACE_FIRST``,
+    ``TRACE_LAST``.  ``counted``: count it as ``trace_mark`` (the clock's
+    calibration marks are not)."""
+    _check(ring, "trace_mark ring", dtypes=(torch.int64,))
+    _check_scalar(frame, torch.int64, "trace_mark frame")
+    frames, width = ring.shape
+    if not 0 <= slot < width - 1:
+        raise ValueError(f"trace_mark: slot {slot} outside a row of {width - 1} marks")
+    launches = launch_counter(ring, "trace_mark") if counted else None
+    _raise_on(_launch(load().vulcan_trace_mark, ring, ring.data_ptr(), frame.data_ptr(), width,
+                      frames, slot, flags, launches), "trace_mark")

@@ -28,6 +28,7 @@ from ..ops import mcubes as _mcubes
 from ..ops import raycast as _raycast
 from ..ops import sparse as _sparse
 from ..ops.preprocess import build_pyramid
+from ..utils import timing
 from ..utils.device import resolve_device
 from . import fusion
 from .graphs import StepGraphs
@@ -329,6 +330,12 @@ class Pipeline:
     re-meshed volume) is copied into the buffers before the next replay.
     On the CPU every frame runs the eager step.  A capture that fails
     raises; nothing on the card falls back to the eager step.
+
+    ``trace=True`` records every frame's spans in memory until
+    ``trace_spans`` reads them: the step's stages on the device, from
+    marks that the captured graph holds (``utils/timing.py``), and the
+    host's part of ``process``.  Off (the default), the graph holds no
+    mark.
     """
 
     def __init__(
@@ -340,6 +347,7 @@ class Pipeline:
         init_pose: SE3 | None = None,
         mode: str = "depth",
         device=None,
+        trace: bool = False,
     ):
         fusion.check_supported(config, mode)
         self.config = config
@@ -352,6 +360,7 @@ class Pipeline:
         )
         self.captured = self.device.type == "cuda"
         self._graphs = StepGraphs(self.device) if self.captured else None
+        self._tracer = timing.SpanTracer(self.device) if trace else None
 
     @property
     def graph_stats(self) -> dict:
@@ -370,6 +379,13 @@ class Pipeline:
         (camera-to-world), fuse at that pose without tracking.  uint16
         depth (TUM raw units) and uint8 colour are uploaded as they are and
         converted on the device; other dtypes are converted to float32."""
+        if self._tracer is not None:
+            self._process_traced(depth, color, pose)
+            return
+        self._launch(*self._upload(depth, color, pose))
+
+    def _upload(self, depth, color, pose):
+        """The frame on the device: (the step to run, its arguments)."""
         depth = _as_tensor(depth, self.device)
         if depth.dtype not in (torch.uint16, torch.float32):
             depth = depth.to(torch.float32)
@@ -379,12 +395,44 @@ class Pipeline:
         if color.dtype not in (torch.uint8, torch.float32):
             color = color.to(torch.float32)
         args = (depth, color) if pose is None else (depth, color, pose.to(self.device))
-        step = self._tracked if pose is None else self._known_pose
+        return (self._tracked if pose is None else self._known_pose), args
+
+    def _launch(self, step, args) -> None:
+        """The step, eagerly or as its captured graph."""
         if self._graphs is None:
             self.state = step(self.state, *args)
         else:
+            depth, color = args[:2]
             key = f"{step.__name__.lstrip('_')} {depth.dtype} {color.dtype}"
             self.state = self._graphs.run(key, step, self.state, *args)
+
+    def _process_traced(self, depth, color, pose) -> None:
+        """``process`` with its host spans (``timing.HOST_SPANS``) and the
+        step's marks."""
+        t0 = timing.host_ns()
+        step, args = self._upload(depth, color, pose)
+        t1 = timing.host_ns()
+        with timing.tracing(self._tracer):
+            self._launch(step, args)
+        t2 = timing.host_ns()
+        self._tracer.record_host((t0, timing.host_ns()), (t0, t1), (t1, t2))
+
+    def trace_spans(self, first: int, stop: int) -> dict | None:
+        """The spans of frames ``first`` to ``stop`` - 1 (the pipeline's
+        first frame is 0), all on the host clock that ``torch.profiler``
+        stamps its events with (``timing.host_ns``): the step's on the
+        device (``step`` and, inside it, ``preprocess``, ``track`` (with
+        the gate; none with a given pose), ``allocate``, ``integrate``,
+        ``render``) and ``process``'s on the host (``upload``, ``launch``),
+        as ``{"spans": [(frame, name, parent, start ns, end ns), ...],
+        "error_ns", "drift_ns", "interval_s"}``: the clock calibration's
+        half-width and its drift since tracing began (``timing.SpanTracer.
+        spans``).  None where the ring (``timing.RING_FRAMES`` frames) no
+        longer, or not yet, holds every frame of the window.  Copies the ring
+        to the host once and waits for the card."""
+        if self._tracer is None:
+            raise RuntimeError("trace_spans: this Pipeline was built with trace=False")
+        return self._tracer.spans(first, stop)
 
     @property
     def pose(self) -> SE3:

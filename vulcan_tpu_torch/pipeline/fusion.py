@@ -22,16 +22,19 @@ frames.  As in the reference, a ``cond`` on the device countdown picks
 the track (combined while armed) and one picks the render's colour (the
 luma model an armed next frame tracks against).
 
-Each stage runs under a ``torch.profiler.record_function`` range named
-``vulcan.<stage>`` so a profiler trace of the eager step attributes host
-and device time per stage (a graph's replay has no ranges).
+The step and each of its stages (preprocess, track with the gate,
+allocate with the visibility update, integrate, render) run under
+``utils.timing.stage``: a ``torch.profiler`` range ``vulcan.<stage>``, which
+a profiler trace of the eager step attributes time to (a graph's replay has
+no ranges), and, in a ``Pipeline`` built with ``trace=True``, a mark at
+entry and exit that the captured graph holds as a kernel node, so that the
+spans time every replay (``utils/timing.py``, ``csrc/trace.cu``).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
-from torch.profiler import record_function
 
 from ..config import Config
 from ..core import se3
@@ -42,6 +45,7 @@ from ..ops import allocate, icp, raycast, sparse
 from ..ops import blocks as B
 from ..ops.preprocess import bilateral_filter, build_pyramid
 from ..utils import sync
+from ..utils.timing import stage
 
 MODES = icp.MODES
 _TPU_ONLY = "is a TPU layout that vulcan_tpu_torch does not carry"
@@ -214,13 +218,12 @@ def _fuse_and_render(volume: B.VolumeState, frame: Frame, filtered: torch.Tensor
     plane when off).  Returns (volume, render or None)."""
     skip = _ablated(config)
     band_ids = n_band = None
-    if "alloc" not in skip:
-        with record_function("vulcan.allocate"):
+    with stage("allocate"):
+        if "alloc" not in skip:
             volume, band_ids, n_band = allocate.allocate_for_frame(
                 volume, filtered, frame.camera, frame.pose, config
             )
-    if "vis" not in skip:
-        with record_function("vulcan.visibility"):
+        if "vis" not in skip:
             volume = allocate.update_visibility(
                 volume, frame.camera, frame.pose, h, w, config
             )
@@ -233,13 +236,13 @@ def _fuse_and_render(volume: B.VolumeState, frame: Frame, filtered: torch.Tensor
         # (captured, nothing is read).
         n_host, color_on = sync.read_ints(n_band, with_color)
     if integrate:
-        with record_function("vulcan.integrate"):
+        with stage("integrate"):
             volume = sparse.integrate_sparse(
                 volume, frame, config, ids=band_ids, count=n_band, host_count=n_host
             )
     if not render_on:
         return volume, None
-    with record_function("vulcan.render"):
+    with stage("render"):
         def render(wc: bool):
             return raycast.render(
                 volume, frame.camera, frame.pose, h, w, config,
@@ -252,6 +255,7 @@ def _fuse_and_render(volume: B.VolumeState, frame: Frame, filtered: torch.Tensor
                                  lambda: render(False))
 
 
+@stage("step")
 def step(
     state: PipelineState,
     depth: torch.Tensor,
@@ -283,14 +287,14 @@ def step(
         and "track" not in skip
     )
     with_int = mode != "depth" or auto
-    with record_function("vulcan.preprocess"):
+    with stage("preprocess"):
         live_pyr = build_pyramid(frame, config, with_intensity=with_int)
 
-    # --- track against the previous model ---------------------------------
-    if "track" in skip:
-        result = _no_track(state, config)
-    else:
-        with record_function("vulcan.track"):
+    # --- track against the previous model, then the fusion gate ------------
+    with stage("track"):
+        if "track" in skip:
+            result = _no_track(state, config)
+        else:
             model_pyr = icp.model_pyramid(
                 state.model, config.pyramid_levels,
                 with_intensity=with_int,
@@ -311,12 +315,11 @@ def step(
             else:
                 result = track(mode)
 
-    with record_function("vulcan.gate"):
         pose, trusted, degenerate, fuse_ok, photo_cnt = _gate(
             state, result, config, auto
         )
-    fused_depth = torch.where(fuse_ok, depth, 0.0)
-    filtered = torch.where(fuse_ok, live_pyr[0].depth, 0.0)
+        fused_depth = torch.where(fuse_ok, depth, 0.0)
+        filtered = torch.where(fuse_ok, live_pyr[0].depth, 0.0)
 
     # --- fuse + render with the tracked pose -------------------------------
     # Depth-only tracking reads no model colour; an armed frame renders it
@@ -359,6 +362,7 @@ def step_seq(
     return state, torch.stack(trans)
 
 
+@stage("step")
 def step_known_pose(
     state: PipelineState,
     depth: torch.Tensor,
@@ -374,7 +378,7 @@ def step_known_pose(
     depth, color = _to_metric(depth, color, config)
     h, w = depth.shape
     frame = Frame(depth, color, state.model.camera, pose)
-    with record_function("vulcan.preprocess"):
+    with stage("preprocess"):
         filtered = (
             bilateral_filter(depth, config) if config.bilateral_enabled else depth
         )
