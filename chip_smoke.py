@@ -46,7 +46,12 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      nodes nested 3 deep against the eager form, their iterations and
      nodes counted on the card, and their own costs (a WHILE node of 1, 8
      and 32 iterations against as many IF nodes, an IF/ELSE node against
-     two IF nodes, an empty kernel node the floor);
+     two IF nodes, an empty kernel node the floor).  Then R1, the march's
+     range image (``csrc/range_image.cu``; ``range_image_kernel``): the
+     orbit's first R1_FRAMES frames fused at their true poses under
+     Config(render_mode="march"), the stamps and upsample at the last pose
+     bit for bit against the plain version, timed like K1, its library
+     yardstick the plain version's three ``scatter_reduce_`` calls;
   3. main path: Pipeline(Config(), tum_default(), 480, 640) in depth mode
      over the 35-frame synthetic orbit (uint16 depth / uint8 colour in),
      5 warm-up + 30 timed frames.  The pipeline runs its first two frames
@@ -450,6 +455,72 @@ def icp_sums_err(got, want, magnitudes) -> float:
             worst = max(worst, diff / scale if scale > 0.0 else
                         (float("inf") if diff else 0.0))
     return worst
+
+
+R1_FRAMES = 10          # orbit frames fused (at their true poses) before R1 is timed
+
+
+def range_image_kernel(P, torch, dev, cam, poses, frames) -> list[dict]:
+    """Phase 2, R1 (``csrc/range_image.cu``): the march's range image at
+    the march-orbit cell's shapes (640x480, ``Config(render_mode="march")``),
+    on the orbit's first R1_FRAMES frames fused at their true poses and
+    listed visible at the last one.  The kernel pair on the rows'
+    values (``raycast._range_rows``) against the plain stamps and upsample
+    (``_range_image_plain``) bit for bit, timed like K1; its library
+    yardstick the plain version's three ``scatter_reduce_`` calls alone;
+    its bound the bytes it must move (the listed rows, the coarse images
+    written and read, the three maps)."""
+    from vulcan_tpu_torch.ops import allocate, cuda_kernels, raycast
+
+    cfg = P.Config(render_mode="march")
+    h, w = frames[0][0].shape
+    pipe = P.Pipeline(cfg, cam, h, w, init_pose=poses[0], device=dev)
+    for pose, (d16, c8) in zip(poses[:R1_FRAMES], frames[:R1_FRAMES]):
+        pipe.process(d16, c8, pose=pose)
+    pose = poses[R1_FRAMES - 1].to(dev)
+    vol = allocate.update_visibility(pipe.state.volume, cam, pose, h, w, cfg)
+    rows = raycast._range_rows(vol, cam, pose, cfg)
+    sc, st = cfg.range_scale, cfg.range_stamp
+    hc, wc = -(-h // sc), -(-w // sc)
+    args = (rows.z_min, rows.z_max, (rows.u_min, rows.u_max, rows.v_min, rows.v_max),
+            rows.stampable, vol.num_visible, rows.any_overflow, rows.g_min, rows.g_max,
+            (hc, wc), st, sc, (h, w))
+    flat, zmin_b, zmax_b = raycast._stamp_lanes(rows, hc, wc, st)
+    inf = float("inf")
+
+    def library():
+        for init, values, how in ((inf, zmin_b, "amin"), (inf, zmax_b, "amin"),
+                                  (-inf, zmax_b, "amax")):
+            buf = torch.full((hc * wc + 1,), init, dtype=torch.float32, device=dev)
+            buf.scatter_reduce_(0, flat, values, how, include_self=True)
+
+    def launches():
+        c = cuda_kernels.launch_counts(dev)
+        return c["range_stamp"] + c["range_expand"]
+
+    def plain():
+        return torch.stack(raycast._range_image_plain(rows, h, w, cfg))
+
+    got, want = cuda_kernels.range_image(*args), plain()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        fail(f"R1: the range image differs from the plain version's in "
+             f"{int((got != want).sum())} of {got.numel()} entries")
+    listed = int(vol.num_visible)
+    stamped = int((flat < hc * wc).sum())
+    print(f"R1 at {h}x{w}: {listed} listed rows, {int(rows.stampable.sum())} stampable, "
+          f"{stamped} stamp cells of {flat.numel()} lanes, path "
+          f"{cuda_kernels.range_image_path(hc * wc)}; bit-identical to the plain version",
+          flush=True)
+    row_bytes = 4 + 4 + 4 * 8 + 1
+    return [check_kernel(dict(
+        name="range_stamp", tol=0.0, source="vulcan_tpu_torch/csrc/range_image.cu",
+        replaces="vulcan_tpu/ops/raycast.py:70",
+        call=lambda: cuda_kernels.range_image(*args), count=launches, plain=plain,
+        library=library,
+        bytes=listed * row_bytes + 2 * 3 * hc * wc * 4 + 3 * h * w * 4, ops=0,
+        extra=dict(listed_rows=listed, stamp_cells=stamped, lanes=flat.numel(),
+                   kernels="range_stamp + range_expand"),
+    ), torch)]
 
 
 NODE_REPS = 20          # IF/ELSE nodes a graph when one node's cost is timed
@@ -1183,22 +1254,26 @@ def launch_counts() -> dict[str, int]:
 
 def host_counts() -> dict[str, int]:
     """The wrappers' own counts of their eager launches (K1, K2's kernel
-    launches, the track's entry points): on the eager path they must equal the card's."""
-    from vulcan_tpu_torch.ops import preprocess, splat
+    launches, the track's entry points, R1's two kernels): on the eager path
+    they must equal the card's."""
+    from vulcan_tpu_torch.ops import preprocess, raycast, splat
 
+    r1 = raycast.compute_range_image.launches
     return {"bilateral": preprocess.bilateral_filter.launches,
-            "fill_smooth": splat._fill_and_smooth.kernel_launches, **icp_counts()}
+            "fill_smooth": splat._fill_and_smooth.kernel_launches, **icp_counts(),
+            "range_stamp": r1, "range_expand": r1}
 
 
 def reset_counts() -> None:
     """Every count a main-path run reads set to 0: the launches on the card
     and on the host, the host reads, and the eager step's chunk-loop bodies
     and ``cond``s."""
-    from vulcan_tpu_torch.ops import cuda_kernels, preprocess, splat
+    from vulcan_tpu_torch.ops import cuda_kernels, preprocess, raycast, splat
     from vulcan_tpu_torch.utils import sync
 
     cuda_kernels.reset_launch_counts()
     preprocess.bilateral_filter.launches = 0
+    raycast.compute_range_image.launches = 0
     splat._fill_and_smooth.launches = 0
     splat._fill_and_smooth.kernel_launches = 0
     icp_counts(reset=True)
@@ -1221,9 +1296,12 @@ def per_frame(counts: list[dict]) -> list[dict]:
 def want_per_frame(config, known=False, k2_per_frame=1) -> dict[str, int]:
     """The launches a frame of the main path takes: K1 once, K2
     ``k2_per_frame`` times, the track's as ``track_launches`` (none at a
-    known pose)."""
+    known pose), R1's two kernels once under the march and never under the
+    splat."""
     h1 = {k: 0 if known else v for k, v in track_launches(config).items()}
-    return {"bilateral": 1, "fill_smooth": k2_per_frame, **h1}
+    r1 = int(config.render_mode == "march")
+    return {"bilateral": 1, "fill_smooth": k2_per_frame, **h1, "range_stamp": r1,
+            "range_expand": r1}
 
 
 def want_nodes(config, mode="depth", known=False) -> dict[str, int]:
@@ -1362,7 +1440,9 @@ def check_eager_run(label, run, config, known=False, k2_per_frame=1) -> None:
     card counted."""
     check_launches(label, per_frame(run["counts"]),
                    want_per_frame(config, known, k2_per_frame), False)
-    card = {k: v for k, v in run["counts"][-1].items() if k not in GRAPH_NODES}
+    # (an untraced run launches no span mark, which no wrapper counts)
+    card = {k: v for k, v in run["counts"][-1].items()
+            if k not in GRAPH_NODES and not (k == "trace_mark" and v == 0)}
     if card != run["host"][-1]:
         fail(f"{label}: the card counted {card} launches, the wrappers {run['host'][-1]}")
 
@@ -1489,13 +1569,16 @@ def run_cell(P, torch, label, config, mode, camera, poses, frames, ate_limit,
     return out
 
 
-# Kernel names in a profiler trace: the main path's hand kernels and the
-# conditional nodes' one-thread kernels (csrc/graph.cu).
+# Kernel names in a profiler trace of every counted kernel
+# (``cuda_kernels.COUNTED``): the main path's hand kernels, the conditional
+# nodes' one-thread kernels (csrc/graph.cu), the span mark (csrc/trace.cu)
+# and R1's pair (csrc/range_image.cu).
 KERNEL_NAMES = {"bilateral": "bilateral_kernel", "fill_smooth": "fill_smooth_kernel",
                 "icp_associate": "associate_kernel", "icp_rows": "rows_kernel",
                 "icp_solve": "solve_kernel", "icp_rows_solve": "gn_step_kernel",
                 "graph_while": "while_begin_kernel", "graph_while_next": "while_next_kernel",
-                "graph_ifelse": "set_cond_kernel"}
+                "graph_ifelse": "set_cond_kernel", "trace_mark": "mark_kernel",
+                "range_stamp": "stamp_kernel", "range_expand": "expand_kernel"}
 
 
 def replay_profile(pipe, frames, torch, poses=None) -> dict:
@@ -2758,6 +2841,7 @@ def main() -> None:
     k2_rounds_and_shapes(P, splat, torch, dev)
     kernels += track_kernels(P, torch, dev, cam, poses, frames)
     kernels += graph_node_kernels(torch, dev)
+    kernels += range_image_kernel(P, torch, dev, cam, poses, frames)
 
     phase("3 main path: Pipeline.process, default Config, depth mode, 480x640")
     torch.cuda.synchronize()

@@ -114,7 +114,7 @@ _ICP_CAM = (100.0, 100.0, 4.0, 4.0)
 
 @pytest.mark.parametrize(
     "launch", ["bilateral", "fill_smooth", "fill_smooth_fused", "subsample2",
-               "icp_associate", "icp_rows", "icp_solve", "icp_rows_solve"])
+               "icp_associate", "icp_rows", "icp_solve", "icp_rows_solve", "range_image"])
 def test_kernel_entry_refuses_cpu_tensors(launch):
     """A CUDA entry point given a CPU tensor raises before anything is
     built or loaded (the wrappers never send it one)."""
@@ -138,6 +138,10 @@ def test_kernel_entry_refuses_cpu_tensors(launch):
             *_icp_live(x), x.new_zeros(16), x.new_zeros(15),
             (_icp_live(x)[1], _icp_live(x)[1], x > 0), None, _ICP_CAM,
             (0.1, 5.0, 0.01, 0.8, 0.03, 0.1, 0.1), 1e-4, True, False, False),
+        "range_image": lambda x: cuda_kernels.range_image(
+            x.reshape(-1), x.reshape(-1), (x.reshape(-1).long(),) * 4,
+            x.reshape(-1) > 0, torch.tensor(64, dtype=torch.int32), torch.tensor(False),
+            x.sum(), x.sum(), (1, 1), 6, 16, (8, 8)),
     }[launch]
     with pytest.raises(ValueError, match="CUDA tensor"):
         fn(torch.ones((8, 8)))
@@ -327,6 +331,21 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
         )
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_knows_every_counted_kernel():
+    """``chip_smoke.py`` reads every kernel the card counts: by its name in
+    a profiler trace (``KERNEL_NAMES``, which ``replay_profile`` looks up
+    for each counter) and, for the wrappers' eager counts it holds against
+    the card's, under the counter's own name."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert set(smoke.KERNEL_NAMES) == set(cuda_kernels.COUNTED)
+    assert set(smoke.host_counts()) <= set(cuda_kernels.COUNTED)
+    assert set(smoke.want_per_frame(P.Config(render_mode="march"))) <= set(cuda_kernels.COUNTED)
 
 
 @pytest.mark.parametrize("entry", ["pipeline", "render_scene_depth", "volume",

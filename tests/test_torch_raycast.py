@@ -17,6 +17,7 @@ from vulcan_tpu.ops import allocate as jal
 from vulcan_tpu.ops import raycast as jray
 from vulcan_tpu.utils.evaluate import ate_rmse as j_ate_rmse
 from vulcan_tpu_torch.ops import allocate as tal
+from vulcan_tpu_torch.ops import cuda_kernels
 from vulcan_tpu_torch.ops import preprocess, splat
 from vulcan_tpu_torch.ops import raycast as tray
 from vulcan_tpu_torch.utils.evaluate import ate_rmse
@@ -69,15 +70,67 @@ def volumes():
     return jv, tv, pose_j, pose_t
 
 
-def test_range_image_matches_reference_exactly(volumes):
+# How far ``test_range_image_matches_reference_exactly``'s "overflow" case
+# moves the camera along its optical axis: 0.2 m in front of the big
+# sphere, so that listed blocks lie behind it and others cover more than
+# the stamp.
+_OVERFLOW_STEP = 0.9
+
+
+def _range_case(volumes, case):
+    """(reference volume, port volume, reference pose, port pose) of a range
+    image case: the fused orbit volume at its pose; the same list from a
+    camera moved ``_OVERFLOW_STEP`` forward (overflow rows of both kinds);
+    an empty visible list."""
     jv, tv, pose_j, pose_t = volumes
+    if case == "overflow":
+        axis = np.asarray(pose_j.rotation)[:, 2] * _OVERFLOW_STEP
+        pose_j = dataclasses.replace(pose_j, translation=pose_j.translation + axis)
+        pose_t = se3_t(pose_j)
+    elif case == "empty":
+        jv = dataclasses.replace(jv, num_visible=jv.num_visible * 0)
+        tv = dataclasses.replace(tv, num_visible=tv.num_visible * 0)
+    return jv, tv, pose_j, pose_t
+
+
+@pytest.mark.parametrize("case", ["fused", "overflow", "empty"])
+def test_range_image_matches_reference_exactly(volumes, case):
+    """The plain stamps and upsample (the CPU's path, kernel R1's
+    yardstick) against the reference's scatters, bit for bit: on the fused
+    volume, with overflow rows (corners behind the camera, footprints wider
+    than the stamp) beside stamped ones, and on an empty visible list."""
+    jv, tv, pose_j, pose_t = _range_case(volumes, case)
     ref = jax.jit(jray.compute_range_image, static_argnums=(3, 4, 5))(
         jv, CAM_J, pose_j, H, W, CFG_J)
     got = tray.compute_range_image(tv, CAM_T, pose_t, H, W, CFG_T)
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    t_min, _, t_max = (a.numpy() for a in got)
-    assert (t_min <= t_max).mean() > 0.5
+    t_min, t_fmax, t_max = (a.numpy() for a in got)
+    rows = tray._range_rows(tv, CAM_T, pose_t, CFG_T)
+    listed = int(tv.num_visible)
+    if case == "empty":
+        assert listed == 0 and not rows.stampable.any() and not rows.any_overflow
+        assert np.isposinf(t_min).all() and np.isposinf(t_fmax).all()
+        assert np.isneginf(t_max).all()
+        return
+    assert listed > 0 and rows.stampable.any()
+    if case == "overflow":
+        behind, oversize = rows.behind[:listed], rows.oversize[:listed]
+        assert behind.any() and (oversize & ~behind).any() and rows.any_overflow
+        assert (t_min <= t_max).all() and np.isfinite(t_max).all()
+    else:
+        assert (t_min <= t_max).mean() > 0.5
+
+
+def test_range_image_path_by_coarse_size():
+    """Kernel R1 keeps its three coarse images in each CTA's shared memory
+    while they fit, else in global memory: by their size alone."""
+    assert cuda_kernels.range_image_path(40 * 30) == "smem"           # 640x480 / 16
+    assert cuda_kernels.range_image_path(160 * 120) == "smem"         # 640x480 / 4
+    assert cuda_kernels.range_image_path(320 * 240) == "global"       # 640x480 / 2
+    most = cuda_kernels.RANGE_SMEM_BYTES // 12
+    assert cuda_kernels.range_image_path(most) == "smem"
+    assert cuda_kernels.range_image_path(most + 1) == "global"
 
 
 @pytest.mark.parametrize("branch,divs", [("compact", (2, 2)), ("mixed", None),

@@ -155,6 +155,8 @@ _SIGNATURES = {
     "vulcan_graph_body_end": [_P],
     "vulcan_trace_prepare": [_P],
     "vulcan_trace_mark": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "vulcan_range_stamp": [_P] * 11 + [_I] * 4 + [_P] * 4,
+    "vulcan_range_expand": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
 }
 
 
@@ -220,7 +222,8 @@ def _launch(fn, x: torch.Tensor, *args) -> int:
 # eagerly or in a replay of a CUDA graph (whose launches the host never
 # sees).  ``launch_counts`` reads them, ``reset_launch_counts`` zeroes them.
 COUNTED = ("bilateral", "fill_smooth", "icp_associate", "icp_rows", "icp_solve",
-           "icp_rows_solve", "graph_while", "graph_while_next", "graph_ifelse", "trace_mark")
+           "icp_rows_solve", "graph_while", "graph_while_next", "graph_ifelse", "trace_mark",
+           "range_stamp", "range_expand")
 _counters: dict[int, torch.Tensor] = {}
 
 
@@ -1004,3 +1007,67 @@ def trace_mark(ring: torch.Tensor, frame: torch.Tensor, slot: int, flags: int = 
     launches = launch_counter(ring, "trace_mark") if counted else None
     _raise_on(_launch(load().vulcan_trace_mark, ring, ring.data_ptr(), frame.data_ptr(), width,
                       frames, slot, flags, launches), "trace_mark")
+
+
+# The march's range image (csrc/range_image.cu): the stamps as one
+# thread-block cluster, then the upsample.  The three coarse images stay in
+# each CTA's shared memory while they fit RANGE_SMEM_BYTES ("smem"), else in
+# a scratch in global memory ("global"; ``range_image_path``).
+RANGE_SMEM_BYTES = GATHER_BLOCK_BYTES   # csrc/range_image.cu kSmemBytes
+
+
+def range_image_path(cells: int) -> str:
+    """"smem" or "global": where the stamp kernel keeps three coarse images
+    of ``cells`` cells, by their size alone."""
+    return "smem" if 3 * cells * 4 <= RANGE_SMEM_BYTES else "global"
+
+
+def range_image(z_min: torch.Tensor, z_max: torch.Tensor, footprint: tuple[torch.Tensor, ...],
+                stampable: torch.Tensor, num_visible: torch.Tensor,
+                any_overflow: torch.Tensor, g_min: torch.Tensor, g_max: torch.Tensor,
+                coarse: tuple[int, int], stamp: int, scale: int,
+                size: tuple[int, int]) -> torch.Tensor:
+    """Launch R1: the visible rows' stamps into the (hc, wc) = ``coarse``
+    min/max range images (``range_stamp``), then their nearest upsample by
+    ``scale`` to ``size`` = (H, W) (``range_expand``).  The rows: float32
+    ``z_min``/``z_max``, the int64 ``footprint`` (u_min, u_max, v_min,
+    v_max) in coarse cells and the bool ``stampable``, all (V,); the 0-d
+    int32 ``num_visible``, bool ``any_overflow`` and float32 ``g_min``,
+    ``g_max``.  Returns the (3, H, W) float32 t_min, t_first_max, t_max."""
+    if len(footprint) != 4:
+        raise ValueError("range_image: the footprint is u_min, u_max, v_min, v_max")
+    rows = z_min.shape[0]
+    for x, what, dtype in ((z_min, "z_min", torch.float32), (z_max, "z_max", torch.float32),
+                           *((f, "footprint", torch.int64) for f in footprint),
+                           (stampable, "stampable", torch.bool)):
+        _check(x, f"range_image {what}", (dtype,), ndim=1)
+        if x.shape[0] != rows:
+            raise ValueError(f"range_image: {what} has {x.shape[0]} rows, not {rows}")
+    _check_scalar(num_visible, torch.int32, "range_image num_visible")
+    _check_scalar(any_overflow, torch.bool, "range_image any_overflow")
+    _check_scalar(g_min, torch.float32, "range_image g_min")
+    _check_scalar(g_max, torch.float32, "range_image g_max")
+    if any(x.device != z_min.device for x in (z_max, *footprint, stampable, num_visible,
+                                              any_overflow, g_min, g_max)):
+        raise ValueError("range_image: the rows and scalars lie on different devices")
+    (hc, wc), (h, w) = coarse, size
+    if not (stamp >= 1 and scale >= 1 and hc == -(-h // scale) and wc == -(-w // scale)):
+        raise ValueError(f"range_image: a ({hc}, {wc}) coarse image does not cover "
+                         f"({h}, {w}) at scale {scale}, or the stamp {stamp} is empty")
+    lib = load()
+    cells = hc * wc
+    keys = (None if range_image_path(cells) == "smem" else
+            torch.empty((3, cells), dtype=torch.int32, device=z_min.device))
+    images = z_min.new_empty((3, cells))
+    err = _launch(
+        lib.vulcan_range_stamp, z_min, z_min.data_ptr(), z_max.data_ptr(),
+        *(f.data_ptr() for f in footprint), stampable.data_ptr(), num_visible.data_ptr(),
+        any_overflow.data_ptr(), g_min.data_ptr(), g_max.data_ptr(), rows, hc, wc, stamp,
+        _ptr(keys), images.data_ptr(), launch_counter(z_min, "range_stamp"),
+    )
+    _raise_on(err, "range_stamp")
+    out = z_min.new_empty((3, h, w))
+    err = _launch(lib.vulcan_range_expand, z_min, images.data_ptr(), out.data_ptr(), h, w,
+                  hc, wc, scale, launch_counter(z_min, "range_expand"))
+    _raise_on(err, "range_expand")
+    return out

@@ -3,9 +3,10 @@
 Counterpart of ``vulcan_tpu/ops/raycast.py``:
 
   1. ``compute_range_image``: visible blocks stamp their projected AABB
-     into a coarse (1/``range_scale``) min/max range image with
-     scatter-min/max; blocks whose footprint exceeds the fixed stamp widen
-     a conservative global range instead;
+     into a coarse (1/``range_scale``) min/max range image, upsampled to
+     full resolution (scatter-min/max on the CPU, kernel R1 on the card);
+     blocks whose footprint exceeds the fixed stamp widen a conservative
+     global range instead;
   2. ``_march``: each round samples ``S`` positions along every ray at once
      through the per-frame render cache (two gathers a sample, no hash
      probe) and takes the first +to- sign change;
@@ -26,6 +27,7 @@ read of its predicate; captured, one IF/ELSE node on the device).
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -34,6 +36,7 @@ from ..core.camera import PinholeCamera
 from ..core.se3 import SE3
 from ..utils import sync
 from . import blocks as B
+from . import cuda_kernels
 from . import render_cache as RC
 from .dense import floor_to_int, round_to_int
 from .preprocess import _shift2d
@@ -69,17 +72,29 @@ def _upsample(a: torch.Tensor, k: int, height: int, width: int) -> torch.Tensor:
     return a.repeat_interleave(k, 0).repeat_interleave(k, 1)[:height, :width]
 
 
-def compute_range_image(volume: B.VolumeState, camera: PinholeCamera, pose: SE3,
-                        height: int, width: int, config: Config):
-    """Per-pixel conservative [t_min, t_max] from the visible blocks' AABBs.
+class RangeRows(NamedTuple):
+    """The range image's per-row values of the visible list (V,), and the
+    overflow rows' global range (0-d)."""
 
-    Returns (t_min, t_first_max, t_max) at full resolution (upsampled from
-    the coarse grid); ``t_first_max`` is the exit depth of the nearest
-    stamped block.  Pixels no visible block projects to get t_min > t_max.
-    """
+    z_min: torch.Tensor          # near / far depth, clamped to [ray_near, ray_far]
+    z_max: torch.Tensor
+    u_min: torch.Tensor          # int64 footprint in coarse cells
+    u_max: torch.Tensor
+    v_min: torch.Tensor
+    v_max: torch.Tensor
+    behind: torch.Tensor         # a corner behind the camera
+    oversize: torch.Tensor       # a footprint wider than the stamp
+    stampable: torch.Tensor      # a listed block that stamps its footprint
+    any_overflow: torch.Tensor   # a listed block that widens the global range
+    g_min: torch.Tensor
+    g_max: torch.Tensor
+
+
+def _range_rows(volume: B.VolumeState, camera: PinholeCamera, pose: SE3,
+                config: Config) -> RangeRows:
+    """Each visible row's depth range and coarse-cell footprint: its
+    block's AABB corners in the camera, projected."""
     sc = config.range_scale
-    hc = -(-height // sc)
-    wc = -(-width // sc)
     ids = volume.visible_ids
     dev = ids.device
     row_valid = B.visible_rows(volume)
@@ -113,20 +128,38 @@ def compute_range_image(volume: B.VolumeState, camera: PinholeCamera, pose: SE3,
     any_overflow = torch.any(overflow)
     g_min = torch.amin(torch.where(overflow, z_min, inf))
     g_max = torch.amax(torch.where(overflow, z_max, -inf))
+    return RangeRows(z_min, z_max, u_min, u_max, v_min, v_max, behind, oversize, stampable,
+                     any_overflow, g_min, g_max)
 
-    # Fixed st x st stamp; index hc*wc is a trash slot for masked lanes.
-    du = torch.arange(st, device=dev)
-    cu = u_min[:, None, None] + du[None, :, None]                     # (V, st, 1)
-    cv = v_min[:, None, None] + du[None, None, :]                     # (V, 1, st)
+
+def _stamp_lanes(rows: RangeRows, hc: int, wc: int, st: int):
+    """The plain stamps' lanes: each row's fixed st x st stamp as (V * st *
+    st,) flat cell indices, index hc*wc a trash slot for masked lanes, and
+    the rows' z_min and z_max beside them."""
+    du = torch.arange(st, device=rows.z_min.device)
+    cu = rows.u_min[:, None, None] + du[None, :, None]                # (V, st, 1)
+    cv = rows.v_min[:, None, None] + du[None, None, :]                # (V, 1, st)
     inside = (
-        stampable[:, None, None]
-        & (cu <= u_max[:, None, None])
-        & (cv <= v_max[:, None, None])
+        rows.stampable[:, None, None]
+        & (cu <= rows.u_max[:, None, None])
+        & (cv <= rows.v_max[:, None, None])
         & (cu >= 0) & (cu < wc) & (cv >= 0) & (cv < hc)
     )                                                                 # (V, st, st)
     flat = torch.where(inside, cv * wc + cu, hc * wc).reshape(-1)
-    zmin_b = torch.broadcast_to(z_min[:, None, None], inside.shape).reshape(-1)
-    zmax_b = torch.broadcast_to(z_max[:, None, None], inside.shape).reshape(-1)
+    zmin_b = torch.broadcast_to(rows.z_min[:, None, None], inside.shape).reshape(-1)
+    zmax_b = torch.broadcast_to(rows.z_max[:, None, None], inside.shape).reshape(-1)
+    return flat, zmin_b, zmax_b
+
+
+def _range_image_plain(rows: RangeRows, height: int, width: int, config: Config):
+    """The stamps and the upsample of ``compute_range_image`` in PyTorch:
+    the CPU's path and the yardstick of kernel R1."""
+    sc = config.range_scale
+    hc = -(-height // sc)
+    wc = -(-width // sc)
+    dev = rows.z_min.device
+    inf = float("inf")
+    flat, zmin_b, zmax_b = _stamp_lanes(rows, hc, wc, config.range_stamp)
 
     def stamp(init, values, how):
         buf = torch.full((hc * wc + 1,), init, dtype=torch.float32, device=dev)
@@ -137,11 +170,40 @@ def compute_range_image(volume: B.VolumeState, camera: PinholeCamera, pose: SE3,
     t_fmax = stamp(inf, zmax_b, "amin")
     t_max = stamp(-inf, zmax_b, "amax")
 
+    any_overflow, g_min, g_max = rows.any_overflow, rows.g_min, rows.g_max
     t_min = torch.where(any_overflow, torch.minimum(t_min, g_min), t_min)
     t_fmax = torch.where(any_overflow, torch.minimum(t_fmax, g_max), t_fmax)
     t_max = torch.where(any_overflow, torch.maximum(t_max, g_max), t_max)
     return (_upsample(t_min, sc, height, width), _upsample(t_fmax, sc, height, width),
             _upsample(t_max, sc, height, width))
+
+
+def compute_range_image(volume: B.VolumeState, camera: PinholeCamera, pose: SE3,
+                        height: int, width: int, config: Config):
+    """Per-pixel conservative [t_min, t_max] from the visible blocks' AABBs.
+
+    Returns (t_min, t_first_max, t_max) at full resolution (upsampled from
+    the coarse grid); ``t_first_max`` is the exit depth of the nearest
+    stamped block.  Pixels no visible block projects to get t_min > t_max.
+    The rows' values are PyTorch ops on any device; a CPU tensor then takes
+    the plain stamps (``_range_image_plain``), a CUDA tensor launches kernel
+    R1 (``csrc/range_image.cu``: the stamps, then the upsample) or raises.
+    Eager calls are counted in ``compute_range_image.launches`` (a graph's
+    replays on the card: ``cuda_kernels.launch_counts``)."""
+    rows = _range_rows(volume, camera, pose, config)
+    if volume.visible_ids.is_cpu:
+        return _range_image_plain(rows, height, width, config)
+    sc = config.range_scale
+    maps = cuda_kernels.range_image(
+        rows.z_min, rows.z_max, (rows.u_min, rows.u_max, rows.v_min, rows.v_max),
+        rows.stampable, volume.num_visible, rows.any_overflow, rows.g_min, rows.g_max,
+        (-(-height // sc), -(-width // sc)), config.range_stamp, sc, (height, width))
+    if not sync.capturing():  # a capture records the launches, each replay makes them
+        compute_range_image.launches += 1
+    return tuple(maps.unbind(0))
+
+
+compute_range_image.launches = 0
 
 
 def _march(cache, config, ox, oy, oz, dx_, dy_, dz_, t0, spacing, t_limit, active,
