@@ -51,7 +51,12 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      orbit's first R1_FRAMES frames fused at their true poses under
      Config(render_mode="march"), the stamps and upsample at the last pose
      bit for bit against the plain version, timed like K1, its library
-     yardstick the plain version's three ``scatter_reduce_`` calls;
+     yardstick the plain version's three ``scatter_reduce_`` calls.  Then
+     I1, the integrate layer (``csrc/integrate.cu``; ``integrate_kernel``):
+     under each benchmark configuration, the next frame's band list after
+     I1_FRAMES frames fused at their true poses, one launch bit for bit
+     against the plain chunk loop on all seven outputs, timed like K1 beside
+     the plain version, the band's length printed;
   3. main path: Pipeline(Config(), tum_default(), 480, 640) in depth mode
      over the 35-frame synthetic orbit (uint16 depth / uint8 colour in),
      5 warm-up + 30 timed frames.  The pipeline runs its first two frames
@@ -62,8 +67,8 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      after each frame: ``check_graph_run`` holds that the pipeline ran as
      a graph, that no replayed frame read on the host or launched
      anything eagerly, and that every replayed frame launched K1 and K2
-     once, H1a 12 times and the fused step 29 (H1b and H1c alone 0;
-     ``want_per_frame``), 3 WHILE nodes and auto-photo's 2 IF/ELSE nodes
+     once, H1a 12 times, the fused step 29 (H1b and H1c alone 0) and I1
+     once (``want_per_frame``), 2 WHILE nodes and auto-photo's 2 IF/ELSE nodes
      (``want_nodes``); the run's
      counts are the kernels line's ``launches`` and a replayed frame's its
      ``launches_per_replayed_frame``; zero overflows, zero track failures
@@ -521,6 +526,98 @@ def range_image_kernel(P, torch, dev, cam, poses, frames) -> list[dict]:
         extra=dict(listed_rows=listed, stamp_cells=stamped, lanes=flat.numel(),
                    kernels="range_stamp + range_expand"),
     ), torch)]
+
+
+I1_FRAMES = 10          # frames fused (at their true poses) before I1 is timed
+I1_OPS = 64             # f32 operations a voxel (I1's arithmetic, rounded up)
+I1_OUTPUTS = ("tsdf", "weight", "colorpack", "surfpack", "surf_count", "mesh_dirty",
+              "surf_overflow")
+
+
+def integrate_kernel(P, torch, dev, cam, poses) -> list[dict]:
+    """Phase 2, I1 (``csrc/integrate.cu``): the integrate layer at both
+    benchmark configurations' shapes (640x480): ``Config()`` on the desk
+    (``splat-combined``) and ``Config(render_mode="march")`` on the orbit
+    (``march-depth``), each after I1_FRAMES frames fused at their true
+    poses, on the next frame's band list (its length printed).  One launch
+    against the plain version (``sparse._integrate_plain``, the chunk loop
+    of PyTorch ops) bit for bit on all seven outputs, from copies of one
+    volume; then both on that volume in place, I1 timed like K1 and the
+    plain version's call ms; the bound is the bytes each listed block moves
+    (its 512 tsdf, weight and colour words read and written, its surfel
+    row, count, flag, coordinates and id) and the packed image read once."""
+    from vulcan_tpu_torch.core.frame import Frame
+    from vulcan_tpu_torch.io.synthetic import (orbit_poses, render_desk_depth,
+                                               render_scene_depth)
+    from vulcan_tpu_torch.ops import allocate, sparse
+    from vulcan_tpu_torch.tools.timing import call_ms, device_and_host
+
+    h, w = 480, 640
+    n = I1_FRAMES + 1
+    desk = orbit_poses(n, center=(0.0, 0.0, -0.25), radius=1.5, height=0.55, span=0.05 * n)
+    cells = (("splat-combined", P.Config(), desk,
+              lambda p: render_desk_depth(cam, p, h, w, device=dev)),
+             ("march-depth", P.Config(render_mode="march"), poses[:n],
+              lambda p: render_scene_depth(cam, p, h, w, SPHERES, FLOOR, device=dev)))
+    entries = []
+    for name, cfg, ps, render in cells:
+        fs = [render(p) for p in ps]
+        pipe = P.Pipeline(cfg, cam, h, w, init_pose=ps[0], device=dev)
+        for pose, (d, c) in zip(ps[:-1], fs[:-1]):
+            pipe.process(d, c, pose=pose)
+        frame = Frame(*fs[-1], cam, ps[-1].to(dev))
+        vol, band, n_band = allocate.allocate_for_frame(pipe.state.volume, frame.depth, cam,
+                                                        frame.pose, cfg)
+        del pipe
+
+        def copy():
+            return dataclasses.replace(vol, **{f.name: getattr(vol, f.name).clone()
+                                               for f in dataclasses.fields(vol)})
+
+        got = sparse.integrate_sparse(copy(), frame, cfg, ids=band, count=n_band)
+        want = sparse._integrate_plain(copy(), frame, cfg, band, n_band)
+        for field in I1_OUTPUTS:
+            a, b = getattr(got, field), getattr(want, field)
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not torch.equal(a, b):
+                fail(f"I1 ({name}): {field} differs from the plain version's in "
+                     f"{int((a != b).sum())} of {a.numel()} entries")
+        listed = int(n_band)
+        print(f"I1 at {h}x{w} ({name}): {listed} band blocks of {band.shape[0]} rows, "
+              f"{int(got.surf_overflow)} surfels dropped, "
+              f"{int(got.mesh_dirty.sum())} blocks dirty; bit-identical to the plain "
+              f"version on {', '.join(I1_OUTPUTS)}", flush=True)
+
+        def call():
+            return sparse.integrate_sparse(vol, frame, cfg, ids=band, count=n_band)
+
+        def plain():
+            return sparse._integrate_plain(vol, frame, cfg, band, n_band)
+
+        count0 = sparse.integrate_sparse.launches
+        call()
+        launches_per_call = sparse.integrate_sparse.launches - count0
+        kernel_ms, host_us = device_and_host(call)
+        one_call = call_ms(call)
+        plain_ms = call_ms(plain)
+        block_bytes = 2 * 3 * 512 * 4 + cfg.surfel_slots * 4 + 4 + 1 + 3 * 4 + 4
+        bound_ms, bound_by = bound(listed * block_bytes + h * w * 4,
+                                   listed * 512 * I1_OPS)
+        print(f"integrate ({name}): exact; kernel {kernel_ms:.4f} ms (device, "
+              f"{launches_per_call} launch/call) host {host_us:.2f} us call {one_call:.4f} "
+              f"ms (host included) plain {plain_ms:.4f} ms library none bound "
+              f"{bound_ms:.5f} ms ({bound_by}) at {listed} band blocks", flush=True)
+        entries.append(dict(
+            name="integrate", config=name, route="cuda",
+            source="vulcan_tpu_torch/csrc/integrate.cu",
+            replaces="vulcan_tpu/ops/sparse.py:377", launches=0, max_abs_err=0.0,
+            ms=one_call, kernel_ms=kernel_ms, call_ms=one_call, host_us=host_us,
+            launches_per_call=launches_per_call, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None, library_kernel_ms=None,
+            library_host_us=None, band_blocks=listed))
+        del vol, got, want
+    return entries
 
 
 NODE_REPS = 20          # IF/ELSE nodes a graph when one node's cost is timed
@@ -1254,26 +1351,28 @@ def launch_counts() -> dict[str, int]:
 
 def host_counts() -> dict[str, int]:
     """The wrappers' own counts of their eager launches (K1, K2's kernel
-    launches, the track's entry points, R1's two kernels): on the eager path
-    they must equal the card's."""
-    from vulcan_tpu_torch.ops import preprocess, raycast, splat
+    launches, the track's entry points, R1's two kernels, I1): on the eager
+    path they must equal the card's."""
+    from vulcan_tpu_torch.ops import preprocess, raycast, sparse, splat
 
     r1 = raycast.compute_range_image.launches
     return {"bilateral": preprocess.bilateral_filter.launches,
             "fill_smooth": splat._fill_and_smooth.kernel_launches, **icp_counts(),
-            "range_stamp": r1, "range_expand": r1}
+            "range_stamp": r1, "range_expand": r1,
+            "integrate": sparse.integrate_sparse.launches}
 
 
 def reset_counts() -> None:
     """Every count a main-path run reads set to 0: the launches on the card
     and on the host, the host reads, and the eager step's chunk-loop bodies
     and ``cond``s."""
-    from vulcan_tpu_torch.ops import cuda_kernels, preprocess, raycast, splat
+    from vulcan_tpu_torch.ops import cuda_kernels, preprocess, raycast, sparse, splat
     from vulcan_tpu_torch.utils import sync
 
     cuda_kernels.reset_launch_counts()
     preprocess.bilateral_filter.launches = 0
     raycast.compute_range_image.launches = 0
+    sparse.integrate_sparse.launches = 0
     splat._fill_and_smooth.launches = 0
     splat._fill_and_smooth.kernel_launches = 0
     icp_counts(reset=True)
@@ -1297,22 +1396,23 @@ def want_per_frame(config, known=False, k2_per_frame=1) -> dict[str, int]:
     """The launches a frame of the main path takes: K1 once, K2
     ``k2_per_frame`` times, the track's as ``track_launches`` (none at a
     known pose), R1's two kernels once under the march and never under the
-    splat."""
+    splat, I1 once (every frame integrates its band)."""
     h1 = {k: 0 if known else v for k, v in track_launches(config).items()}
     r1 = int(config.render_mode == "march")
     return {"bilateral": 1, "fill_smooth": k2_per_frame, **h1, "range_stamp": r1,
-            "range_expand": r1}
+            "range_expand": r1, "integrate": 1}
 
 
 def want_nodes(config, mode="depth", known=False) -> dict[str, int]:
     """The conditional nodes a replayed frame evaluates, on a frame that
-    auto-photo has not armed: a WHILE node for the integrate loop and one
-    for each loop of the render the frame takes (the surfel splat's two
-    tiers; the direct z-buffer's chunks; the render cache's halo chunks,
-    and on the splat its cached z-buffer's), and an IF/ELSE node for each
-    of auto-photo's two ``cond``s (depth mode, tracked) and for each march
-    level's compaction branch.  The render has colour in the photometric
-    modes and at a known pose, not on an unarmed depth-mode frame."""
+    auto-photo has not armed: a WHILE node for each loop of the render the
+    frame takes (the surfel splat's two tiers; the direct z-buffer's
+    chunks; the render cache's halo chunks, and on the splat its cached
+    z-buffer's; integrate has none: I1 is one launch that reads the band's
+    count on the card), and an IF/ELSE node for each of auto-photo's two
+    ``cond``s (depth mode, tracked) and for each march level's compaction
+    branch.  The render has colour in the photometric modes and at a known
+    pose, not on an unarmed depth-mode frame."""
     if config.model_color != "luma":
         raise ValueError("want_nodes counts the luma render's loops")
     auto = (mode == "depth" and config.auto_photo and config.degen_min_eig > 0.0
@@ -1327,7 +1427,7 @@ def want_nodes(config, mode="depth", known=False) -> dict[str, int]:
         need_cache = config.splat_polish > 0 or (
             with_color and not (surfels and config.splat_polish == 0))
         render = 2 if need_cache or surfels else 1
-    return {"graph_while": 1 + render, "graph_ifelse": ifelse}
+    return {"graph_while": render, "graph_ifelse": ifelse}
 
 
 def check_launches(label, frames, want, captured, nodes=None, eager=None) -> dict:
@@ -1571,14 +1671,15 @@ def run_cell(P, torch, label, config, mode, camera, poses, frames, ate_limit,
 
 # Kernel names in a profiler trace of every counted kernel
 # (``cuda_kernels.COUNTED``): the main path's hand kernels, the conditional
-# nodes' one-thread kernels (csrc/graph.cu), the span mark (csrc/trace.cu)
-# and R1's pair (csrc/range_image.cu).
+# nodes' one-thread kernels (csrc/graph.cu), the span mark (csrc/trace.cu),
+# R1's pair (csrc/range_image.cu) and I1 (csrc/integrate.cu).
 KERNEL_NAMES = {"bilateral": "bilateral_kernel", "fill_smooth": "fill_smooth_kernel",
                 "icp_associate": "associate_kernel", "icp_rows": "rows_kernel",
                 "icp_solve": "solve_kernel", "icp_rows_solve": "gn_step_kernel",
                 "graph_while": "while_begin_kernel", "graph_while_next": "while_next_kernel",
                 "graph_ifelse": "set_cond_kernel", "trace_mark": "mark_kernel",
-                "range_stamp": "stamp_kernel", "range_expand": "expand_kernel"}
+                "range_stamp": "stamp_kernel", "range_expand": "expand_kernel",
+                "integrate": "integrate_kernel"}
 
 
 def replay_profile(pipe, frames, torch, poses=None) -> dict:
@@ -2842,6 +2943,7 @@ def main() -> None:
     kernels += track_kernels(P, torch, dev, cam, poses, frames)
     kernels += graph_node_kernels(torch, dev)
     kernels += range_image_kernel(P, torch, dev, cam, poses, frames)
+    kernels += integrate_kernel(P, torch, dev, cam, poses)
 
     phase("3 main path: Pipeline.process, default Config, depth mode, 480x640")
     torch.cuda.synchronize()

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 import vulcan_tpu_torch as P
-from vulcan_tpu_torch.ops import cuda_kernels, icp, preprocess, splat
+from vulcan_tpu_torch.ops import cuda_kernels, icp, preprocess, sparse, splat
 from vulcan_tpu_torch.pipeline import fusion
 
 from ._torch_port import CAM_T, CFG_T, H, W, orbit, scene, se3_t
@@ -112,9 +112,22 @@ _ICP_MAPS = tuple(torch.zeros((8, 8), dtype=torch.int32) for _ in range(3))
 _ICP_CAM = (100.0, 100.0, 4.0, 4.0)
 
 
+def _integrate_on(x):
+    """I1's entry point on CPU tensors of 4 blocks: a list, its count, the
+    pose, the packed image and the volume's arrays."""
+    i32 = dict(dtype=torch.int32)
+    vox = torch.zeros((4, 512))
+    return cuda_kernels.integrate(
+        torch.arange(4, **i32), torch.tensor(2, **i32), x.new_zeros(12), x.to(torch.int32),
+        torch.zeros((4, 3), **i32), (vox, vox.clone(), vox.to(torch.int32)),
+        (torch.zeros((4, 8), **i32), torch.zeros(4, **i32), torch.zeros(4, dtype=torch.bool)),
+        torch.tensor(0, **i32), _ICP_CAM, sparse.i1_scalars(CFG_T))
+
+
 @pytest.mark.parametrize(
     "launch", ["bilateral", "fill_smooth", "fill_smooth_fused", "subsample2",
-               "icp_associate", "icp_rows", "icp_solve", "icp_rows_solve", "range_image"])
+               "icp_associate", "icp_rows", "icp_solve", "icp_rows_solve", "range_image",
+               "integrate"])
 def test_kernel_entry_refuses_cpu_tensors(launch):
     """A CUDA entry point given a CPU tensor raises before anything is
     built or loaded (the wrappers never send it one)."""
@@ -142,6 +155,7 @@ def test_kernel_entry_refuses_cpu_tensors(launch):
             x.reshape(-1), x.reshape(-1), (x.reshape(-1).long(),) * 4,
             x.reshape(-1) > 0, torch.tensor(64, dtype=torch.int32), torch.tensor(False),
             x.sum(), x.sum(), (1, 1), 6, 16, (8, 8)),
+        "integrate": lambda x: _integrate_on(x),
     }[launch]
     with pytest.raises(ValueError, match="CUDA tensor"):
         fn(torch.ones((8, 8)))

@@ -157,6 +157,7 @@ _SIGNATURES = {
     "vulcan_trace_mark": [_P, _P, _I, _I, _I, _I, _P, _P],
     "vulcan_range_stamp": [_P] * 11 + [_I] * 4 + [_P] * 4,
     "vulcan_range_expand": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "vulcan_integrate": [_P] * 5 + [_I] * 5 + [_F] * 14 + [_P] * 9,
 }
 
 
@@ -223,7 +224,7 @@ def _launch(fn, x: torch.Tensor, *args) -> int:
 # sees).  ``launch_counts`` reads them, ``reset_launch_counts`` zeroes them.
 COUNTED = ("bilateral", "fill_smooth", "icp_associate", "icp_rows", "icp_solve",
            "icp_rows_solve", "graph_while", "graph_while_next", "graph_ifelse", "trace_mark",
-           "range_stamp", "range_expand")
+           "range_stamp", "range_expand", "integrate")
 _counters: dict[int, torch.Tensor] = {}
 
 
@@ -1071,3 +1072,77 @@ def range_image(z_min: torch.Tensor, z_max: torch.Tensor, footprint: tuple[torch
                   hc, wc, scale, launch_counter(z_min, "range_expand"))
     _raise_on(err, "range_expand")
     return out
+
+
+# I1, the integrate layer (csrc/integrate.cu): one launch fuses a frame into
+# every listed block, in place.
+INTEGRATE_BLOCK_VOXELS = 512        # csrc/integrate.cu kThreads: a block's voxels
+INTEGRATE_MAX_SLOTS = 512           # csrc/integrate.cu kMaxSlots
+
+
+class IntegrateScalars(NamedTuple):
+    """I1's ``Config`` scalars, each as the plain version's PyTorch ops
+    round it to float32 on the card (``sparse.i1_scalars``)."""
+
+    voxel_size: float
+    depth_scale: float      # 1 / depth_raw_scale
+    depth_min: float
+    depth_max: float
+    mu: float               # trunc_dist
+    inv_mu: float           # float32(1 / mu): what a tensor over a Python float multiplies by
+    max_weight: float
+    band: float             # blocks.surfel_band
+    half_band: float
+    eps: float              # mesh_dirty_eps
+    gate: bool              # mesh_dirty_eps > 0: else every fused block is marked
+
+
+def integrate(ids: torch.Tensor, count: torch.Tensor, pose: torch.Tensor,
+              image: torch.Tensor, block_coords: torch.Tensor, voxels: tuple[torch.Tensor, ...],
+              surfels: tuple[torch.Tensor, ...], surf_overflow: torch.Tensor,
+              camera: tuple[float, float, float, float], scalars: IntegrateScalars) -> None:
+    """Launch I1: fuse the packed (h, w) int32 depth16 | rgb565 ``image``
+    at the world-to-camera ``pose`` ((12,) float32: R row-major, t) into the
+    blocks listed in the int32 ``ids`` below the 0-d int32 ``count`` (read on
+    the card; ids <= 0 are skipped), in place: ``voxels`` = (tsdf, weight,
+    colorpack), each (num_blocks, 512); ``surfels`` = (surfpack (num_blocks,
+    slots), surf_count, mesh_dirty); the dropped surfels are added to the
+    0-d int32 ``surf_overflow``."""
+    tsdf, weight, colorpack = voxels
+    surfpack, surf_count, mesh_dirty = surfels
+    nb = tsdf.shape[0]
+    _check(ids, "integrate ids", (torch.int32,), ndim=1)
+    _check_scalar(count, torch.int32, "integrate count")
+    _check_vector(pose, "integrate pose", 12)
+    _check(image, "integrate image", (torch.int32,))
+    _check(block_coords, "integrate block_coords", (torch.int32,))
+    for x, what, dtype in ((tsdf, "tsdf", torch.float32), (weight, "weight", torch.float32),
+                           (colorpack, "colorpack", torch.int32)):
+        _check(x, f"integrate {what}", (dtype,))
+        if x.shape != (nb, INTEGRATE_BLOCK_VOXELS):
+            raise ValueError(f"integrate: {what} is {tuple(x.shape)}, not "
+                             f"({nb}, {INTEGRATE_BLOCK_VOXELS})")
+    _check(surfpack, "integrate surfpack", (torch.int32,))
+    _check(surf_count, "integrate surf_count", (torch.int32,), ndim=1)
+    _check(mesh_dirty, "integrate mesh_dirty", (torch.bool,), ndim=1)
+    _check_scalar(surf_overflow, torch.int32, "integrate surf_overflow")
+    slots = surfpack.shape[1]
+    if not (block_coords.shape == (nb, 3) and surfpack.shape[0] == nb
+            and surf_count.shape == (nb,) and mesh_dirty.shape == (nb,)):
+        raise ValueError("integrate: the volume's arrays disagree on the block count")
+    if not 1 <= slots <= INTEGRATE_MAX_SLOTS:
+        raise ValueError(f"integrate: {slots} surfel slots a block, at most "
+                         f"{INTEGRATE_MAX_SLOTS}")
+    tensors = (ids, count, pose, image, block_coords, *voxels, *surfels, surf_overflow)
+    if any(x.device != tsdf.device for x in tensors):
+        raise ValueError("integrate: the list, the frame and the volume lie on different devices")
+    h, w = image.shape
+    *floats, gate = scalars
+    err = _launch(
+        load().vulcan_integrate, tsdf, ids.data_ptr(), count.data_ptr(),
+        block_coords.data_ptr(), pose.data_ptr(), image.data_ptr(), ids.shape[0], h, w,
+        slots, int(gate), *camera, *floats, tsdf.data_ptr(), weight.data_ptr(),
+        colorpack.data_ptr(), surfpack.data_ptr(), surf_count.data_ptr(),
+        mesh_dirty.data_ptr(), surf_overflow.data_ptr(), launch_counter(tsdf, "integrate"),
+    )
+    _raise_on(err, "integrate")

@@ -9,6 +9,10 @@ to the flat path by its own tests) is not ported.
 Updates are IN PLACE: the voxel rows are written back with ``index_copy_``
 into the volume's tensors.  The reference gets the same effect from jit
 buffer donation; copying the ~0.45 GB volume every frame would dominate.
+
+On the card the whole list is one launch of kernel I1
+(``csrc/integrate.cu``), which writes the rows in place itself; the chunk
+loop over ``_integrate_batch`` is its plain version, which the CPU takes.
 """
 from __future__ import annotations
 
@@ -18,8 +22,10 @@ import torch
 
 from ..config import Config
 from ..core.frame import Frame
+from ..core.se3 import SE3
 from ..utils import sync
 from . import blocks as B
+from . import cuda_kernels
 from .dense import _sample_nearest, voxel_update
 
 
@@ -49,6 +55,25 @@ def _local_grid(config: Config, device) -> torch.Tensor:
     return torch.stack([gx, gy, gz], dim=-1).reshape(-1, 3)
 
 
+def _to_camera(pose: SE3, world: torch.Tensor) -> torch.Tensor:
+    """World points (..., 3) under the world-to-camera ``pose``, a row as
+    the reference's compiled dot takes it: the first product, two fused
+    multiply-adds, then the translation.  A fused multiply-add is written
+    out in float64 (the product is exact there) and rounded once to float32,
+    so I1 repeats it bit for bit; an einsum has no fixed order on the card."""
+    R, t = pose.rotation, pose.translation
+    Rd = R.double()
+    x, y, z = world.unbind(-1)
+    yd, zd = y.double(), z.double()
+    rows = []
+    for i in range(3):
+        a = R[i, 0] * x
+        a = (Rd[i, 1] * yd + a.double()).float()
+        a = (Rd[i, 2] * zd + a.double()).float()
+        rows.append(a + t[i])
+    return torch.stack(rows, dim=-1)
+
+
 def _integrate_batch(volume, frame, packed_img, ids, row_valid, config):
     """Fuse one chunk of blocks; returns the new rows (C, 512) etc.
 
@@ -60,7 +85,7 @@ def _integrate_batch(volume, frame, packed_img, ids, row_valid, config):
     g = coords[:, None, :] * bs + local                       # (C, 512, 3)
     world = g.to(torch.float32) * config.voxel_size
 
-    cam_pts = frame.pose.inverse().apply(world)
+    cam_pts = _to_camera(frame.pose.inverse(), world)
     z = cam_pts[..., 2]
     uv = frame.camera.project(cam_pts)
     packed, in_bounds = _sample_nearest(packed_img, uv)
@@ -107,6 +132,20 @@ def _integrate_batch(volume, frame, packed_img, ids, row_valid, config):
     )
 
 
+def i1_scalars(config: Config) -> cuda_kernels.IntegrateScalars:
+    """The ``Config`` scalars I1 takes (the wrapper rounds each to float32,
+    as the plain version's ops round a Python float on the card); ``inv_mu``
+    is the reciprocal that PyTorch's CUDA division by a Python float
+    multiplies by: 1 / mu in float64, then rounded."""
+    band = B.surfel_band(config)
+    mu = config.trunc_dist
+    return cuda_kernels.IntegrateScalars(
+        config.voxel_size, 1.0 / config.depth_raw_scale, config.depth_min,
+        config.depth_max, mu, 1.0 / mu, config.max_weight, band,
+        0.5 * band, config.mesh_dirty_eps, config.mesh_dirty_eps > 0.0,
+    )
+
+
 def integrate_sparse(
     volume: B.VolumeState,
     frame: Frame,
@@ -118,23 +157,53 @@ def integrate_sparse(
     """Fuse one frame into the listed blocks, in place.
 
     Default work list: ``volume.visible_ids``; the online pipeline passes
-    the frame's truncation-band list from allocation instead.  The
-    reference's ``lax.while_loop`` over chunks of the list
-    (``utils.sync.chunk_loop``): eager, the chunk count follows the list's
-    length, read on the host once per call unless the caller has read it
-    already (``host_count``); while a CUDA graph is captured, the loop is
-    one WHILE node on the device count.  A chunk's rows are the list's
-    entries at its device offset; rows past the count (or the list's
-    capacity) are masked and write back their old values.
-    """
+    the frame's truncation-band list from allocation instead.  A CPU volume
+    takes the plain version (``_integrate_plain``); a CUDA volume launches
+    I1 once (``cuda_kernels.integrate``), which reads the list's device
+    count on the card and raises for more than 512 ``surfel_slots``
+    (``Config`` holds ``block_size`` at 8).  Eager launches are counted in
+    ``integrate_sparse.launches`` (a graph's replays on the card:
+    ``cuda_kernels.launch_counts``)."""
     work_ids = volume.visible_ids if ids is None else ids
     work_count = volume.num_visible if count is None else count
-    V = work_ids.shape[0]
+    if work_ids.is_cpu:
+        return _integrate_plain(volume, frame, config, work_ids, work_count, host_count)
+    # surf_overflow is a per-frame gauge: it resets here, and I1's CTAs add
+    # to it.
+    surf_overflow = torch.zeros((), dtype=torch.int32, device=work_ids.device)
+    inv = frame.pose.inverse()
+    cam = frame.camera
+    cuda_kernels.integrate(
+        work_ids.to(torch.int32), work_count,
+        torch.cat([inv.rotation.reshape(9), inv.translation]),
+        _pack_depth_color(frame.depth, frame.color, config), volume.block_coords,
+        (volume.tsdf, volume.weight, volume.colorpack),
+        (volume.surfpack, volume.surf_count, volume.mesh_dirty), surf_overflow,
+        (cam.fx, cam.fy, cam.cx, cam.cy), i1_scalars(config))
+    if not sync.capturing():  # a capture records the launch, each replay makes it
+        integrate_sparse.launches += 1
+    return dataclasses.replace(volume, surf_overflow=surf_overflow)
+
+
+integrate_sparse.launches = 0
+
+
+def _integrate_plain(volume: B.VolumeState, frame: Frame, config: Config,
+                     ids: torch.Tensor, count: torch.Tensor,
+                     host_count: int | None = None) -> B.VolumeState:
+    """I1's plain version, on any device: the reference's
+    ``lax.while_loop`` over chunks of the list (``utils.sync.chunk_loop``),
+    whose chunk count follows the list's length, read on the host once per
+    call unless the caller has read it already (``host_count``); while a
+    graph is captured, the loop is one WHILE node on the device count.  A
+    chunk's rows are the list's entries at its device offset; rows past the
+    count (or the list's capacity) are masked and write back their old
+    values."""
+    V = ids.shape[0]
     C = min(config.integrate_chunk, V)
     packed_dc = _pack_depth_color(frame.depth, frame.color, config)
-    work_ids = work_ids.to(torch.int64)
+    work_ids = ids.to(torch.int64)
     lanes = torch.arange(C, device=work_ids.device)
-
     # surf_overflow is a per-frame gauge: it resets here, and the chunks
     # add to it in place.
     surf_overflow = torch.zeros((), dtype=torch.int32, device=work_ids.device)
@@ -142,7 +211,7 @@ def integrate_sparse(
     def chunk_at(offset: torch.Tensor) -> None:
         rows = offset + lanes
         chunk = work_ids[rows]
-        row_valid = (rows < work_count) & (chunk > 0)
+        row_valid = (rows < count) & (chunk > 0)
         tsdf, weight, cpack, surf, s_count, s_drop, mark = _integrate_batch(
             volume, frame, packed_dc, chunk, row_valid, config
         )
@@ -156,5 +225,5 @@ def integrate_sparse(
         volume.mesh_dirty.index_copy_(0, chunk, volume.mesh_dirty[chunk] | mark)
         surf_overflow.add_(s_drop.to(torch.int32))
 
-    sync.chunk_loop(work_count, V, C, chunk_at, host_count)
+    sync.chunk_loop(count, V, C, chunk_at, host_count)
     return dataclasses.replace(volume, surf_overflow=surf_overflow)
