@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (vulcan_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--profile] [--parity]
+    python3 chip_smoke.py [--parity]
 
 Run from the root of a checkout.  Phases, each printed as it runs:
 
@@ -65,8 +65,9 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      one to its own counter on the card at each launch, eager or replayed
      (``cuda_kernels.launch_counts``; a capture launches nothing), read
      after each frame: ``check_graph_run`` holds that the pipeline ran as
-     a graph, that no replayed frame read on the host or launched
-     anything eagerly, and that every replayed frame launched K1 and K2
+     a graph (its replays are the frames after the warm-up), that no
+     replayed frame read on the host, and that every replayed frame
+     launched K1 and K2
      once, H1a 12 times, the fused step 29 (H1b and H1c alone 0) and I1
      once (``want_per_frame``), 2 WHILE nodes and auto-photo's 2 IF/ELSE nodes
      (``want_nodes``); the run's
@@ -100,22 +101,11 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      K2 once, H1a 12 times and the fused step 29 on the card, and every
      replayed frame as many WHILE iterations as the eager run took
      chunk-loop bodies on that frame and as many IF/ELSE nodes as its
-     ``cond``s; the last 10 frames run under torch.profiler: device busy
-     ms (the union of the trace's kernel, copy and fill intervals;
-     discarded where the trace
-     holds fewer hand kernels than the card launched or more busy time
-     than wall time), operations and the idle share of each path; the
-     graph's capture ms and memory pool MiB.  Written to OUT_DIR/graph.json;
+     ``cond``s; the ATE of each run; the graph's capture ms and memory
+     pool MiB.  Written to OUT_DIR/graph.json;
   4. agreement: the same port on the card and on the CPU (plain kernel
      versions) over a small orbit must track the same trajectory, in depth
      and in combined mode;
-  5. (only with --profile) where a steady frame's time goes, for the
-     orbit in depth mode, in combined mode (a) and with auto-photo armed
-     (b), all on the eager step (the graph has no stage ranges): stage
-     wall times with a device sync at each stage boundary,
-     kernel time per stage and the top kernels from torch.profiler (the
-     step's ``vulcan.<stage>`` ranges), and the device's idle share;
-     printed and written to chiprun_out/profile_stages.json.
   6. probes: T5 at (479, 641), (2, 6) and (1, 1) in int32 and float32,
      bit for bit against its plain version; T5's host us per call step by
      step (``bench_subsample.host_breakdown``: the launch path's earlier
@@ -154,8 +144,7 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      equal), both traced at one pose within the splat tolerances; (d) the
      five-class flow (Volume, Integrator, Tracer, DepthTracker, Extractor)
      over 10 frames: ATE < 0.01 m, a mesh, K1 once a track and K2 once a
-     trace; with --profile also the device busy ms and operations of one
-     extraction, update and decode.  Written to chiprun_out/mesh.json;
+     trace, on the card.  Written to chiprun_out/mesh.json;
   8. render paths at 640x480, each orbit run with the counts set to 0 just
      before it, through the replayed graph (``check_graph_run``: no host
      read a replayed frame, the WHILE and IF/ELSE nodes of ``want_nodes``
@@ -176,9 +165,7 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      the orbit's frames at their true poses: integrate ms and 640x480
      raycast ms (CUDA events), valid pixels, the share of the pixels whose
      true surface lies in the grid that it hits (fails under 90%) and the
-     depth error against the true depth.  With --profile also phase 5's
-     breakdown of each path of (a)-(b), against its graph's median frame.
-     Written to OUT_DIR/render.json;
+     depth error against the true depth.  Written to OUT_DIR/render.json;
   9. entry points at 640x480, each a subprocess of the CLI's ``main``
      (``python -m vulcan_tpu_torch.tools.cli_counts``, which counts around
      the loop: the step's host reads, the reads and syncs the CLI's own
@@ -278,8 +265,8 @@ def check_kernel(spec: dict, torch) -> dict:
     on a disagreement.  Returns the kernel's entry of the kernels line:
     ``ms`` is the call ms, as in the first slice's line, beside
     ``kernel_ms`` (device time), ``call_ms``, ``host_us`` (the host's part
-    of one call) and ``launches_per_call`` (``spec["count"]``, the wrapper's
-    kernel-launch count, across one call)."""
+    of one call) and ``launches_per_call`` (``spec["count"]``, the kernel's
+    launch count, across one call)."""
     from vulcan_tpu_torch.tools.timing import call_ms, device_and_host, max_abs_err
 
     name, tol = spec["name"], spec["tol"]
@@ -377,6 +364,7 @@ def k2_rounds_and_shapes(P, splat, torch, dev) -> None:
     from vulcan_tpu_torch.ops import cuda_kernels
     from vulcan_tpu_torch.tools.timing import max_abs_err
 
+    count = card_count("fill_smooth")
     rng = np.random.default_rng(11)
     for h, w in ((480, 640), (121, 161)):
         yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
@@ -390,9 +378,9 @@ def k2_rounds_and_shapes(P, splat, torch, dev) -> None:
         x = torch.from_numpy(d).to(dev)
         for rounds in (0, 1, 2, 5):
             cfg = dataclasses.replace(P.Config(), splat_fill_rounds=rounds)
-            k0 = splat._fill_and_smooth.kernel_launches
+            k0 = count()
             got = splat._fill_and_smooth(x, cfg)
-            per_call = splat._fill_and_smooth.kernel_launches - k0
+            per_call = count() - k0
             err = max_abs_err(got, splat._fill_smooth_math(x, cfg))
             filled = float((torch.isfinite(got) & ~torch.isfinite(x)).float().mean())
             print(f"K2 {h}x{w} rounds {rounds}: max_abs_err {err:.3e} (tol {K2_TOL:g}), "
@@ -499,9 +487,6 @@ def range_image_kernel(P, torch, dev, cam, poses, frames) -> list[dict]:
             buf = torch.full((hc * wc + 1,), init, dtype=torch.float32, device=dev)
             buf.scatter_reduce_(0, flat, values, how, include_self=True)
 
-    def launches():
-        c = cuda_kernels.launch_counts(dev)
-        return c["range_stamp"] + c["range_expand"]
 
     def plain():
         return torch.stack(raycast._range_image_plain(rows, h, w, cfg))
@@ -520,7 +505,8 @@ def range_image_kernel(P, torch, dev, cam, poses, frames) -> list[dict]:
     return [check_kernel(dict(
         name="range_stamp", tol=0.0, source="vulcan_tpu_torch/csrc/range_image.cu",
         replaces="vulcan_tpu/ops/raycast.py:70",
-        call=lambda: cuda_kernels.range_image(*args), count=launches, plain=plain,
+        call=lambda: cuda_kernels.range_image(*args),
+        count=card_count("range_stamp", "range_expand"), plain=plain,
         library=library,
         bytes=listed * row_bytes + 2 * 3 * hc * wc * 4 + 3 * h * w * 4, ops=0,
         extra=dict(listed_rows=listed, stamp_cells=stamped, lanes=flat.numel(),
@@ -595,9 +581,10 @@ def integrate_kernel(P, torch, dev, cam, poses) -> list[dict]:
         def plain():
             return sparse._integrate_plain(vol, frame, cfg, band, n_band)
 
-        count0 = sparse.integrate_sparse.launches
+        count = card_count("integrate")
+        count0 = count()
         call()
-        launches_per_call = sparse.integrate_sparse.launches - count0
+        launches_per_call = count() - count0
         kernel_ms, host_us = device_and_host(call)
         one_call = call_ms(call)
         plain_ms = call_ms(plain)
@@ -1019,7 +1006,7 @@ def track_kernels(P, torch, dev, cam, poses, frames) -> list[dict]:
         dict(name="icp_associate", tol=0.0, source="vulcan_tpu_torch/csrc/icp.cu",
              replaces="vulcan_tpu/ops/icp.py:349",
              call=lambda: icp.icp_associate(lv, pv, cfg, True, False),
-             count=lambda: icp.icp_associate.launches,
+             count=card_count("icp_associate"),
              plain=lambda: icp._associate_plain(lv, pv, cfg, True, False),
              flat=lambda out: torch.cat([out[0][0].reshape(-1), out[0][1].reshape(-1),
                                          out[0][2].reshape(-1).float()]),
@@ -1028,7 +1015,7 @@ def track_kernels(P, torch, dev, cam, poses, frames) -> list[dict]:
         dict(name="icp_rows", tol=ICP_SUM_TOL * float(sums[:, :28].abs().max()),
              source="vulcan_tpu_torch/csrc/icp.cu", replaces="vulcan_tpu/ops/icp.py:703",
              call=lambda: icp.icp_rows(lv, pv, corr, None, cfg, True, False),
-             count=lambda: icp.icp_rows.launches,
+             count=card_count("icp_rows"),
              plain=lambda: icp._rows_plain(lv, pv, corr, None, cfg, True, False),
              bytes=r_bytes, ops=r_ops,
              extra=dict(shape=shape, cluster_ctas=cuda_kernels.ICP_ROWS_CLUSTER,
@@ -1037,7 +1024,7 @@ def track_kernels(P, torch, dev, cam, poses, frames) -> list[dict]:
         dict(name="icp_solve", tol=ICP_SOLVE_RTOL, source="vulcan_tpu_torch/csrc/icp.cu",
              replaces="vulcan_tpu/ops/icp.py:983",
              call=lambda: icp.icp_solve(sums, pv, cfg, True, False),
-             count=lambda: icp.icp_solve.launches,
+             count=card_count("icp_solve"),
              plain=lambda: icp._solve_plain(sums, pv, cfg.icp_damping, True, False),
              flat=lambda out: out[:12],
              bytes=(2 * 29 + 2 * 16) * 4, ops=ICP_SOLVE_OPS,
@@ -1046,7 +1033,7 @@ def track_kernels(P, torch, dev, cam, poses, frames) -> list[dict]:
         dict(name="icp_rows_solve", tol=ICP_SOLVE_RTOL, source="vulcan_tpu_torch/csrc/icp.cu",
              replaces="vulcan_tpu/ops/icp.py:753",
              call=lambda: icp.icp_rows_solve(lv, pv, corr, None, cfg, True, False),
-             count=lambda: icp.icp_rows_solve.launches,
+             count=card_count("icp_rows_solve"),
              plain=lambda: icp._solve_plain(icp._rows_plain(lv, pv, corr, None, cfg, True,
                                                             False),
                                             pv, cfg.icp_damping, True, False),
@@ -1325,8 +1312,8 @@ _EAGER = {}
 
 def eager_pipeline(P):
     """``Pipeline`` with every frame through the eager step, on the card
-    too: the graph's yardstick (phase 3c), the ground of the stage profile
-    (phase 5) and of the sharded step's comparison (phase 10)."""
+    too: the graph's yardstick (phase 3c) and the ground of the sharded
+    step's comparison (phase 10)."""
     if P not in _EAGER:
         class EagerPipeline(P.Pipeline):
             def __init__(self, *args, **kwargs):
@@ -1349,33 +1336,20 @@ def launch_counts() -> dict[str, int]:
     return cuda_kernels.launch_counts()
 
 
-def host_counts() -> dict[str, int]:
-    """The wrappers' own counts of their eager launches (K1, K2's kernel
-    launches, the track's entry points, R1's two kernels, I1): on the eager
-    path they must equal the card's."""
-    from vulcan_tpu_torch.ops import preprocess, raycast, sparse, splat
-
-    r1 = raycast.compute_range_image.launches
-    return {"bilateral": preprocess.bilateral_filter.launches,
-            "fill_smooth": splat._fill_and_smooth.kernel_launches, **icp_counts(),
-            "range_stamp": r1, "range_expand": r1,
-            "integrate": sparse.integrate_sparse.launches}
+def card_count(*names):
+    """A ``check_kernel`` ``count``: the card's launches of the kernels
+    ``names``, added."""
+    return lambda: sum(launch_counts()[name] for name in names)
 
 
 def reset_counts() -> None:
-    """Every count a main-path run reads set to 0: the launches on the card
-    and on the host, the host reads, and the eager step's chunk-loop bodies
-    and ``cond``s."""
-    from vulcan_tpu_torch.ops import cuda_kernels, preprocess, raycast, sparse, splat
+    """Every count a main-path run reads set to 0: the launches on the
+    card, the host reads, and the eager step's chunk-loop bodies and
+    ``cond``s."""
+    from vulcan_tpu_torch.ops import cuda_kernels
     from vulcan_tpu_torch.utils import sync
 
     cuda_kernels.reset_launch_counts()
-    preprocess.bilateral_filter.launches = 0
-    raycast.compute_range_image.launches = 0
-    sparse.integrate_sparse.launches = 0
-    splat._fill_and_smooth.launches = 0
-    splat._fill_and_smooth.kernel_launches = 0
-    icp_counts(reset=True)
     sync.read_int.count = 0
     sync.chunk_loop.count = 0
     sync.cond.count = 0
@@ -1475,14 +1449,13 @@ def run_pipeline(P, config, camera, poses, frames, h, w, device, sync,
     (``eager_pipeline``); otherwise ``Pipeline`` decides (a captured graph
     on the card at every supported setting).  ``known`` fuses each
     frame at its true pose (``process(..., pose=...)``).  The launch
-    counts after each frame are the card's (``launch_counts``) in
-    ``run["counts"]`` and the wrappers' own (``host_counts``) in
-    ``run["host"]``."""
+    counts after each frame are the card's (``launch_counts``), in
+    ``run["counts"]``."""
     from vulcan_tpu_torch.utils.sync import chunk_loop, cond, read_int
 
     cls = eager_pipeline(P) if eager else P.Pipeline
     pipe = cls(config, camera, h, w, init_pose=poses[0], mode=mode, device=device)
-    est, ms, armed, reads, counts, host, full = [], [], 0, [], [], [], []
+    est, ms, armed, reads, counts, full = [], [], 0, [], [], []
     chunks, conds = [], []
     for i, (d16, c8) in enumerate(frames):
         armed += int(pipe.state.photo_cnt) > 0
@@ -1496,10 +1469,9 @@ def run_pipeline(P, config, camera, poses, frames, h, w, device, sync,
         chunks.append(chunk_loop.count - b0)
         conds.append(cond.count - c0)
         counts.append(launch_counts())
-        host.append(host_counts())
         full.append(torch_cat_pose(pipe.pose))
         est.append(pipe.pose.translation.cpu().numpy())
-    run = dict(reads=reads, counts=counts, host=host, poses=np.stack(full),
+    run = dict(reads=reads, counts=counts, poses=np.stack(full),
                chunks=chunks, conds=conds)
     return pipe, np.stack(est), ms, armed, run
 
@@ -1512,23 +1484,26 @@ def torch_cat_pose(pose) -> np.ndarray:
 
 def check_graph_run(label, pipe, run, config, known=False, k2_per_frame=1, mode="depth",
                     eager=None) -> dict:
-    """A captured run: every frame after the warm-up read nothing on the
-    host and launched nothing eagerly (the wrappers' own counts stand
-    still: the capture frame records, the replays launch on the card), and
+    """A captured run: every frame after the warm-up was a replay (the
+    graphs' replays, ``StepGraphs.run`` replaying the capture frame too,
+    are the frames after the warm-up) and read nothing on the host, and
     ``check_launches`` holds each frame's launches on the card, the
     conditional nodes of ``mode`` (``want_nodes``) among them, and, given
     the ``run`` of the eager step on the same frames, its chunk-loop bodies
-    and ``cond``s.  Returns the launches a replayed frame."""
+    and ``cond``s.  A replayed frame runs no Python step, so an eager
+    launch there would show as a surplus on the card.  Returns the
+    launches a replayed frame."""
     from vulcan_tpu_torch.pipeline.graphs import WARMUP_FRAMES
 
     if not pipe.captured or not pipe.graph_stats:
         fail(f"{label}: the pipeline did not run as a captured graph")
+    replays = sum(st["replays"] for st in pipe.graph_stats.values())
+    if replays != len(run["reads"]) - WARMUP_FRAMES:
+        fail(f"{label}: {replays} replays over {len(run['reads'])} frames, "
+             f"{WARMUP_FRAMES} of them warm-up")
     later = sum(run["reads"][WARMUP_FRAMES:])
     if later:
         fail(f"{label}: {later} host reads in the replayed frames")
-    warm, end = run["host"][WARMUP_FRAMES - 1], run["host"][-1]
-    if warm != end:
-        fail(f"{label}: a wrapper launched eagerly after the warm-up ({warm} -> {end})")
     return check_launches(label, per_frame(run["counts"]),
                           want_per_frame(config, known, k2_per_frame), True,
                           want_nodes(config, mode, known), eager)
@@ -1536,15 +1511,9 @@ def check_graph_run(label, pipe, run, config, known=False, k2_per_frame=1, mode=
 
 def check_eager_run(label, run, config, known=False, k2_per_frame=1) -> None:
     """An eager run on the card: each frame launched exactly the path's
-    kernels (``check_launches``), and the wrappers counted every launch the
-    card counted."""
+    kernels (``check_launches``)."""
     check_launches(label, per_frame(run["counts"]),
                    want_per_frame(config, known, k2_per_frame), False)
-    # (an untraced run launches no span mark, which no wrapper counts)
-    card = {k: v for k, v in run["counts"][-1].items()
-            if k not in GRAPH_NODES and not (k == "trace_mark" and v == 0)}
-    if card != run["host"][-1]:
-        fail(f"{label}: the card counted {card} launches, the wrappers {run['host'][-1]}")
 
 
 # The track's entry points: H1a, H1b, H1c and the fused step (H1b + H1c).
@@ -1561,19 +1530,6 @@ def track_launches(cfg, sharded=False) -> dict[str, int]:
     steps += cfg.pyramid_levels if cfg.degen_min_eig > 0.0 else 0
     return {"icp_associate": sum(rounds), "icp_rows": steps if sharded else 0,
             "icp_solve": steps if sharded else 0, "icp_rows_solve": 0 if sharded else steps}
-
-
-def icp_counts(reset: bool = False) -> dict[str, int]:
-    """The track's entry points' launch counts (set to 0 first with
-    ``reset``)."""
-    from vulcan_tpu_torch.ops import icp
-
-    entries = {k: getattr(icp, k) for k in H1_ENTRIES}
-    if reset:
-        for e in entries.values():
-            e.launches = 0
-    # (an entry swapped for its plain version by ``plain_track`` counts 0)
-    return {k: getattr(e, "launches", 0) for k, e in entries.items()}
 
 
 @contextlib.contextmanager
@@ -1669,77 +1625,6 @@ def run_cell(P, torch, label, config, mode, camera, poses, frames, ate_limit,
     return out
 
 
-# Kernel names in a profiler trace of every counted kernel
-# (``cuda_kernels.COUNTED``): the main path's hand kernels, the conditional
-# nodes' one-thread kernels (csrc/graph.cu), the span mark (csrc/trace.cu),
-# R1's pair (csrc/range_image.cu) and I1 (csrc/integrate.cu).
-KERNEL_NAMES = {"bilateral": "bilateral_kernel", "fill_smooth": "fill_smooth_kernel",
-                "icp_associate": "associate_kernel", "icp_rows": "rows_kernel",
-                "icp_solve": "solve_kernel", "icp_rows_solve": "gn_step_kernel",
-                "graph_while": "while_begin_kernel", "graph_while_next": "while_next_kernel",
-                "graph_ifelse": "set_cond_kernel", "trace_mark": "mark_kernel",
-                "range_stamp": "stamp_kernel", "range_expand": "expand_kernel",
-                "integrate": "integrate_kernel"}
-
-
-def replay_profile(pipe, frames, torch, poses=None) -> dict:
-    """``frames`` more through ``pipe`` under torch.profiler, synchronized
-    per frame: each hand kernel's launches a frame on the card
-    (``launch_counts``, read before and after) and as the trace shows them
-    by name; the device's busy ms a frame, the union of the trace's
-    kernel, copy and fill intervals (``timing.busy_ms``), and its
-    operations a frame; the host reads, eager chunk-loop bodies and eager
-    ``cond``s a frame and the frame ms.  Where the trace holds fewer of a
-    hand kernel than the card launched (CUPTI has dropped the events of
-    conditional bodies in a process that had profiled several graphs; it
-    has also reported more of the nodes' kernels than ran), or its
-    busy time exceeds the same frames' wall time, the busy reading is
-    discarded (``busy_valid`` False, busy None) and both counts are kept.
-    With ``poses``, each frame is fused at its pose."""
-    from torch.profiler import ProfilerActivity, profile
-    from vulcan_tpu_torch.tools.timing import busy_ms, device_spans
-    from vulcan_tpu_torch.utils.sync import chunk_loop, cond, read_int
-
-    torch.cuda.synchronize()
-    before = launch_counts()
-    r0, b0, c0, ms = read_int.count, chunk_loop.count, cond.count, []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i, (d16, c8) in enumerate(frames):
-            t0 = time.perf_counter()
-            pipe.process(d16, c8, pose=None if poses is None else poses[i])
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-    after = launch_counts()
-    k = len(frames)
-    card = {name: (after[name] - before[name]) / k for name in after}
-    spans = device_spans(prof)
-    traced = {name: sum(pat in s[0] for s in spans) / k
-              for name, pat in KERNEL_NAMES.items()}
-    busy = busy_ms(spans) / k
-    complete = all(traced[name] >= card[name] for name in card)
-    valid = complete and busy <= float(np.mean(ms))
-    return dict(frames=k, launches_per_frame=card, traced_launches_per_frame=traced,
-                trace_complete=complete, busy_valid=valid,
-                device_busy_ms=busy if valid else None,
-                device_busy_ms_read=busy, device_ops_per_frame=len(spans) / k,
-                host_reads_per_frame=(read_int.count - r0) / k,
-                chunks_per_frame=(chunk_loop.count - b0) / k,
-                conds_per_frame=(cond.count - c0) / k,
-                profiled_ms_median=float(np.median(ms)),
-                profiled_ms_mean=float(np.mean(ms)))
-
-
-def idle_share(prof, wall_ms):
-    """1 - busy / ``wall_ms`` of a ``replay_profile``, None where its busy
-    reading was discarded."""
-    busy = prof["device_busy_ms"]
-    return None if busy is None else 1.0 - busy / wall_ms
-
-
-def fmt(x, spec=".3f") -> str:
-    return "discarded" if x is None else format(x, spec)
-
-
 def named_tensors(tree, prefix=""):
     """{dotted path: tensor} of a dataclass tree (the state's arrays)."""
     if dataclasses.is_dataclass(tree):
@@ -1757,42 +1642,36 @@ GRAPH_TOL = 0.0
 
 
 def graph_against_eager(P, torch, label, config, mode, cam, poses, frames, dev,
-                        ate_limit, known=False, k2_per_frame=1, k_profile=10) -> dict:
+                        ate_limit, known=False, k2_per_frame=1) -> dict:
     """Phase 3c, one cell: the eager step twice on the card (whether it
     repeats bit for bit), then ``Pipeline`` (the captured graph) on the
     same frames.  Wherever the two eager runs agree, the graph's per-frame
     poses and final state must equal the eager ones (GRAPH_TOL); the
     arrays that differ are named.  Each run's launches a frame on the card
-    are held as ``check_eager_run`` / ``check_graph_run`` hold them, the
-    graph's replayed frames read nothing, and the last ``k_profile``
-    frames of each run go under the profiler (``replay_profile``: busy ms
-    and operations; its launches a frame, read on the card, again exactly
-    ``want_per_frame``, K2 ``k2_per_frame`` times: 0 on the march);
-    ``known`` fuses at the true poses (the known-pose step: no track).
-    Returns the printed numbers."""
+    are held as ``check_eager_run`` / ``check_graph_run`` hold them (K2
+    ``k2_per_frame`` times: 0 on the march), and the graph's replayed
+    frames read nothing; ``known`` fuses at the true poses (the known-pose
+    step: no track).  Returns the printed numbers."""
+    from vulcan_tpu_torch.pipeline.graphs import WARMUP_FRAMES
     from vulcan_tpu_torch.utils.evaluate import ate_rmse
 
     n = len(frames)
-    timed = frames[:n - k_profile]
     gt = np.stack([p.translation.numpy() for p in poses])
     runs = {}
     for tag, eager in (("eager", True), ("eager again", True), ("graph", False)):
         torch.cuda.synchronize()
         reset_counts()
         pipe, est, ms, armed, run = run_pipeline(
-            P, config, cam, poses[:len(timed)], timed, 480, 640, dev,
-            torch.cuda.synchronize, mode, eager=eager, known=known)
+            P, config, cam, poses, frames, 480, 640, dev, torch.cuda.synchronize, mode,
+            eager=eager, known=known)
+        replayed = None
         if eager:
             check_eager_run(f"{label} ({tag})", run, config, known, k2_per_frame)
         else:
-            check_graph_run(label, pipe, run, config, known, k2_per_frame, mode=mode,
-                            eager=runs["eager"]["run"])
-        rest = poses[len(timed):] if known else None
-        prof = replay_profile(pipe, frames[len(timed):], torch, rest)
-        poses_all = np.concatenate([run["poses"], np.stack(
-            [torch_cat_pose(pipe.pose)])])  # the last profiled frame's pose too
-        runs[tag] = dict(pipe=pipe, ms=np.asarray(ms[N_WARM:]), armed=armed, run=run,
-                         prof=prof, poses=poses_all,
+            replayed = check_graph_run(label, pipe, run, config, known, k2_per_frame,
+                                       mode=mode, eager=runs["eager"]["run"])
+        runs[tag] = dict(graph=pipe.graph_stats, ms=np.asarray(ms[N_WARM:]), armed=armed,
+                         run=run, replayed=replayed,
                          state={k: v.clone() for k, v in named_tensors(pipe.state).items()})
         del pipe
     e1, e2, g = runs["eager"], runs["eager again"], runs["graph"]
@@ -1804,24 +1683,21 @@ def graph_against_eager(P, torch, label, config, mode, cam, poses, frames, dev,
             b = g["state"][name]
             differ[name] = (float((a.double() - b.double()).abs().max())
                             if a.is_floating_point() else int((a != b).sum()))
-    poses_eager_same = bool(np.array_equal(e1["poses"], e2["poses"]))
-    poses_same = bool(np.array_equal(e1["poses"], g["poses"]))
-    pose_diff = float(np.abs(e1["poses"] - g["poses"]).max())
-    ate = {t: float(ate_rmse(r["poses"][:len(timed), 9:], gt[:len(timed)]))
-           for t, r in runs.items()}
-    want = want_per_frame(config, known, k2_per_frame)
-    nodes = want_nodes(config, mode, known)
-    got = g["prof"]["launches_per_frame"]
-    out = dict(cell=label, mode=mode, frames=n, path="graph",
-               graph=g["pipe"].graph_stats,
+    poses_e1, poses_e2, poses_g = (r["run"]["poses"] for r in (e1, e2, g))
+    poses_eager_same = bool(np.array_equal(poses_e1, poses_e2))
+    poses_same = bool(np.array_equal(poses_e1, poses_g))
+    pose_diff = float(np.abs(poses_e1 - poses_g).max())
+    ate = {t: float(ate_rmse(r["run"]["poses"][:, 9:], gt)) for t, r in runs.items()}
+    got = g["replayed"]
+    out = dict(cell=label, mode=mode, frames=n, path="graph", graph=g["graph"],
                eager_ms_median=float(np.median(e1["ms"])),
                eager_ms_p90=float(np.percentile(e1["ms"], 90)),
                graph_ms_median=float(np.median(g["ms"])),
                graph_ms_p90=float(np.percentile(g["ms"], 90)),
-               eager_profile=e1["prof"], graph_profile=g["prof"],
-               graph_idle_share=idle_share(g["prof"], float(np.median(g["ms"]))),
-               eager_idle_share=idle_share(e1["prof"], float(np.median(e1["ms"]))),
                eager_reads_per_frame=float(np.mean(e1["run"]["reads"])),
+               graph_reads_per_replayed_frame=float(
+                   np.mean(g["run"]["reads"][WARMUP_FRAMES:])),
+               launches_per_replayed_frame=got,
                ate_m=ate, armed_frames={t: r["armed"] for t, r in runs.items()},
                eager_repeats_bit_identical=poses_eager_same and not eager_differ,
                eager_differs_from_itself=eager_differ,
@@ -1829,36 +1705,14 @@ def graph_against_eager(P, torch, label, config, mode, cam, poses, frames, dev,
                arrays_differing=differ)
     print(f"{label}: graph {out['graph_ms_median']:.3f} / p90 {out['graph_ms_p90']:.3f} "
           f"ms a frame, eager {out['eager_ms_median']:.3f} / {out['eager_ms_p90']:.3f} "
-          f"(synchronized per frame); device busy graph "
-          f"{fmt(g['prof']['device_busy_ms'])} ms (idle share "
-          f"{fmt(out['graph_idle_share'])}, {g['prof']['device_ops_per_frame']:.0f} ops a "
-          f"frame), eager {fmt(e1['prof']['device_busy_ms'])} ms (idle "
-          f"{fmt(out['eager_idle_share'])}, {e1['prof']['device_ops_per_frame']:.0f} ops); "
-          f"host reads a frame graph "
-          f"{g['prof']['host_reads_per_frame']:.2f}, eager "
-          f"{out['eager_reads_per_frame']:.2f}; capture {out['graph']}; launches a "
-          f"replayed frame on the card {got}, in the trace "
-          f"{g['prof']['traced_launches_per_frame']}; ATE {ate}; armed "
-          f"{out['armed_frames']}; eager repeats "
+          f"(synchronized per frame); host reads a frame eager "
+          f"{out['eager_reads_per_frame']:.2f}, graph "
+          f"{out['graph_reads_per_replayed_frame']:.2f} a replayed frame; capture "
+          f"{out['graph']}; launches a replayed frame on the card {got}; ATE {ate}; "
+          f"armed {out['armed_frames']}; eager repeats "
           f"bit-identical {out['eager_repeats_bit_identical']} (differ: {eager_differ}); "
           f"graph vs eager poses bit-identical {poses_same} (max diff {pose_diff:.3e}), "
           f"arrays differing {differ}", flush=True)
-    for tag, r in runs.items():
-        if not r["prof"]["busy_valid"]:
-            print(f"{label} ({tag}): the profile's busy reading is discarded (trace "
-                  f"complete {r['prof']['trace_complete']}, busy read "
-                  f"{r['prof']['device_busy_ms_read']:.3f} ms against "
-                  f"{r['prof']['profiled_ms_mean']:.3f} ms a frame)", flush=True)
-        got_r = r["prof"]["launches_per_frame"]
-        graph = dict.fromkeys(GRAPH_NODES, 0.0)
-        if tag == "graph":
-            graph.update(nodes, graph_while_next=e1["prof"]["chunks_per_frame"],
-                         graph_ifelse=e1["prof"]["conds_per_frame"])
-        if any(got_r[k] != v for k, v in {**want, **graph}.items()):
-            fail(f"{label} ({tag}): a profiled frame launched {got_r} on the card, "
-                 f"expected {want} and the conditional nodes {graph}")
-    if g["prof"]["host_reads_per_frame"]:
-        fail(f"{label}: the replays read on the host")
     if poses_eager_same and not poses_same:
         fail(f"{label}: the graph's poses differ from the eager step's by {pose_diff}")
     if any(v > GRAPH_TOL for v in differ.values()):
@@ -1866,135 +1720,6 @@ def graph_against_eager(P, torch, label, config, mode, cam, poses, frames, dev,
     if ate_limit is not None and not ate["graph"] < ate_limit:
         fail(f"{label}: ATE {ate['graph']} m not below {ate_limit} m")
     return out
-
-
-def dev_us(e, self_only):
-    """A torch.profiler event's device time in us (self or total; the
-    attribute's name depends on the PyTorch version)."""
-    names = (("self_device_time_total", "self_cuda_time_total") if self_only
-             else ("device_time_total", "cuda_time_total"))
-    for a in names:
-        if hasattr(e, a):
-            return float(getattr(e, a))
-    return 0.0
-
-
-def profile_stages(P, torch, config, camera, poses, frames, dev, wall_ms,
-                   mode="depth"):
-    """Phase 5: where a steady frame's time goes, over 10 frames each of
-    (a) stage wall times with a device sync at every stage boundary (no
-    profiler), and (b) torch.profiler kernel times per stage range,
-    synchronized per frame.
-    ``wall_ms`` is the path's unprofiled median (phase 3 or 3b), the base
-    of the idle share; the busy ms is the union of the trace's kernel,
-    copy and fill intervals (``timing.busy_ms``), and a reading above the
-    profiled frames' own wall time is discarded (None).  Returns the
-    report."""
-    from torch.profiler import ProfilerActivity, profile
-    from vulcan_tpu_torch.ops import allocate, icp, raycast, sparse
-    from vulcan_tpu_torch.pipeline import fusion
-    from vulcan_tpu_torch.tools import timing
-
-    n_warm, n_run = 15, 10
-    sync_ms: dict[str, float] = {}
-
-    def timed(name, fn):
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            sync_ms[name] = sync_ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
-            return out
-        return wrapper
-
-    stage_fns = [
-        (fusion, "build_pyramid", "preprocess"), (icp, "model_pyramid", "track"),
-        (icp, "track", "track"), (fusion, "_gate", "track"),
-        (allocate, "allocate_for_frame", "allocate"),
-        (allocate, "update_visibility", "allocate"),
-        (sparse, "integrate_sparse", "integrate"), (raycast, "render", "render"),
-    ]
-    eager = eager_pipeline(P)
-    pipe = eager(config, camera, 480, 640, init_pose=poses[0], mode=mode, device=dev)
-    for d16, c8 in frames[:n_warm]:
-        pipe.process(d16, c8)
-    armed = int(pipe.state.photo_cnt) > 0
-    originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in stage_fns]
-    try:
-        for mod, attr, name in stage_fns:
-            setattr(mod, attr, timed(name, getattr(mod, attr)))
-        t0 = time.perf_counter()
-        for d16, c8 in frames[n_warm:n_warm + n_run]:
-            pipe.process(d16, c8)
-        torch.cuda.synchronize()
-        synced_frame_ms = (time.perf_counter() - t0) * 1e3 / n_run
-    finally:
-        for mod, attr, fn in originals:
-            setattr(mod, attr, fn)
-
-    pipe = eager(config, camera, 480, 640, init_pose=poses[0], mode=mode, device=dev)
-    for d16, c8 in frames[:n_warm]:
-        pipe.process(d16, c8)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for d16, c8 in frames[n_warm:n_warm + n_run]:
-            pipe.process(d16, c8)
-            torch.cuda.synchronize()
-    profiled_ms = (time.perf_counter() - t0) * 1e3 / n_run
-
-    cuda = torch.autograd.DeviceType.CUDA
-    events = prof.key_averages()
-    # Host-side stage ranges carry their kernels' device time; the
-    # device-side copies of the ranges (GPU annotations) are left out, so
-    # no kernel counts twice.
-    kernel_ms = {
-        e.key[len("vulcan."):]: dev_us(e, False) / 1e3 / n_run
-        for e in events if e.key.startswith("vulcan.") and e.device_type != cuda
-    }
-    kernels = sorted(
-        ((e.key, dev_us(e, True) / 1e3 / n_run, e.count / n_run)
-         for e in events
-         if e.device_type == cuda and not e.key.startswith("vulcan.")
-         and dev_us(e, True) > 0),
-        key=lambda k: -k[1],
-    )
-    spans = timing.device_spans(prof)
-    busy_read = timing.busy_ms(spans) / n_run
-    busy_ms = busy_read if busy_read <= profiled_ms else None
-    report = {
-        "mode": mode,
-        "armed_when_profiled": bool(armed),
-        "frames": n_run,
-        "wall_ms_per_frame_unprofiled_median": wall_ms,
-        "wall_ms_per_frame_stage_synced": synced_frame_ms,
-        "device_busy_ms_per_frame": busy_ms,
-        "device_busy_ms_read": busy_read,
-        "wall_ms_per_frame_profiled": profiled_ms,
-        "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
-        "device_ops_per_frame": len(spans) / n_run,
-        "stages": {
-            name: {"synced_wall_ms": sync_ms.get(name, 0.0) / n_run,
-                   "kernel_ms": kernel_ms.get(name, 0.0)}
-            for name in dict.fromkeys(n for _, _, n in stage_fns)
-        },
-        "top_device_ops": [
-            {"name": k[0][:160], "ms_per_frame": k[1], "calls_per_frame": k[2]}
-            for k in kernels[:25]
-        ],
-    }
-    print(f"profile ({mode}{', armed' if armed else ''}): wall {wall_ms:.3f} ms/frame unprofiled, "
-          f"{synced_frame_ms:.3f} ms with stage syncs; device busy "
-          f"{fmt(busy_ms)} ms (read {busy_read:.3f}; idle share "
-          f"{fmt(report['device_idle_share'])}); "
-          f"{report['device_ops_per_frame']:.0f} device ops/frame", flush=True)
-    for name, v in report["stages"].items():
-        print(f"  {name:11s} synced wall {v['synced_wall_ms']:8.3f} ms  "
-              f"kernels {v['kernel_ms']:7.3f} ms")
-    for k in kernels[:12]:
-        print(f"  {k[1]:7.3f} ms {k[2]:7.1f}x  {k[0][:90]}")
-    return report
 
 
 MESH_POS_TOL = 1e-5     # m: card vs CPU extraction (one division a vertex)
@@ -2015,21 +1740,6 @@ def events_ms(fn, torch):
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end)
-
-
-def profile_call(fn, torch) -> tuple[float, float]:
-    """(device busy ms, device operations) of one call of ``fn()``: the
-    union of the trace's kernel, copy and fill intervals
-    (``timing.busy_ms``) and their number."""
-    from torch.profiler import ProfilerActivity, profile
-    from vulcan_tpu_torch.tools import timing
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    spans = timing.device_spans(prof)
-    return timing.busy_ms(spans), float(len(spans))
 
 
 def compare_meshes(label, got, want, pos_tol, color_tol):
@@ -2054,19 +1764,18 @@ def metric_frame(d16, c8, cfg):
             c8.astype(np.float32) * np.float32(1.0 / 255.0))
 
 
-def mesh_and_api(P, torch, cfg, cam, poses, frames, pipe, dev, want_profile) -> dict:
+def mesh_and_api(P, torch, cfg, cam, poses, frames, pipe, dev) -> dict:
     """Phase 7: the mesh path and the five-class API at 640x480 on the card.
     (a) full extraction of phase 3's volume, against the port's plain path
     on a CPU copy; (b) incremental meshing every MESH_EVERY frames over the
     orbit (mesh_dirty_eps=0), its last decode against a full extraction;
     (c) PLY export and a v4 snapshot from the card loaded on the CPU, both
-    traced at one pose; (d) the five-class flow over 10 frames.  With
-    ``want_profile``, the device busy ms and operations of one extraction,
-    update and decode (torch.profiler).  Returns the printed numbers."""
+    traced at one pose; (d) the five-class flow over 10 frames.  Returns
+    the printed numbers."""
     import dataclasses as dc
 
     from vulcan_tpu_torch.io.ply import read_ply
-    from vulcan_tpu_torch.ops import mcubes, preprocess, splat
+    from vulcan_tpu_torch.ops import mcubes
     from vulcan_tpu_torch.tools.timing import call_ms
     from vulcan_tpu_torch.utils.convert import volume_from_numpy, volume_to_numpy
     from vulcan_tpu_torch.utils.evaluate import ate_rmse
@@ -2098,10 +1807,6 @@ def mesh_and_api(P, torch, cfg, cam, poses, frames, pipe, dev, want_profile) -> 
     report["full"] = dict(triangles=n_tri, allocated_blocks=blocks, ms=extract_ms,
                           host_reads=reads, cpu_ms=cpu_ms, max_pos_diff_m=dp,
                           max_color_diff=dcol)
-    if want_profile:
-        busy, ops = profile_call(pipe.extract_mesh, torch)
-        report["full"].update(device_busy_ms=busy, device_ops=ops)
-        print(f"(a) profile: device busy {busy:.3f} ms, {ops:.0f} device ops", flush=True)
     del vol_cpu, mesh_cpu
 
     # (b) incremental meshing every MESH_EVERY frames (mesh_dirty_eps=0).
@@ -2113,13 +1818,12 @@ def mesh_and_api(P, torch, cfg, cam, poses, frames, pipe, dev, want_profile) -> 
     pipe0 = P.Pipeline(cfg0, cam, h, w, init_pose=poses[0], device=dev)
     cache = mcubes.create_mesh_cache(cfg0, dev)
     reset_counts()
-    run0, cadences = dict(reads=[], counts=[], host=[]), []
+    run0, cadences = dict(reads=[], counts=[]), []
     for k, (d16, c8) in enumerate(frames):
         read_int.count = 0
         pipe0.process(d16, c8)
         run0["reads"].append(read_int.count)
         run0["counts"].append(launch_counts())
-        run0["host"].append(host_counts())
         if (k + 1) % MESH_EVERY and k + 1 < len(frames):
             continue
         dirty = int(pipe0.state.volume.mesh_dirty.sum())
@@ -2154,19 +1858,6 @@ def mesh_and_api(P, torch, cfg, cam, poses, frames, pipe, dev, want_profile) -> 
         if step_reads != 3 * n:
             fail(f"(b) the step read {step_reads} times over {n} frames, expected 3 "
                  "a frame")
-    if want_profile:
-        # One more frame, then its update and decode under the profiler.
-        pipe0.process(*frames[-1])
-        vol0, prof_cache = pipe0.state.volume, cache
-        up = profile_call(lambda: mcubes.update_mesh_cache(vol0, prof_cache, cfg0), torch)
-        dec = profile_call(lambda: mcubes.cache_to_mesh(vol0, prof_cache, cfg0), torch)
-        report["profile"] = dict(update_device_busy_ms=up[0], update_device_ops=up[1],
-                                 decode_device_busy_ms=dec[0], decode_device_ops=dec[1])
-        print(f"(b) profile of one more frame's update: device busy {up[0]:.3f} ms, "
-              f"{up[1]:.0f} ops; decode {dec[0]:.3f} ms, {dec[1]:.0f} ops", flush=True)
-        vol0, cache = mcubes.update_mesh_cache(vol0, cache, cfg0)
-        pipe0.state.volume = vol0
-        inc = mcubes.cache_to_mesh(vol0, cache, cfg0)
     full0 = pipe0.extract_mesh()
     if not int(full0.count) > 0:
         fail("(b) empty mesh")
@@ -2174,8 +1865,7 @@ def mesh_and_api(P, torch, cfg, cam, poses, frames, pipe, dev, want_profile) -> 
                    INC_COLOR_TOL)
     report["incremental"] = dict(every=MESH_EVERY, cadences=cadences,
                                  step_reads_per_frame=step_reads / n,
-                                 full_triangles=int(full0.count),
-                                 **report.pop("profile", {}))
+                                 full_triangles=int(full0.count))
     del pipe0, cache, vol0, inc, full0
 
     # (c) PLY export and a snapshot from the card loaded on the CPU
@@ -2227,8 +1917,7 @@ def mesh_and_api(P, torch, cfg, cam, poses, frames, pipe, dev, want_profile) -> 
     volume = P.Volume(cfg, device=dev)
     integrator, tracer = P.Integrator(volume), P.Tracer(volume)
     tracker, extractor = P.DepthTracker(cfg, device=dev), P.Extractor(volume)
-    preprocess.bilateral_filter.launches = 0
-    splat._fill_and_smooth.kernel_launches = 0
+    before = launch_counts()
     integrator.integrate(P.make_frame(*metric_frame(*frames[0], cfg), cam, poses[0],
                                       device=dev))
     pose, est = poses[0].to(dev), [poses[0].translation.numpy()]
@@ -2242,7 +1931,8 @@ def mesh_and_api(P, torch, cfg, cam, poses, frames, pipe, dev, want_profile) -> 
         est.append(pose.translation.cpu().numpy())
     torch.cuda.synchronize()
     flow_ms = (time.perf_counter() - t0) * 1e3 / (n5 - 1)
-    k1, k2 = preprocess.bilateral_filter.launches, splat._fill_and_smooth.kernel_launches
+    made = launch_counts()
+    k1, k2 = (made[k] - before[k] for k in ("bilateral", "fill_smooth"))
     gt = np.stack([p.translation.numpy() for p in poses[:n5]])
     ate = ate_rmse(np.stack(est), gt)
     m5 = extractor.extract()
@@ -2293,7 +1983,7 @@ def hold_render(label, got, want) -> dict:
     return out
 
 
-def render_paths(P, torch, cfg, cam, poses, frames, pipe, dev, want_profile) -> dict:
+def render_paths(P, torch, cfg, cam, poses, frames, pipe, dev) -> dict:
     """Phase 8: the render paths off the main line at 640x480, each a
     captured graph.  (a) the orbit under render_mode="march" in depth and
     combined mode; (b) the orbit in depth mode with splat_source="direct"
@@ -2301,8 +1991,7 @@ def render_paths(P, torch, cfg, cam, poses, frames, pipe, dev, want_profile) -> 
     march (cross and gradient normals) and the splat with gradient
     normals, each against a CPU copy, and the direct against the surfel
     z-buffer; (d) the dense backend at 256^3 over the orbit's frames at
-    their true poses.  With ``want_profile`` also phase 5's stage
-    breakdown of each path of (a)-(b).  Returns the printed numbers."""
+    their true poses.  Returns the printed numbers."""
     import dataclasses as dc
 
     from vulcan_tpu_torch.io.synthetic import render_scene_depth
@@ -2327,11 +2016,6 @@ def render_paths(P, torch, cfg, cam, poses, frames, pipe, dev, want_profile) -> 
                       k2_per_frame=k2, no_failures=True)
              for label, config, mode, k2 in specs]
     report["cells"] = cells
-    if want_profile:
-        report["profiles"] = {
-            label: profile_stages(P, torch, config, cam, poses, frames, dev,
-                                  cell["ms_median"], mode)
-            for (label, config, mode, _), cell in zip(specs, cells)}
     took("(a)-(b)")
 
     # (c) traces of phase 3's final volume, card against a CPU copy.
@@ -2349,12 +2033,13 @@ def render_paths(P, torch, cfg, cam, poses, frames, pipe, dev, want_profile) -> 
         for device, st in ((dev, state), (torch.device("cpu"), cpu_state)):
             vol = P.Volume(c, device=device)
             vol.state = st
-            splat._fill_and_smooth.launches = 0
+            k2_0 = launch_counts()["fill_smooth"]
             read_int.count = 0
             r, ms = events_ms(lambda: P.Tracer(vol).trace(cam, pose, h, w,
                                                           normals=normals), torch)
             if device == dev:
-                k2, reads, card_ms = splat._fill_and_smooth.launches, read_int.count, ms
+                k2 = launch_counts()["fill_smooth"] - k2_0
+                reads, card_ms = read_int.count, ms
             renders.append(r)
         traces[label] = dict(hold_render(f"(c) trace {label} card vs CPU", *renders),
                              ms=card_ms, k2_launches=k2, host_reads=reads)
@@ -2668,7 +2353,7 @@ def entry_points(P, torch, cfg, cam, poses, frames, dev, reads, snap, snap_tris)
         # stage ranges; the eager steps' preprocess ranges are counted too).
         kernels_in_trace = [e["name"] for e in json.loads(body).get("traceEvents", [])
                             if e.get("cat") == "kernel"]
-        steps = sum(KERNEL_NAMES["bilateral"] in k for k in kernels_in_trace)
+        steps = sum("bilateral_kernel" in k for k in kernels_in_trace)
         ranges = body.count(b'"name": "vulcan.preprocess"')
         has_kernels = bool(kernels_in_trace)
         out.update(seconds=secs, stage_ms=rep["stage_ms"],
@@ -2837,7 +2522,6 @@ def sharded_step(P, torch, cfg, cam, poses, frames, dev, k=10) -> dict:
 
 
 def main() -> None:
-    want_profile = "--profile" in sys.argv[1:]
     want_parity = "--parity" in sys.argv[1:]
     phase("0 device")
     try:
@@ -2856,7 +2540,6 @@ def main() -> None:
     from vulcan_tpu_torch.ops import cuda_kernels, preprocess, splat
     from vulcan_tpu_torch.tools.timing import device_ms
     from vulcan_tpu_torch.utils.evaluate import ate_rmse
-    from vulcan_tpu_torch.utils.sync import read_int
     from vulcan_tpu_torch.io.synthetic import orbit_poses
 
     smi = nvidia_smi()
@@ -2918,7 +2601,7 @@ def main() -> None:
             name="bilateral", tol=K1_TOL, source="vulcan_tpu_torch/csrc/bilateral.cu",
             replaces="vulcan_tpu/ops/preprocess.py:116",
             call=lambda: preprocess.bilateral_filter(x1, cfg),
-            count=lambda: preprocess.bilateral_filter.launches,
+            count=card_count("bilateral"),
             plain=lambda: preprocess._bilateral_math(x1, cfg),
             # per tap of the function: sub, mul, mul, exp, mul, select, mul, 2 adds,
             # compare (the kernel folds some of them; the bound counts the function's)
@@ -2930,7 +2613,7 @@ def main() -> None:
             name="fill_smooth", tol=K2_TOL, source="vulcan_tpu_torch/csrc/fill_smooth.cu",
             replaces="vulcan_tpu/ops/splat.py:606",
             call=lambda: splat._fill_and_smooth(x2, cfg),
-            count=lambda: splat._fill_and_smooth.kernel_launches,
+            count=card_count("fill_smooth"),
             plain=lambda: splat._fill_smooth_math(x2, cfg),
             bytes=image_bytes, ops=x2.numel() * fill_smooth_ops(cfg.splat_fill_rounds),
         ), torch),
@@ -3085,26 +2768,12 @@ def main() -> None:
         if not diff <= AGREE_TOL:
             fail(f"the port on the card and on the CPU disagree in {mode} mode")
 
-    if want_profile:
-        phase("5 profile (10 steady frames, torch.profiler)")
-        reports = [
-            profile_stages(P, torch, cfg, cam, poses, frames, dev,
-                           float(np.median(timed))),
-            profile_stages(P, torch, cfg, cam, poses, frames, dev,
-                           cells[1]["ms_median"], "combined"),
-            profile_stages(P, torch, P.Config(auto_photo_enter=0.99), cam, poses,
-                           frames, dev, cells[2]["ms_median"]),
-        ]
-        with open(os.path.join(OUT_DIR, "profile_stages.json"), "w") as f:
-            json.dump(dict(device=smi, runs=reports), f, indent=1)
-
     phase("6 probes: T1-T5 against plain versions, then the probe entry points")
     kernels += probes(P, torch, dev)
 
     phase("7 mesh and API: extraction, incremental meshing, PLY, snapshot, five classes")
     t0 = time.perf_counter()
-    mesh_report = mesh_and_api(P, torch, cfg, cam, poses, frames, pipe, dev,
-                               want_profile)
+    mesh_report = mesh_and_api(P, torch, cfg, cam, poses, frames, pipe, dev)
     mesh_report["phase_s"] = time.perf_counter() - t0
     print(f"phase 7 took {mesh_report['phase_s']:.1f} s", flush=True)
     with open(os.path.join(OUT_DIR, "mesh.json"), "w") as f:
@@ -3112,8 +2781,7 @@ def main() -> None:
 
     phase("8 render paths: march, direct, polish, traces, dense 256^3 (480x640)")
     t0 = time.perf_counter()
-    render_report = render_paths(P, torch, cfg, cam, poses, frames, pipe, dev,
-                                 want_profile)
+    render_report = render_paths(P, torch, cfg, cam, poses, frames, pipe, dev)
     render_report["phase_s"] = time.perf_counter() - t0
     print(f"phase 8 took {render_report['phase_s']:.1f} s", flush=True)
     with open(os.path.join(OUT_DIR, "render.json"), "w") as f:

@@ -5,6 +5,7 @@ import dataclasses
 import functools
 
 import numpy as np
+import pytest
 import torch
 
 import vulcan_tpu_torch as P
@@ -12,6 +13,7 @@ from vulcan_tpu.config import TINY as J_TINY
 from vulcan_tpu.core.camera import PinholeCamera as JCam
 from vulcan_tpu.io.synthetic import orbit_poses, render_scene_depth
 from vulcan_tpu_torch.core.se3 import SE3 as TSE3
+from vulcan_tpu_torch.ops import cuda_kernels
 from vulcan_tpu_torch.utils.convert import flatten
 
 # The suite runs as several worker processes on the machine's cores: one
@@ -70,6 +72,22 @@ def t(x):
 def se3_t(p) -> TSE3:
     """A JAX package SE3 -> the port's."""
     return TSE3(t(p.rotation), t(p.translation))
+
+
+# The main path's kernel entries of ``cuda_kernels``: K1, K2, H1a-H1c, the
+# fused track step, R1 and I1.
+KERNEL_ENTRIES = ("bilateral", "fill_smooth", "icp_associate", "icp_rows", "icp_solve",
+                  "icp_rows_solve", "range_image", "integrate")
+
+
+@pytest.fixture
+def no_kernel(monkeypatch):
+    """Every main-path kernel entry raises: a test that takes this fixture
+    fails if a CPU tensor reaches a kernel in place of its plain version."""
+    for name in KERNEL_ENTRIES:
+        def reached(*_args, _name=name, **_kwargs):
+            raise AssertionError(f"a CPU tensor reached kernel {_name}")
+        monkeypatch.setattr(cuda_kernels, name, reached)
 
 
 def close_frac(a, b, atol):

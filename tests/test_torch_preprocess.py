@@ -15,7 +15,7 @@ from vulcan_tpu_torch.core.se3 import SE3 as TSE3
 from vulcan_tpu_torch.ops import cuda_kernels
 from vulcan_tpu_torch.ops import preprocess as tpp
 
-from ._torch_port import CAM_J, CAM_T, H, W, orbit, scene, t
+from ._torch_port import CAM_J, CAM_T, H, W, no_kernel, orbit, scene, t
 
 # exp() of XLA and of PyTorch's CPU kernel differ in the last ulp for
 # ~10% of inputs; through the 25-tap weighted mean that stays below
@@ -48,10 +48,8 @@ def test_bilateral_matches_reference_pallas_interpret(holed_depth):
     np.testing.assert_allclose(out, ref, rtol=BILATERAL_RTOL, atol=1e-6)
 
 
-def test_cpu_tensor_takes_plain_bilateral_and_counts_no_launch(holed_depth):
-    before = tpp.bilateral_filter.launches
+def test_cpu_tensor_takes_plain_bilateral_and_counts_no_launch(holed_depth, no_kernel):
     out = tpp.bilateral_filter(t(holed_depth), P.TINY)
-    assert tpp.bilateral_filter.launches == before == 0
     np.testing.assert_array_equal(
         out.numpy(), tpp._bilateral_math(t(holed_depth), P.TINY).numpy()
     )

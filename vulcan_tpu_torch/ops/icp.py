@@ -33,7 +33,6 @@ from ..config import Config
 from ..core.camera import PinholeCamera
 from ..core.frame import FrameMaps
 from ..core.se3 import SE3
-from ..utils import sync
 from . import cuda_kernels
 from .dense import COORD_CLAMP, round_to_int
 from .preprocess import _shift2d, intensity_from_color
@@ -483,9 +482,8 @@ def _photo_here(mode: str, level: int, config: Config) -> bool:
 # H1c in one launch) where its reducer is ``LOCAL``, or through ``icp_rows``
 # (H1b), the reducer, then ``icp_solve`` (H1c) with any other reducer, on
 # either device: a CPU tensor takes the plain PyTorch version beside each,
-# a CUDA tensor launches the kernel of ``csrc/icp.cu`` (an eager launch
-# counted in ``<entry>.launches``, every launch on the card:
-# ``cuda_kernels.launch_counts``) or raises.  The pose
+# a CUDA tensor launches the kernel of ``csrc/icp.cu`` (every launch is
+# counted on the card: ``cuda_kernels.launch_counts``) or raises.  The pose
 # travels as a (16,) vector, ``[R row-major (9), t (3), err, inliers, level
 # score, geometric score]``, that H1c (or the fused step) writes and H1a/H1b
 # read on the device.
@@ -616,16 +614,10 @@ def icp_associate(lv: LevelInputs, pose: torch.Tensor, config: Config,
     ``csrc/icp.cu`` on a CUDA tensor."""
     if lv.depth.is_cpu:
         return _associate_plain(lv, pose, config, geometric, photo)
-    out = cuda_kernels.icp_associate(
+    return cuda_kernels.icp_associate(
         lv.depth, lv.vertices, pose, lv.model, (lv.vpack1, lv.vpack2, lv.npack),
         lv.words, _camera4(lv.camera), config.depth_min, config.depth_max,
         geometric, photo)
-    if not sync.capturing():
-        icp_associate.launches += 1
-    return out
-
-
-icp_associate.launches = 0
 
 
 def _geo_rows(pose: torch.Tensor, v_w, normals: torch.Tensor, corr, config: Config,
@@ -724,16 +716,10 @@ def icp_rows(lv: LevelInputs, pose: torch.Tensor, corr, samples, config: Config,
     if lv.depth.is_cpu:
         return _rows_plain(lv, pose, corr, samples, config, geometric, photo,
                            live_normals)
-    out = cuda_kernels.icp_rows(
+    return cuda_kernels.icp_rows(
         lv.depth, lv.vertices, lv.normals, lv.intensity, pose, lv.model, corr,
         samples, _camera4(lv.camera), _rows_scalars(config), geometric, photo,
         live_normals)
-    if not sync.capturing():
-        icp_rows.launches += 1
-    return out
-
-
-icp_rows.launches = 0
 
 
 def _solve_plain(sums: torch.Tensor, pose: torch.Tensor, damping: float,
@@ -769,14 +755,8 @@ def icp_solve(sums: torch.Tensor, pose: torch.Tensor, config: Config,
     ``csrc/icp.cu`` on a CUDA tensor."""
     if sums.is_cpu:
         return _solve_plain(sums, pose, config.icp_damping, geometric, photo, detect)
-    out = cuda_kernels.icp_solve(sums, pose, config.icp_damping, geometric, photo,
-                                 detect)
-    if not sync.capturing():
-        icp_solve.launches += 1
-    return out
-
-
-icp_solve.launches = 0
+    return cuda_kernels.icp_solve(sums, pose, config.icp_damping, geometric, photo,
+                                  detect)
 
 
 def icp_rows_solve(lv: LevelInputs, pose: torch.Tensor, corr, samples, config: Config,
@@ -789,16 +769,10 @@ def icp_rows_solve(lv: LevelInputs, pose: torch.Tensor, corr, samples, config: C
     if lv.depth.is_cpu:
         sums = _rows_plain(lv, pose, corr, samples, config, geometric, photo, detect)
         return sums, _solve_plain(sums, pose, config.icp_damping, geometric, photo, detect)
-    out = cuda_kernels.icp_rows_solve(
+    return cuda_kernels.icp_rows_solve(
         lv.depth, lv.vertices, lv.normals, lv.intensity, pose, lv.model, corr, samples,
         _camera4(lv.camera), _rows_scalars(config), config.icp_damping, geometric,
         photo, detect)
-    if not sync.capturing():
-        icp_rows_solve.launches += 1
-    return out
-
-
-icp_rows_solve.launches = 0
 
 
 def _gn_step(lv: LevelInputs, pose: torch.Tensor, corr, samples, config: Config,

@@ -15,7 +15,6 @@ import torch.nn.functional as F
 from ..config import Config
 from ..core.camera import PinholeCamera
 from ..core.frame import Frame, FrameMaps
-from ..utils import sync
 from . import cuda_kernels
 
 
@@ -95,20 +94,13 @@ def bilateral_filter(depth: torch.Tensor, config: Config) -> torch.Tensor:
 
     A CPU tensor takes the plain version (``_bilateral_math``); a CUDA
     tensor launches kernel K1 (``csrc/bilateral.cu``) with the constants
-    cached for this ``Config`` and counts an eager launch in
-    ``bilateral_filter.launches`` (every launch, a graph's replays too, is
-    counted on the card: ``cuda_kernels.launch_counts``).  Anything the kernel does not take
+    cached for this ``Config``; every launch is counted on the card:
+    ``cuda_kernels.launch_counts``.  Anything the kernel does not take
     (dtype, ndim, contiguity) raises.
     """
     if depth.is_cpu:
         return _bilateral_math(depth, config)
-    out = cuda_kernels.bilateral(depth, _bilateral_constants(config))
-    if not sync.capturing():  # a capture records the launch, each replay makes it
-        bilateral_filter.launches += 1
-    return out
-
-
-bilateral_filter.launches = 0
+    return cuda_kernels.bilateral(depth, _bilateral_constants(config))
 
 
 def compute_vertex_map(depth: torch.Tensor, camera: PinholeCamera) -> torch.Tensor:

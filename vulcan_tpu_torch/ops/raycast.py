@@ -188,8 +188,7 @@ def compute_range_image(volume: B.VolumeState, camera: PinholeCamera, pose: SE3,
     The rows' values are PyTorch ops on any device; a CPU tensor then takes
     the plain stamps (``_range_image_plain``), a CUDA tensor launches kernel
     R1 (``csrc/range_image.cu``: the stamps, then the upsample) or raises.
-    Eager calls are counted in ``compute_range_image.launches`` (a graph's
-    replays on the card: ``cuda_kernels.launch_counts``)."""
+    Every launch is counted on the card: ``cuda_kernels.launch_counts``."""
     rows = _range_rows(volume, camera, pose, config)
     if volume.visible_ids.is_cpu:
         return _range_image_plain(rows, height, width, config)
@@ -198,12 +197,7 @@ def compute_range_image(volume: B.VolumeState, camera: PinholeCamera, pose: SE3,
         rows.z_min, rows.z_max, (rows.u_min, rows.u_max, rows.v_min, rows.v_max),
         rows.stampable, volume.num_visible, rows.any_overflow, rows.g_min, rows.g_max,
         (-(-height // sc), -(-width // sc)), config.range_stamp, sc, (height, width))
-    if not sync.capturing():  # a capture records the launches, each replay makes them
-        compute_range_image.launches += 1
     return tuple(maps.unbind(0))
-
-
-compute_range_image.launches = 0
 
 
 def _march(cache, config, ox, oy, oz, dx_, dy_, dz_, t0, spacing, t_limit, active,

@@ -161,9 +161,8 @@ def integrate_sparse(
     takes the plain version (``_integrate_plain``); a CUDA volume launches
     I1 once (``cuda_kernels.integrate``), which reads the list's device
     count on the card and raises for more than 512 ``surfel_slots``
-    (``Config`` holds ``block_size`` at 8).  Eager launches are counted in
-    ``integrate_sparse.launches`` (a graph's replays on the card:
-    ``cuda_kernels.launch_counts``)."""
+    (``Config`` holds ``block_size`` at 8).  Every launch is counted on the
+    card: ``cuda_kernels.launch_counts``."""
     work_ids = volume.visible_ids if ids is None else ids
     work_count = volume.num_visible if count is None else count
     if work_ids.is_cpu:
@@ -180,12 +179,7 @@ def integrate_sparse(
         (volume.tsdf, volume.weight, volume.colorpack),
         (volume.surfpack, volume.surf_count, volume.mesh_dirty), surf_overflow,
         (cam.fx, cam.fy, cam.cx, cam.cy), i1_scalars(config))
-    if not sync.capturing():  # a capture records the launch, each replay makes it
-        integrate_sparse.launches += 1
     return dataclasses.replace(volume, surf_overflow=surf_overflow)
-
-
-integrate_sparse.launches = 0
 
 
 def _integrate_plain(volume: B.VolumeState, frame: Frame, config: Config,

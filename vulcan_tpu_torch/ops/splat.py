@@ -438,24 +438,14 @@ def _fill_and_smooth(d: torch.Tensor, config: Config) -> torch.Tensor:
     """Post-splat hole fill + smoothing.  A CPU tensor takes the plain
     version; a CUDA tensor launches kernel K2 (``csrc/fill_smooth.cu``):
     one launch at up to ``cuda_kernels.FILL_SMOOTH_MAX_ROUNDS`` rounds, more
-    as ``cuda_kernels.fill_smooth_plan`` splits them.  Eager calls are
-    counted in ``_fill_and_smooth.launches``, their kernel launches in
-    ``_fill_and_smooth.kernel_launches`` (a graph's replays on the card:
-    ``cuda_kernels.launch_counts``).  Anything the kernel does not
-    take raises."""
+    as ``cuda_kernels.fill_smooth_plan`` splits them.  Every launch is
+    counted on the card: ``cuda_kernels.launch_counts``.  Anything the
+    kernel does not take raises."""
     if d.is_cpu:
         return _fill_smooth_math(d, config)
     mu = config.trunc_dist
     plan = cuda_kernels.fill_smooth_plan(config.splat_fill_rounds)
-    out = cuda_kernels.fill_smooth(d, plan, 2.0 * mu, 0.5 * mu)
-    if not sync.capturing():  # a capture records the launch, each replay makes it
-        _fill_and_smooth.launches += 1
-        _fill_and_smooth.kernel_launches += len(plan)
-    return out
-
-
-_fill_and_smooth.launches = 0
-_fill_and_smooth.kernel_launches = 0
+    return cuda_kernels.fill_smooth(d, plan, 2.0 * mu, 0.5 * mu)
 
 
 def _diffuse(value: torch.Tensor, ok: torch.Tensor, rounds: int) -> torch.Tensor:

@@ -243,26 +243,31 @@ def run_frames(mesh: Mesh, config: Config, camera: PinholeCamera, frames,
     sharded step (each rank uploads its rows).  Returns numpy results:
     the pose and the track's inliers at each pyramid level after each
     frame, each step's ms (host clock, the device synchronized), the host
-    reads and kernel launches (K1, K2 and the track's entry points'
-    eager launches, ``track_launches``), the final volume's free count
+    reads and kernel launches (K1, K2 and the track's entry points,
+    ``track_launches``, as the card counts them: 0 on a CPU rank), the
+    final volume's free count
     and the tsdf of its rows below it, and the final model depth and validity
     (gathered).  After the run it times the all-gather that opens each
     step, alone (``gather_ms``: the frame's rows and the model maps) and
     for the frame's rows only (``frame_gather_ms``), medians of 5."""
     import time
 
-    from ..ops import preprocess, splat
+    from ..ops import cuda_kernels
     from ..utils.sync import read_int
 
-    entries = {name: getattr(icp, name) for name in
-               ("icp_associate", "icp_rows", "icp_solve", "icp_rows_solve")}
+    track_names = ("icp_associate", "icp_rows", "icp_solve", "icp_rows_solve")
     h, w = frames[0][0].shape
     dev = mesh.device
     step = make_sharded_step(config, mesh, h, w, mode)
     state = shard_state(mesh, fusion.init_state(config, camera, h, w, init_pose, dev))
+
+    def launches():
+        if dev.type != "cuda":
+            return dict.fromkeys(cuda_kernels.COUNTED, 0)
+        return cuda_kernels.launch_counts(dev)
+
     read_int.count = 0
-    k1, k2 = preprocess.bilateral_filter.launches, splat._fill_and_smooth.kernel_launches
-    track0 = {name: e.launches for name, e in entries.items()}
+    before = launches()
 
     def sync():
         if dev.type == "cuda":
@@ -280,9 +285,8 @@ def run_frames(mesh: Mesh, config: Config, camera: PinholeCamera, frames,
         trans.append(state.pose.translation.cpu().numpy())
         level.append(state.track_level_inliers.cpu().numpy())
     reads = read_int.count
-    k1 = preprocess.bilateral_filter.launches - k1
-    k2 = splat._fill_and_smooth.kernel_launches - k2
-    track = {name: e.launches - track0[name] for name, e in entries.items()}
+    made = {name: n - before[name] for name, n in launches().items()}
+    track = {name: made[name] for name in track_names}
 
     spec = state_sharding(mesh, fusion.init_state(config, camera, h, w, device="meta"))
     gather_ms = {}
@@ -302,7 +306,7 @@ def run_frames(mesh: Mesh, config: Config, camera: PinholeCamera, frames,
     return dict(
         rotation=np.stack(rot), translation=np.stack(trans),
         level_inliers=np.stack(level), reads=reads, ms=ms, **gather_ms,
-        k1_launches=k1, k2_launches=k2, track_launches=track,
+        k1_launches=made["bilateral"], k2_launches=made["fill_smooth"], track_launches=track,
         frame=int(state.frame_idx), track_failures=int(state.track_failures),
         free_count=int(state.volume.free_count),
         tsdf=state.volume.tsdf[:int(state.volume.free_count)].cpu().numpy(),

@@ -109,41 +109,3 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
         return 0.0
     return float((got[fin].double() - want[fin].double()).abs().max())
 
-
-# What occupies the card in a torch.profiler trace, by kineto's activity
-# names: kernels, copies and fills (not the device-side copies of host
-# ranges, which span the work they hold).
-DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
-def _device_work(e) -> bool:
-    """Whether a kineto event on the card is a kernel, copy or fill.  Where
-    the event does not name its kind (PyTorch 2.11's), a device-side range
-    is told by its flag or, failing that, by the name of the step's own
-    ranges (``vulcan.<stage>``), the only ranges a traced step opens."""
-    if hasattr(e, "activity_type"):
-        return e.activity_type() in DEVICE_WORK
-    if hasattr(e, "is_user_annotation") and e.is_user_annotation():
-        return False
-    return not e.name().startswith("vulcan.")
-
-
-def device_spans(prof) -> list[tuple[str, int, int]]:
-    """(name, start ns, end ns) of every kernel, copy and fill of a finished
-    ``torch.profiler.profile``, a CUDA graph's replayed kernels included."""
-    cuda = torch.autograd.DeviceType.CUDA
-    return [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
-            for e in prof.profiler.kineto_results.events()
-            if e.device_type() == cuda and _device_work(e)]
-
-
-def busy_ms(spans: list[tuple[str, int, int]]) -> float:
-    """The ms in which at least one of ``spans`` ran: the length of their
-    union, so that work overlapping on two streams counts once."""
-    total, end = 0, None
-    for _, s, e in sorted(spans, key=lambda x: x[1]):
-        if end is None or s > end:
-            total, end = total + e - s, e
-        elif e > end:
-            total, end = total + e - end, e
-    return total / 1e6
