@@ -56,7 +56,13 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      under each benchmark configuration, the next frame's band list after
      I1_FRAMES frames fused at their true poses, one launch bit for bit
      against the plain chunk loop on all seven outputs, timed like K1 beside
-     the plain version, the band's length printed;
+     the plain version, the band's length printed.  Then S1, the surfel
+     splat's z-buffer (``csrc/splat_zbuf.cu``; ``splat_zbuf_kernel``): the
+     desk's first S1_FRAMES frames fused at their true poses under
+     Config(), the visible list at the next pose splatted in the depth,
+     luma and rgb modes bit for bit against the plain tiers (one launch a
+     call, two in rgb), the luma mode timed like K1 beside the plain
+     version;
   3. main path: Pipeline(Config(), tum_default(), 480, 640) in depth mode
      over the 35-frame synthetic orbit (uint16 depth / uint8 colour in),
      5 warm-up + 30 timed frames.  The pipeline runs its first two frames
@@ -69,7 +75,7 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      replayed frame read on the host, and that every replayed frame
      launched K1 and K2
      once, H1a 12 times, the fused step 29 (H1b and H1c alone 0) and I1
-     once (``want_per_frame``), 2 WHILE nodes and auto-photo's 2 IF/ELSE nodes
+     and S1 once (``want_per_frame``), no WHILE node and auto-photo's 2 IF/ELSE nodes
      (``want_nodes``); the run's
      counts are the kernels line's ``launches`` and a replayed frame's its
      ``launches_per_replayed_frame``; zero overflows, zero track failures
@@ -138,7 +144,7 @@ Run from the root of a checkout.  Phases, each printed as it runs:
      cache_to_mesh every 5 frames and after the last (dirty blocks, ms and
      reads of each, the triangles over the default 256 slots), the last
      decode equal to a full extraction within the cache's quantization,
-     K1/K2 once a frame and 3 host reads a frame in the step; (c)
+     K1/K2 once a frame and 2 host reads a frame in the step; (c)
      export_ply read back face for face,
      a v4 snapshot saved from the card and loaded on the CPU (every array
      equal), both traced at one pose within the splat tolerances; (d) the
@@ -605,6 +611,80 @@ def integrate_kernel(P, torch, dev, cam, poses) -> list[dict]:
             library_host_us=None, band_blocks=listed))
         del vol, got, want
     return entries
+
+
+S1_FRAMES = 10          # desk frames fused (at their true poses) before S1 is timed
+S1_OPS = 60             # f32 operations a surfel (S1's arithmetic, rounded up)
+S1_MODES = {"depth": 1, "luma": 1, "rgb": 2}   # S1's modes and launches a call
+
+
+def splat_zbuf_kernel(P, torch, dev, cam) -> list[dict]:
+    """Phase 2, S1 (``csrc/splat_zbuf.cu``): the surfel z-buffer at the
+    desk cells' shapes (640x480, ``Config()``, ``splat-combined``), after
+    S1_FRAMES desk frames fused at their true poses, on the visible list at
+    the next pose.  In each mode (depth, luma, rgb) the kernel against the
+    plain tiers (``splat._splat_zbuf_surfels_plain``, the two chunk loops
+    of PyTorch ops) bit for bit, with its launches a call; then the luma
+    mode, the desk cells', timed like K1 beside the plain version's call
+    ms.  The bound is the bytes it moves: each listed row's id, each
+    surfel block's count, coordinates and the slots of its tiers, a colour
+    word a live surfel, and the buffer filled and updated once."""
+    from vulcan_tpu_torch.io.synthetic import orbit_poses, render_desk_depth
+    from vulcan_tpu_torch.ops import allocate, splat
+
+    h, w = 480, 640
+    n = S1_FRAMES + 1
+    cfg = P.Config()
+    desk = orbit_poses(n, center=(0.0, 0.0, -0.25), radius=1.5, height=0.55, span=0.05 * n)
+    pipe = P.Pipeline(cfg, cam, h, w, init_pose=desk[0], device=dev)
+    for pose in desk[:-1]:
+        pipe.process(*render_desk_depth(cam, pose, h, w, device=dev), pose=pose)
+    pose = desk[-1].to(dev)
+    vol = allocate.update_visibility(pipe.state.volume, cam, pose, h, w, cfg)
+    del pipe
+    count = card_count("splat_zbuf")
+
+    def run(mode, plain=False):
+        fn = splat._splat_zbuf_surfels_plain if plain else splat._splat_zbuf_surfels
+        out = fn(vol, cam, pose, h, w, cfg, with_color=mode == "rgb", luma=mode == "luma")
+        return out if mode == "rgb" else (out,)
+
+    for mode, want_launches in S1_MODES.items():
+        c0 = count()
+        got = run(mode)
+        launches = count() - c0
+        for a, b in zip(got, run(mode, plain=True)):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not torch.equal(a, b):
+                fail(f"S1 ({mode}): the buffer differs from the plain version's in "
+                     f"{int((a != b).sum())} of {a.numel()} pixels")
+        if launches != want_launches:
+            fail(f"S1 ({mode}): {launches} launches a call, expected {want_launches}")
+        print(f"S1 ({mode}): bit-identical to the plain tiers, {launches} launch(es) a call",
+              flush=True)
+    S = cfg.surfel_slots
+    nv = int(vol.num_visible)
+    ids = vol.visible_ids[:nv].long()
+    held = vol.surf_count[ids]
+    listed = ids[(ids > 0) & (held > 0)]
+    held = vol.surf_count[listed]
+    stop = torch.where(held > S // 2, S, S // 2)
+    live = int(held.sum())
+    hits = int((run("luma")[0] != splat._LUMA_EMPTY).sum())
+    print(f"S1 at {h}x{w}: {nv} visible rows, {listed.numel()} surfel blocks, {live} "
+          f"surfels, {hits} pixels hit", flush=True)
+    return [check_kernel(dict(
+        name="splat_zbuf", tol=0.0, source="vulcan_tpu_torch/csrc/splat_zbuf.cu",
+        replaces="vulcan_tpu/ops/splat.py _splat_zbuf_surfels (two lax.while_loop tiers)",
+        call=lambda: run("luma")[0], count=count,
+        plain=lambda: run("luma", plain=True)[0],
+        bytes=nv * 4 + listed.numel() * (4 + 12) + 4 * int(stop.sum()) + 4 * live
+        + 2 * 4 * h * w,
+        ops=live * S1_OPS,
+        extra=dict(visible_rows=nv, surfel_blocks=listed.numel(), surfels=live,
+                   pixels_hit=hits, mode="luma"),
+    ), torch)]
 
 
 NODE_REPS = 20          # IF/ELSE nodes a graph when one node's cost is timed
@@ -1370,20 +1450,24 @@ def want_per_frame(config, known=False, k2_per_frame=1) -> dict[str, int]:
     """The launches a frame of the main path takes: K1 once, K2
     ``k2_per_frame`` times, the track's as ``track_launches`` (none at a
     known pose), R1's two kernels once under the march and never under the
-    splat, I1 once (every frame integrates its band)."""
+    splat, I1 once (every frame integrates its band), S1 once on the
+    surfel splat's own path (no polish; luma model colour, or none) and
+    never off it (the march, the direct and the cached z-buffers)."""
     h1 = {k: 0 if known else v for k, v in track_launches(config).items()}
     r1 = int(config.render_mode == "march")
+    s1 = int(config.render_mode == "splat" and config.splat_source == "surfels"
+             and config.splat_polish == 0)
     return {"bilateral": 1, "fill_smooth": k2_per_frame, **h1, "range_stamp": r1,
-            "range_expand": r1, "integrate": 1}
+            "range_expand": r1, "integrate": 1, "splat_zbuf": s1}
 
 
 def want_nodes(config, mode="depth", known=False) -> dict[str, int]:
     """The conditional nodes a replayed frame evaluates, on a frame that
     auto-photo has not armed: a WHILE node for each loop of the render the
-    frame takes (the surfel splat's two tiers; the direct z-buffer's
-    chunks; the render cache's halo chunks, and on the splat its cached
-    z-buffer's; integrate has none: I1 is one launch that reads the band's
-    count on the card), and an IF/ELSE node for each of auto-photo's two
+    frame takes (the direct z-buffer's chunks; the render cache's halo
+    chunks, and on the splat its cached z-buffer's; the surfel splat and
+    integrate have none: S1 and I1 are one launch each that reads its
+    list's count on the card), and an IF/ELSE node for each of auto-photo's two
     ``cond``s (depth mode, tracked) and for each march level's compaction
     branch.  The render has colour in the photometric modes and at a known
     pose, not on an unarmed depth-mode frame."""
@@ -1400,7 +1484,7 @@ def want_nodes(config, mode="depth", known=False) -> dict[str, int]:
         surfels = config.splat_source == "surfels"
         need_cache = config.splat_polish > 0 or (
             with_color and not (surfels and config.splat_polish == 0))
-        render = 2 if need_cache or surfels else 1
+        render = 2 if need_cache else 0 if surfels else 1
     return {"graph_while": render, "graph_ifelse": ifelse}
 
 
@@ -1410,7 +1494,8 @@ def check_launches(label, frames, want, captured, nodes=None, eager=None) -> dic
     Captured, the warm-up frames run eagerly with both sides of every
     ``sync.cond`` (at least ``want``, no conditional node), and every later
     frame is a replay that takes exactly ``want``, the WHILE and IF/ELSE
-    nodes of ``nodes`` and at least one WHILE iteration; given ``eager``,
+    nodes of ``nodes`` and at least one WHILE iteration where it has a
+    WHILE node (none where it has none); given ``eager``,
     the chunk-loop bodies and ``cond``s of an eager run of the same frames
     (``run_pipeline``'s ``chunks`` and ``conds``), exactly its bodies as
     WHILE iterations and its ``cond``s as IF/ELSE nodes on every frame.
@@ -1428,7 +1513,7 @@ def check_launches(label, frames, want, captured, nodes=None, eager=None) -> dic
                 graph.update(graph_while_next=eager["chunks"][i],
                              graph_ifelse=eager["conds"][i])
             else:
-                ok = ok and got["graph_while_next"] >= 1
+                ok = ok and (got["graph_while_next"] >= 1) == (nodes["graph_while"] > 0)
         ok = ok and all(got[k] == v for k, v in graph.items())
         if not ok:
             fail(f"{label}: {kind} frame {i} launched {got} on the card, expected "
@@ -1855,8 +1940,8 @@ def mesh_and_api(P, torch, cfg, cam, poses, frames, pipe, dev) -> dict:
         check_graph_run("(b)", pipe0, run0, cfg0)
     else:
         check_eager_run("(b)", run0, cfg0)
-        if step_reads != 3 * n:
-            fail(f"(b) the step read {step_reads} times over {n} frames, expected 3 "
+        if step_reads != 2 * n:
+            fail(f"(b) the step read {step_reads} times over {n} frames, expected 2 "
                  "a frame")
     full0 = pipe0.extract_mesh()
     if not int(full0.count) > 0:
@@ -2627,6 +2712,7 @@ def main() -> None:
     kernels += graph_node_kernels(torch, dev)
     kernels += range_image_kernel(P, torch, dev, cam, poses, frames)
     kernels += integrate_kernel(P, torch, dev, cam, poses)
+    kernels += splat_zbuf_kernel(P, torch, dev, cam)
 
     phase("3 main path: Pipeline.process, default Config, depth mode, 480x640")
     torch.cuda.synchronize()
@@ -2790,10 +2876,10 @@ def main() -> None:
     phase("9 entry points: the CLI at 640x480 (synthetic, mesh, a TUM sequence)")
     t0 = time.perf_counter()
     # The eager step's host reads a frame (phase 3c): the integrate chunk
-    # count with the auto-photo render's branch, the splat's tier lengths,
-    # and in depth mode the auto-photo track's branch.
+    # count with the auto-photo render's branch, and in depth mode the
+    # auto-photo track's branch (S1 reads nothing on the host).
     cli_report = entry_points(P, torch, cfg, cam, poses, frames, dev,
-                              {"depth": 3.0, "known poses": 2.0, "combined": 2.0},
+                              {"depth": 2.0, "known poses": 1.0, "combined": 1.0},
                               mesh_report["ply_snapshot"]["snapshot"],
                               mesh_report["full"]["triangles"])
     os.remove(mesh_report["ply_snapshot"].pop("snapshot"))

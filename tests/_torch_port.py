@@ -75,9 +75,9 @@ def se3_t(p) -> TSE3:
 
 
 # The main path's kernel entries of ``cuda_kernels``: K1, K2, H1a-H1c, the
-# fused track step, R1 and I1.
+# fused track step, R1, I1 and S1.
 KERNEL_ENTRIES = ("bilateral", "fill_smooth", "icp_associate", "icp_rows", "icp_solve",
-                  "icp_rows_solve", "range_image", "integrate")
+                  "icp_rows_solve", "range_image", "integrate", "splat_zbuf")
 
 
 @pytest.fixture

@@ -124,10 +124,21 @@ def _integrate_on(x):
         torch.tensor(0, **i32), _ICP_CAM, sparse.i1_scalars(CFG_T))
 
 
+def _splat_zbuf_on(x):
+    """S1's entry point on CPU tensors of 4 blocks: the luma buffer, the
+    visible list, its count, the surfels, the colours, the coordinates and
+    the pose."""
+    i32 = dict(dtype=torch.int32)
+    return cuda_kernels.splat_zbuf(
+        x.to(torch.int32), "luma", torch.arange(4, **i32), torch.tensor(2, **i32),
+        (torch.zeros((4, 8), **i32), torch.zeros(4, **i32)), torch.zeros((4, 512), **i32),
+        torch.zeros((4, 3), **i32), x.new_zeros(15), _ICP_CAM, splat.splat_scalars(CFG_T))
+
+
 @pytest.mark.parametrize(
     "launch", ["bilateral", "fill_smooth", "fill_smooth_fused", "subsample2",
                "icp_associate", "icp_rows", "icp_solve", "icp_rows_solve", "range_image",
-               "integrate"])
+               "integrate", "splat_zbuf"])
 def test_kernel_entry_refuses_cpu_tensors(launch):
     """A CUDA entry point given a CPU tensor raises before anything is
     built or loaded (the wrappers never send it one)."""
@@ -156,6 +167,7 @@ def test_kernel_entry_refuses_cpu_tensors(launch):
             x.reshape(-1) > 0, torch.tensor(64, dtype=torch.int32), torch.tensor(False),
             x.sum(), x.sum(), (1, 1), 6, 16, (8, 8)),
         "integrate": lambda x: _integrate_on(x),
+        "splat_zbuf": lambda x: _splat_zbuf_on(x),
     }[launch]
     with pytest.raises(ValueError, match="CUDA tensor"):
         fn(torch.ones((8, 8)))

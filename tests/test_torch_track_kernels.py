@@ -404,7 +404,8 @@ def test_kernel_signatures_match_the_c_entry_points():
     assert {"vulcan_icp_associate", "vulcan_icp_rows", "vulcan_icp_solve",
             "vulcan_icp_rows_solve", "vulcan_graph_while", "vulcan_graph_while_next",
             "vulcan_graph_cond", "vulcan_range_stamp",
-            "vulcan_range_expand"} <= set(cuda_kernels._SIGNATURES)
+            "vulcan_range_expand", "vulcan_integrate",
+            "vulcan_splat_zbuf"} <= set(cuda_kernels._SIGNATURES)
     for name, argtypes in cuda_kernels._SIGNATURES.items():
         m = re.search(rf'extern "C" int {name}\((.*?)\)\s*\{{', text, re.S)
         assert m, name

@@ -158,6 +158,7 @@ _SIGNATURES = {
     "vulcan_range_stamp": [_P] * 11 + [_I] * 4 + [_P] * 4,
     "vulcan_range_expand": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     "vulcan_integrate": [_P] * 5 + [_I] * 5 + [_F] * 14 + [_P] * 9,
+    "vulcan_splat_zbuf": [_I] + [_P] * 8 + [_I] * 5 + [_F] * 9 + [_P] * 3,
 }
 
 
@@ -224,7 +225,7 @@ def _launch(fn, x: torch.Tensor, *args) -> int:
 # sees).  ``launch_counts`` reads them, ``reset_launch_counts`` zeroes them.
 COUNTED = ("bilateral", "fill_smooth", "icp_associate", "icp_rows", "icp_solve",
            "icp_rows_solve", "graph_while", "graph_while_next", "graph_ifelse", "trace_mark",
-           "range_stamp", "range_expand", "integrate")
+           "range_stamp", "range_expand", "integrate", "splat_zbuf")
 _counters: dict[int, torch.Tensor] = {}
 
 
@@ -1146,3 +1147,78 @@ def integrate(ids: torch.Tensor, count: torch.Tensor, pose: torch.Tensor,
         mesh_dirty.data_ptr(), surf_overflow.data_ptr(), launch_counter(tsdf, "integrate"),
     )
     _raise_on(err, "integrate")
+
+
+# S1, the surfel splat's z-buffer (csrc/splat_zbuf.cu): one launch splats every
+# listed block's surfels into a buffer by integer atomics (two for rgb).
+SPLAT_ZBUF_MODES = ("depth", "luma", "rgb")   # csrc/splat_zbuf.cu Mode
+SPLAT_MAX_SLOTS = 512               # csrc/splat_zbuf.cu kMaxSlots
+
+
+class SplatScalars(NamedTuple):
+    """S1's ``Config`` scalars (the wrapper rounds each to float32, as the
+    plain version's ops round a Python float on the card)."""
+
+    voxel_size: float
+    mu: float               # trunc_dist
+    ray_near: float
+    ray_far: float
+    zq_scale: float         # splat._ZQ_MAX / ray_far: a depth's quantization step
+    cull: bool              # splat_backface_cull
+
+
+def splat_zbuf(out: torch.Tensor, mode: str, ids: torch.Tensor, count: torch.Tensor,
+               surfels: tuple[torch.Tensor, torch.Tensor], colorpack: torch.Tensor,
+               block_coords: torch.Tensor, frame: torch.Tensor,
+               camera: tuple[float, float, float, float], scalars: SplatScalars,
+               zref: torch.Tensor | None = None) -> None:
+    """Launch S1 once: splat the surfels of the blocks listed in the int32
+    ``ids`` below the 0-d int32 ``count`` (read on the card; ids <= 0 and
+    blocks without a surfel are skipped) at the (15,) float32 ``frame``
+    (world-to-camera R row-major, t, the camera centre in the world) into
+    ``out``, an (H, W) buffer the caller has filled, in place: in ``mode``
+    "depth" a float32 min (fill +inf), "luma" the int32 packed-word min
+    (fill ``splat._LUMA_EMPTY``), "rgb" the int32 rgb888 max (fill -1) of
+    the surfels whose depth is within 1e-5 m of the float32 ``zref``, the
+    finished depth buffer.  ``surfels`` = (surfpack (num_blocks, slots),
+    surf_count); ``colorpack`` (num_blocks, 512)."""
+    surfpack, surf_count = surfels
+    if mode not in SPLAT_ZBUF_MODES:
+        raise ValueError(f"splat_zbuf: mode must be one of {SPLAT_ZBUF_MODES}, got {mode!r}")
+    slots = surfpack.shape[-1]
+    if not 1 <= slots <= SPLAT_MAX_SLOTS:
+        raise ValueError(f"splat_zbuf: {slots} surfel slots a block, at most {SPLAT_MAX_SLOTS}")
+    if not scalars.ray_near >= 0.0:
+        raise ValueError("splat_zbuf: depths are ordered as their float32 bits, which "
+                         f"needs ray_near >= 0, got {scalars.ray_near}")
+    nb = surfpack.shape[0]
+    _check(out, "splat_zbuf out", ((torch.float32,) if mode == "depth" else (torch.int32,)))
+    _check(ids, "splat_zbuf ids", (torch.int32,), ndim=1)
+    _check_scalar(count, torch.int32, "splat_zbuf count")
+    _check(surfpack, "splat_zbuf surfpack", (torch.int32,))
+    _check(surf_count, "splat_zbuf surf_count", (torch.int32,), ndim=1)
+    _check(colorpack, "splat_zbuf colorpack", (torch.int32,))
+    _check(block_coords, "splat_zbuf block_coords", (torch.int32,))
+    _check_vector(frame, "splat_zbuf frame", 15)
+    if not (surf_count.shape == (nb,) and colorpack.shape == (nb, INTEGRATE_BLOCK_VOXELS)
+            and block_coords.shape == (nb, 3)):
+        raise ValueError("splat_zbuf: the volume's arrays disagree on the block count")
+    if (zref is None) != (mode != "rgb"):
+        raise ValueError("splat_zbuf: the rgb mode, and it alone, takes zref")
+    if zref is not None:
+        _check(zref, "splat_zbuf zref")
+        if zref.shape != out.shape:
+            raise ValueError(f"splat_zbuf: zref is {tuple(zref.shape)}, not {tuple(out.shape)}")
+    tensors = (ids, count, surfpack, surf_count, colorpack, block_coords, frame,
+               *(() if zref is None else (zref,)))
+    if any(x.device != out.device for x in tensors):
+        raise ValueError("splat_zbuf: the list, the pose and the volume lie on different devices")
+    h, w = out.shape
+    *floats, cull = scalars
+    err = _launch(
+        load().vulcan_splat_zbuf, out, SPLAT_ZBUF_MODES.index(mode), ids.data_ptr(),
+        count.data_ptr(), surfpack.data_ptr(), surf_count.data_ptr(), colorpack.data_ptr(),
+        block_coords.data_ptr(), frame.data_ptr(), _ptr(zref), ids.shape[0], slots, h, w,
+        int(cull), *camera, *floats, out.data_ptr(), launch_counter(out, "splat_zbuf"),
+    )
+    _raise_on(err, "splat_zbuf")

@@ -5,8 +5,9 @@ Counterpart of ``vulcan_tpu/ops/splat.py``'s ``render_splat``:
   1. the z-buffer, from one of three sources:
      ``_splat_zbuf_surfels`` (``splat_source="surfels"``, the default):
      every surfel of the persistent per-block lists (z_surf = z_voxel +
-     tsdf * mu on the voxel's own ray) scatter-mins its depth, in two
-     tiers over the surfel slots.  Without colour it is a float32
+     tsdf * mu on the voxel's own ray) scatter-mins its depth, by kernel
+     S1 on the card and in two tiers over the surfel slots on the CPU
+     (its plain version).  Without colour it is a float32
      z-buffer; ``model_color="luma"`` makes it one scatter-min of a packed
      ``zq19 << 12 | luma12`` int32 word, ``"rgb"`` adds a second pass that
      scatters each depth winner's rgb888;
@@ -112,7 +113,79 @@ def _local_xyz(device):
             (lidx % 8).to(torch.float32))
 
 
-def _splat_zbuf_surfels(
+def _scatter_surfels(buf, volume: B.VolumeState, camera: PinholeCamera, w2c: SE3, cw,
+                     ids, lanes_ok, s_lo: int, s_hi: int, height: int, width: int,
+                     config: Config, luma: bool = False, zref=None) -> None:
+    """Scatter surfel slots [s_lo, s_hi) of the blocks ``ids`` (int64,
+    (C,)) into ``buf`` where ``lanes_ok`` ((C, 1) or (C, s_hi - s_lo) bool)
+    holds; index H*W of ``buf`` is a trash slot for the masked lanes.  The
+    min depth, or with ``luma`` the packed luma word, or (``zref`` given)
+    the max rgb888 colour of the surfels whose depth won ``zref``.
+    ``w2c``: the world-to-camera pose; ``cw``: the camera centre."""
+    vs = config.voxel_size
+    mu = config.trunc_dist
+    npix = height * width
+    rows = volume.surfpack[ids][:, s_lo:s_hi]
+    lidx, t, valid, (gx, gy, gz) = B.unpack_surfels(rows)
+    valid = valid & lanes_ok
+    coords = volume.block_coords[ids].to(torch.float32)  # (C, 3)
+
+    lx = (lidx // 64).to(torch.float32)
+    ly = ((lidx // 8) % 8).to(torch.float32)
+    lz = (lidx % 8).to(torch.float32)
+    wx = (coords[:, 0:1] * 8 + lx) * vs
+    wy = (coords[:, 1:2] * 8 + ly) * vs
+    wz = (coords[:, 2:3] * 8 + lz) * vs
+    cx, cy, cz = _to_camera(w2c, wx, wy, wz)
+    z_surf = cz + t * mu
+    # Back-face cull: the stored orientation points outward; a
+    # surfel facing away from the camera must not write depth.
+    if config.splat_backface_cull:
+        back = (
+            gx * (wx - cw[0]) + gy * (wy - cw[1]) + gz * (wz - cw[2])
+        ) > 0.0
+    else:
+        back = torch.zeros_like(valid)
+    zok = (
+        valid
+        & ~back
+        & (z_surf > config.ray_near)
+        & (z_surf < config.ray_far)
+        & (cz > 1e-6)
+    )
+    pix, inb = _pixel(camera, cx, cy, cz, zok, height, width)
+    pix = pix.reshape(-1)
+    if zref is None and not luma:
+        buf.scatter_reduce_(
+            0, pix, torch.where(inb, z_surf, float("inf")).reshape(-1),
+            "amin",
+        )
+        return
+    # The voxel's colour word (w8|r8|g8|b8) within its block's row.
+    word = torch.gather(volume.colorpack[ids], 1, lidx.to(torch.int64))
+    r, g, b = (word >> 16) & 0xFF, (word >> 8) & 0xFF, word & 0xFF
+    if luma:
+        lum = (0.299 * r + 0.587 * g + 0.114 * b) * (1.0 / 255.0)
+        i12 = torch.clamp(torch.round(lum * 4095.0), 0, 4095).to(torch.int32)
+        zq = torch.clamp(
+            torch.round(z_surf * (_ZQ_MAX / config.ray_far)),
+            0, _ZQ_MAX - 1,   # keeps the word below _LUMA_EMPTY
+        ).to(torch.int32)
+        packed = (zq << 12) | i12
+        buf.scatter_reduce_(
+            0, pix, torch.where(inb, packed, _LUMA_EMPTY).reshape(-1),
+            "amin",
+        )
+        return
+    rgb888 = (r << 16) | (g << 8) | b
+    zb = zref[torch.clamp(pix, max=npix - 1)].reshape(z_surf.shape)
+    win = inb & (z_surf <= zb + 1e-5)
+    buf.scatter_reduce_(
+        0, pix, torch.where(win, rgb888, -1).reshape(-1), "amax"
+    )
+
+
+def _splat_zbuf_surfels_plain(
     volume: B.VolumeState,
     camera: PinholeCamera,
     pose: SE3,
@@ -122,24 +195,15 @@ def _splat_zbuf_surfels(
     with_color: bool = False,
     luma: bool = False,
 ):
-    """Z-buffer (H*W,) from the persistent surfel lists.  Tier 1 scatters
-    slots [0, S/2) of every surface block in chunks of 2048 blocks, tier 2
-    slots [S/2, S) of the blocks that use them in chunks of 512: the
-    reference's two ``lax.while_loop``s (``utils.sync.chunk_loop``).
-    Eager, the tiers' lengths are read on the host (one counted read) to
-    size the chunk loops; while a CUDA graph is captured, each loop is one
-    WHILE node on the device length.  A chunk's blocks are the list's
-    entries at its device offset; lanes past the length scatter into the
-    trash slot.
-
-    Returns the float32 z-buffer (+inf = empty); with ``with_color``
-    (zbuf, rgb888 int32 buffer, -1 = no colour), whose second pass
-    scatter-maxes a surfel's colour where its depth is within 1e-5 m of
-    the finished z-buffer; with ``luma`` the packed int32 buffer of one
-    scatter-min (nearest depth bin wins, ties to the darker luma; decode
-    with ``_decode_luma_zbuf``)."""
-    vs = config.voxel_size
-    mu = config.trunc_dist
+    """Kernel S1's plain version, on any device: tier 1 scatters slots
+    [0, S/2) of every surface block in chunks of 2048 blocks, tier 2 slots
+    [S/2, S) of the blocks that use them in chunks of 512: the reference's
+    two ``lax.while_loop``s (``utils.sync.chunk_loop``).  Eager, the tiers'
+    lengths are read on the host (one counted read) to size the chunk
+    loops; while a CUDA graph is captured, each loop is one WHILE node on
+    the device length.  A chunk's blocks are the list's entries at its
+    device offset; lanes past the length scatter into the trash slot.
+    Returns what ``_splat_zbuf_surfels`` returns."""
     S = config.surfel_slots
     w2c = pose.inverse()
     cw = pose.translation                       # camera centre, world
@@ -157,10 +221,8 @@ def _splat_zbuf_surfels(
 
     def scatter_tier(buf, ids_list, n_list, host_n, s_lo, s_hi, chunk, zref=None):
         """Scatter surfel slots [s_lo, s_hi) of the first ``n_list`` listed
-        blocks into ``buf`` (index npix is a trash slot for masked lanes),
-        in chunks of ``chunk`` blocks: min-z, or the packed luma word, or
-        (``zref`` given) the rgb888 colour of the surfels whose depth won
-        ``zref``.  ``host_n``: ``n_list`` read on the host (eager)."""
+        blocks into ``buf``, in chunks of ``chunk`` blocks.  ``host_n``:
+        ``n_list`` read on the host (eager)."""
         C = min(chunk, V)
         lanes = torch.arange(C, device=dev)
         sync.chunk_loop(n_list, V, C, functools.partial(
@@ -172,64 +234,8 @@ def _splat_zbuf_surfels(
         listed = offset + lanes
         ids = ids_list[listed].to(torch.int64)
         rv = (listed < n_list) & (ids > 0)
-        rows = volume.surfpack[ids][:, s_lo:s_hi]
-        lidx, t, valid, (gx, gy, gz) = B.unpack_surfels(rows)
-        valid = valid & rv[:, None]
-        coords = volume.block_coords[ids].to(torch.float32)  # (C, 3)
-
-        lx = (lidx // 64).to(torch.float32)
-        ly = ((lidx // 8) % 8).to(torch.float32)
-        lz = (lidx % 8).to(torch.float32)
-        wx = (coords[:, 0:1] * 8 + lx) * vs
-        wy = (coords[:, 1:2] * 8 + ly) * vs
-        wz = (coords[:, 2:3] * 8 + lz) * vs
-        cx, cy, cz = _to_camera(w2c, wx, wy, wz)
-        z_surf = cz + t * mu
-        # Back-face cull: the stored orientation points outward; a
-        # surfel facing away from the camera must not write depth.
-        if config.splat_backface_cull:
-            back = (
-                gx * (wx - cw[0]) + gy * (wy - cw[1]) + gz * (wz - cw[2])
-            ) > 0.0
-        else:
-            back = torch.zeros_like(valid)
-        zok = (
-            valid
-            & ~back
-            & (z_surf > config.ray_near)
-            & (z_surf < config.ray_far)
-            & (cz > 1e-6)
-        )
-        pix, inb = _pixel(camera, cx, cy, cz, zok, height, width)
-        pix = pix.reshape(-1)
-        if zref is None and not luma:
-            buf.scatter_reduce_(
-                0, pix, torch.where(inb, z_surf, float("inf")).reshape(-1),
-                "amin",
-            )
-            return
-        # The voxel's colour word (w8|r8|g8|b8) within its block's row.
-        word = torch.gather(volume.colorpack[ids], 1, lidx.to(torch.int64))
-        r, g, b = (word >> 16) & 0xFF, (word >> 8) & 0xFF, word & 0xFF
-        if luma:
-            lum = (0.299 * r + 0.587 * g + 0.114 * b) * (1.0 / 255.0)
-            i12 = torch.clamp(torch.round(lum * 4095.0), 0, 4095).to(torch.int32)
-            zq = torch.clamp(
-                torch.round(z_surf * (_ZQ_MAX / config.ray_far)),
-                0, _ZQ_MAX - 1,   # keeps the word below _LUMA_EMPTY
-            ).to(torch.int32)
-            packed = (zq << 12) | i12
-            buf.scatter_reduce_(
-                0, pix, torch.where(inb, packed, _LUMA_EMPTY).reshape(-1),
-                "amin",
-            )
-            return
-        rgb888 = (r << 16) | (g << 8) | b
-        zb = zref[torch.clamp(pix, max=npix - 1)].reshape(z_surf.shape)
-        win = inb & (z_surf <= zb + 1e-5)
-        buf.scatter_reduce_(
-            0, pix, torch.where(win, rgb888, -1).reshape(-1), "amax"
-        )
+        _scatter_surfels(buf, volume, camera, w2c, cw, ids, rv[:, None], s_lo, s_hi,
+                         height, width, config, luma, zref)
 
     def tiers(buf, zref=None):
         scatter_tier(buf, render_ids, n_surf, lengths[0], 0, s1, 2048, zref)
@@ -245,6 +251,68 @@ def _splat_zbuf_surfels(
         return zbuf
     cbuf = tiers(torch.full((npix + 1,), -1, dtype=torch.int32, device=dev), zbuf)
     return zbuf, cbuf
+
+
+def splat_scalars(config: Config) -> cuda_kernels.SplatScalars:
+    """The ``Config`` scalars S1 takes: each as the plain version's ops see
+    it (the depth quantization's scale is ``_ZQ_MAX / ray_far`` in float64,
+    rounded to float32 by the wrapper)."""
+    return cuda_kernels.SplatScalars(
+        config.voxel_size, config.trunc_dist, config.ray_near, config.ray_far,
+        _ZQ_MAX / config.ray_far, config.splat_backface_cull,
+    )
+
+
+def _splat_zbuf_surfels(
+    volume: B.VolumeState,
+    camera: PinholeCamera,
+    pose: SE3,
+    height: int,
+    width: int,
+    config: Config,
+    with_color: bool = False,
+    luma: bool = False,
+):
+    """Z-buffer (H*W,) from the persistent surfel lists: every surfel of a
+    visible block scatter-mins its depth.  A CPU volume takes the plain
+    version (``_splat_zbuf_surfels_plain``, the reference's two tiers of
+    chunk loops); a CUDA volume launches kernel S1 (``csrc/splat_zbuf.cu``,
+    ``cuda_kernels.splat_zbuf``) once, twice with ``with_color``, which
+    walks the visible list below its device count (no host read, no loop
+    node) and raises for more than ``cuda_kernels.SPLAT_MAX_SLOTS``
+    ``surfel_slots``.  Every launch is counted on the card:
+    ``cuda_kernels.launch_counts``.
+
+    Returns the float32 z-buffer (+inf = empty); with ``with_color``
+    (zbuf, rgb888 int32 buffer, -1 = no colour), whose second pass
+    scatter-maxes a surfel's colour where its depth is within 1e-5 m of
+    the finished z-buffer; with ``luma`` the packed int32 buffer of one
+    scatter-min (nearest depth bin wins, ties to the darker luma; decode
+    with ``_decode_luma_zbuf``)."""
+    if volume.tsdf.is_cpu:
+        return _splat_zbuf_surfels_plain(volume, camera, pose, height, width, config,
+                                         with_color, luma)
+    dev = volume.tsdf.device
+    w2c = pose.inverse()
+    frame = torch.cat([w2c.rotation.reshape(9), w2c.translation,
+                       pose.translation]).to(dev)
+    scalars = splat_scalars(config)
+
+    def launch(mode, fill, dtype, zref=None):
+        buf = torch.full((height, width), fill, dtype=dtype, device=dev)
+        cuda_kernels.splat_zbuf(
+            buf, mode, volume.visible_ids, volume.num_visible,
+            (volume.surfpack, volume.surf_count), volume.colorpack, volume.block_coords,
+            frame, (camera.fx, camera.fy, camera.cx, camera.cy), scalars, zref)
+        return buf
+
+    if luma:
+        return launch("luma", _LUMA_EMPTY, torch.int32).reshape(-1)
+    zbuf = launch("depth", float("inf"), torch.float32)
+    if not with_color:
+        return zbuf.reshape(-1)
+    cbuf = launch("rgb", -1, torch.int32, zbuf)
+    return zbuf.reshape(-1), cbuf.reshape(-1)
 
 
 def _splat_zbuf_direct(

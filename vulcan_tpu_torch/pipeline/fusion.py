@@ -9,10 +9,11 @@ reference runs this as one jitted, donated function.  Here it runs
 eagerly, with the volume updated in place, or, at every configuration
 ``check_supported`` accepts, as one CUDA graph that ``pipeline/api.py``'s
 ``Pipeline`` captures and replays on the card.  Its data-dependent loops
-and branches go through ``utils.sync``: the integrate chunks, the
-splat's surfel tiers or its direct or cached z-buffer chunks, the render
-cache's halo chunks, the march's compaction branch a level and the
-auto-photo branches.  Eager, their counts and predicates are read on the
+and branches go through ``utils.sync``: the splat's direct or cached
+z-buffer chunks, the render cache's halo chunks, the march's compaction
+branch a level and the auto-photo branches, and on the CPU the integrate
+chunks and the splat's surfel tiers (on the card kernels I1 and S1 read
+those counts on the device).  Eager, their counts and predicates are read on the
 host (counted by ``utils.sync.read_int``); captured, they are WHILE and
 IF/ELSE nodes on the device values.
 
