@@ -7,11 +7,14 @@ from the seed, the ``Pipeline``, warm-up frames that build the kernels
 and capture the step's CUDA graph), a closed-loop window of ``--seconds``
 in which each frame is handed over as host uint16 depth and uint8 rgb
 arrays and the next one only once the frame's pose is on the host, then
-the comparison with the plain references (``check.py``), and one JSON
-line on standard output.  ``--trace 1`` reports the per-layer metrics
-(``metrics/``) instead of the end-to-end ones, from the same window and
-a profiled span after it.  Without a CUDA card, or with fewer than the
-cell asks for, it prints no result and exits 2.
+the comparison with the plain references by the checks the cell's
+configuration names (``check.py``, ``checks/``), and one JSON line on
+standard output.  ``--trace 1`` reports the per-layer metrics
+(``metrics/``) instead of the end-to-end ones, from the same window (the
+``Pipeline`` built traced: its spans of the window's frames) and a
+profiled span after it.  Without a CUDA card, or with fewer than the
+cell asks for, it prints no result and exits 2; a configuration its
+checks refuse stops the run before set-up.
 """
 from __future__ import annotations
 
@@ -169,12 +172,12 @@ def profile_span(loop: Loop, frames: int, card) -> dict:
             "traced": trace.kernel_counts(dev)}
 
 
-def check_trace(span: dict, metrics) -> None:
+def check_trace(span: dict, metrics, root=spec.ROOT) -> None:
     """Raise unless the trace holds every launch that the card's own
     counters saw of each counted kernel that a reported metric reads from
     the trace (its reader's ``TRACED``): a trace that dropped some would
     give a partial number."""
-    need = {k for m in metrics for k in spec.traced_kernels(m["name"])}
+    need = {k for m in metrics for k in spec.traced_kernels(m["name"], root)}
     short = {k: (span["traced"][k], span["card"][k]) for k in need
              if span["traced"][k] < span["card"][k]}
     if short:
@@ -215,14 +218,13 @@ class Card:
                 "memory_peak_bytes": peak, "power_limit": power_limit()}
 
 
-def model_copy(state, torch) -> dict:
-    """The model maps a frame tracks against, copied before the frame
-    overwrites them."""
-    m = state.model
-    return {"vertex": torch.stack([m.vx, m.vy, m.vz], -1).clone(),
-            "normal": torch.stack([m.nx, m.ny, m.nz], -1).clone(),
-            "valid": m.valid.clone(), "R": m.pose.rotation.clone(),
-            "t": m.pose.translation.clone()}
+def window_spans(pipe, stop: int) -> dict | None:
+    """The program's spans (``Pipeline.trace_spans``) of the window's
+    frames, which end before frame ``stop``: all of them, or the last
+    ``RING_FRAMES`` where the window ran more than the ring holds."""
+    from vulcan_tpu_torch.utils.timing import RING_FRAMES
+
+    return pipe.trace_spans(max(WARM_FRAMES, stop - RING_FRAMES), stop)
 
 
 def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool, control: bool = False,
@@ -238,6 +240,7 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool, control: b
     from vulcan_tpu_torch.pipeline.api import Pipeline
 
     card = card or Card()
+    plan = check.prepare(cell)
     conf = cell.config
     sensor = conf["sensor"]
     config = build_config(conf)
@@ -245,7 +248,7 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool, control: b
     cam = PinholeCamera.create(sensor["fx"], sensor["fy"], sensor["cx"], sensor["cy"])
     init = SE3(torch.from_numpy(stream.rotation[0]), torch.from_numpy(stream.translation[0]))
     pipe = Pipeline(config, cam, sensor["height"], sensor["width"], init_pose=init,
-                    mode=conf["mode"], device=card.device)
+                    mode=conf["mode"], device=card.device, trace=traced)
     loop = Loop(cell, stream, pipe, torch)
     for _ in range(WARM_FRAMES):
         loop.frame()
@@ -265,45 +268,36 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool, control: b
     c1 = card.counts()
     n_win = len(lat_s)
 
-    span = None
+    span = spans = None
     if traced:
+        spans = window_spans(pipe, WARM_FRAMES + n_win)
         profile_span(loop, THROWAWAY_FRAMES, card)
         span = profile_span(loop, PROFILED_FRAMES, card)
-        check_trace(span, cell.per_layer)
+        check_trace(span, cell.per_layer, cell.root)
     peak = card.peak_bytes()
     graph_stats = pipe.graph_stats
 
     # --- frames after the window whose track the reference follows ---------
-    tracked = []
+    program = {}        # what the checks keep of the program
     if not loop.known:
         for _ in range(TRACK_FRAMES):
-            before = model_copy(pipe.state, torch)
-            tracked.append((loop.i, before))
+            check.before_frame(plan, pipe, loop.i, program)
             loop.frame()
     diag = pipe.diagnostics()
+    check.read(plan, pipe, program)
 
     # --- the comparison, once the window has closed and the peak is read --
-    s = pipe.state
-    volume = {"tsdf": s.volume.tsdf, "weight": s.volume.weight,
-              "colorpack": s.volume.colorpack, "block_coords": s.volume.block_coords,
-              "free_count": int(s.volume.free_count)}
-    m = s.model
-    model = {"depth": m.depth.clone(), "valid": m.valid.clone(),
-             "normal": torch.stack([m.nx, m.ny, m.nz], -1).clone(),
-             "intensity": m.color[..., 0].clone()}
-    del s, m, pipe, loop.pipe
+    del pipe, loop.pipe
     card.free()
     t_check = time.perf_counter()
-    inp = check.Inputs(stream, loop.record.arrays(), volume, model, conf, cell.traffic,
-                       card.device)
-    values, refs = check.numbers(inp, seed, diag, tracked)
-    limits = dict(cell.limits, ate_m=conf["guarantees"]["ate_m"],
-                  overflows=conf["guarantees"]["overflows"])
-    correct, checks = check.judge(values, limits)
+    inp = check.Inputs(stream, loop.record.arrays(), program, conf, cell.traffic, card.device,
+                       seed)
+    values, shared = check.numbers(plan, inp)
+    correct, checks = check.judge(values, plan.limits)
     control_correct = None
     if control:
-        ctrl = check.control_numbers(inp, refs, tracked)
-        control_correct = check.judge(ctrl, limits)[0]
+        ctrl = check.control_numbers(plan, inp, shared)
+        control_correct = check.judge(ctrl, plan.limits)[0]
         for k, v in ctrl.items():
             checks[k]["control"] = v
     print(f"diagnostics {json.dumps(diag)}; frames {loop.i}; comparison "
@@ -319,12 +313,13 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool, control: b
     dev_info = card.info(peak)
     if traced:
         reading = {"config": conf, "host_s": host_s, "window_s": window_s, "frames": n_win,
-               "counts": (c0, c1), "graph_stats": graph_stats, "span": span,
-               "track_bound_s": track_bound_s(conf["settings"], conf["mode"],
-                                              sensor["height"], sensor["width"])}
+                   "counts": (c0, c1), "graph_stats": graph_stats, "span": span,
+                   "spans": spans,
+                   "track_bound_s": track_bound_s(conf["settings"], conf["mode"],
+                                                  sensor["height"], sensor["width"])}
         vals = {}
         for metric in cell.per_layer:
-            v = spec.reader(metric["name"])(reading)
+            v = spec.reader(metric["name"], cell.root)(reading)
             if v is not None:
                 vals[metric["name"]] = {"value": v, "unit": metric["unit"]}
         result["metrics"] = vals

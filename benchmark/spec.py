@@ -1,8 +1,11 @@
 """Find a cell's parts by name: ``BENCHMARK.json`` at the checkout's root
 names each workload's configuration and traffic mix, and each metric;
 ``configs/<name>.json``, ``traffic/<name>.json``, ``limits/<workload>.json``
-and ``metrics/<metric>.py`` hold them.  A new cell or metric is new files
-and new entries, never an edit of a file here."""
+and ``metrics/<metric>.py`` hold them, and the configuration's ``checks``
+names the modules ``checks/<check>.py`` that decide ``correct``
+(``check.py``).  A new cell, metric or check is new files and new entries
+(a new check: its file under ``checks/`` and its name in a
+configuration's ``checks``), never an edit of a file here."""
 from __future__ import annotations
 
 import dataclasses
@@ -23,6 +26,7 @@ class Cell:
     limits: dict          # the limits of the numbers `correct` compares
     end_to_end: list      # BENCHMARK.json's end_to_end entries this cell reports
     per_layer: list       # BENCHMARK.json's per_layer entries this cell reports
+    root: Path = ROOT     # the checkout whose ``benchmark/`` holds its checks and readers
 
 
 def load_json(path: Path) -> dict:
@@ -57,13 +61,15 @@ def cell(name: str, root: Path = ROOT) -> Cell:
         limits=load_json(here / "limits" / f"{name}.json"),
         end_to_end=[m for m in bench["end_to_end"] if _reported(m, name)],
         per_layer=[m for m in bench["per_layer"] if _reported(m, name)],
+        root=root,
     )
 
 
-def _metric(metric: str, root: Path):
-    path = root / "benchmark" / "metrics" / f"{metric}.py"
+def _module(kind: str, name: str, root: Path):
+    """``benchmark/<kind>/<name>.py`` of ``root``, loaded by its path."""
+    path = root / "benchmark" / kind / f"{name}.py"
     spec = importlib.util.spec_from_file_location(
-        "benchmark_metric_" + metric.replace(".", "_").replace("-", "_"), path)
+        f"benchmark_{kind}_" + name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -71,10 +77,17 @@ def _metric(metric: str, root: Path):
 
 def reader(metric: str, root: Path = ROOT):
     """The ``read(run)`` function of ``metrics/<metric>.py``."""
-    return _metric(metric, root).read
+    return _module("metrics", metric, root).read
 
 
 def traced_kernels(metric: str, root: Path = ROOT) -> tuple:
     """The counted kernels (``trace.KERNEL_NAMES``' keys) whose traced
     launches ``metrics/<metric>.py`` reads: its ``TRACED``, if any."""
-    return tuple(getattr(_metric(metric, root), "TRACED", ()))
+    return tuple(getattr(_module("metrics", metric, root), "TRACED", ()))
+
+
+def check_module(name: str, root: Path = ROOT):
+    """The module ``checks/<name>.py``; ValueError if there is none."""
+    if not (root / "benchmark" / "checks" / f"{name}.py").is_file():
+        raise ValueError(f"no module benchmark/checks/{name}.py for the check {name!r}")
+    return _module("checks", name, root)

@@ -38,9 +38,10 @@ class HostCard(run.Card):
         return {"platform": "cpu", "kind": "cpu", "count": 1, "memory_peak_bytes": peak}
 
 
-def small_cell(workload: str) -> spec.Cell:
-    """``workload`` with its sensor cut to 160x120 and its volume halved."""
-    cell = spec.cell(workload)
+def small_cell(workload: str, root=spec.ROOT) -> spec.Cell:
+    """``workload`` of ``root`` with its sensor cut to 160x120 and its
+    volume halved."""
+    cell = spec.cell(workload, root)
     conf = cell.config
     conf = dict(conf, sensor=dict(conf["sensor"], **SMALL["sensor"]),
                 settings=dict(conf["settings"], **SMALL["settings"]))

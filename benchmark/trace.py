@@ -1,7 +1,6 @@
-"""Reading a ``torch.profiler`` trace of the card, kept in memory.
+"""Reading a ``torch.profiler`` trace of the card, kept in memory, and the
+program's own spans (``span_ms``).
 
-``device_spans`` and ``busy_s`` (``busy_ms`` there) are frozen copies of
-``vulcan_tpu_torch/tools/timing.py``; the rest is the benchmark's own.
 On the card the trace of a captured step holds only the first iteration
 of each WHILE node's body (CUPTI; the counter of ``while_next_kernel``
 shows it), so what it sums of the step's device time is short by the
@@ -103,3 +102,16 @@ def top_ops(spans, n: int = 10) -> list[list]:
     for name, s, e in spans:
         tot[name[:120]] += (e - s) / 1e9
     return [[k, v] for k, v in tot.most_common(n)]
+
+
+def span_ms(spans: dict | None, name: str) -> float | None:
+    """The mean ms a frame of the program's span ``name`` in ``spans``
+    (``Pipeline.trace_spans``): its time summed over the frames read, over
+    their number, so that a span that runs on some frames only counts as
+    its share of each; None where no span was read or none is ``name``."""
+    if not spans:
+        return None
+    ns = [e - s for _, n, _, s, e in spans["spans"] if n == name]
+    if not ns:
+        return None
+    return sum(ns) / 1e6 / len({f for f, *_ in spans["spans"]})
